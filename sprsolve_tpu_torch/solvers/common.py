@@ -1,0 +1,45 @@
+"""Shared solver plumbing: early-out wrappers and info construction
+(counterpart of ``sprsolve_tpu/solvers/common.py``)."""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..errors import IncompatibleMatrixFormat, SolveInfo, Status
+from ..vecalg import eps_for, norm2
+
+
+def make_info(iterations, residual, status) -> SolveInfo:
+    return SolveInfo(iterations=int(iterations), residual=residual,
+                     status=int(status))
+
+
+def with_zero_rhs_guard(b: torch.Tensor, x0: torch.Tensor,
+                        main: Callable[[torch.Tensor], tuple]):
+    """Reference early-out: if ‖b‖ ≤ ε, return x = 0 with Ok((0, ‖b‖))
+    (``src/bicg_stab.rs:56-60``). ``main`` receives ``rhs_norm`` and returns
+    ``(x, SolveInfo)``. One host read of ‖b‖."""
+    rhs_norm = norm2(b)
+    if bool(rhs_norm <= eps_for(b.dtype, b.device)):
+        return torch.zeros_like(x0), make_info(0, rhs_norm, Status.CONVERGED)
+    return main(rhs_norm)
+
+
+def check_shapes(A, b: torch.Tensor, x0: torch.Tensor) -> None:
+    """Dimension checks — the reference's IncompatibleMatrixFormat returns
+    (``src/bicg_stab.rs:44-53``).
+
+    Operators with their own vector layout (``pad_vec``) take vectors of
+    ``padded_len``; every other operator takes vectors of ``A.shape[1]``."""
+    if b.dim() == 1 and getattr(A, "shape", None) is not None:
+        n = A.padded_len if hasattr(A, "pad_vec") else A.shape[1]
+        if b.shape[0] != n:
+            raise IncompatibleMatrixFormat(
+                "Input vec dimension doesn't match the matrix size"
+            )
+    if x0.shape != b.shape:
+        raise IncompatibleMatrixFormat(
+            "Input and output vec dimension do not match"
+        )

@@ -26,6 +26,14 @@ jax.config.update("jax_num_cpu_devices", 8)
 jax.config.update("jax_enable_x64", True)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA GPU; the test skips itself when "
+        "torch.cuda.is_available() is false",
+    )
+
+
 @pytest.fixture(autouse=True, scope="session")
 def _interpret_pallas():
     """The CPU backend only runs Pallas kernels in interpreter mode; enable

@@ -6,19 +6,21 @@ name.  Plain tensor code is PyTorch; the padded-DIA SpMV kernels that the
 JAX package wrote in Pallas are CUDA C++ for Hopper (``csrc/``), built with
 nvcc at first use.  The package imports no JAX.
 
-This first slice covers Jacobi-BiCGStab on the padded-DIA kernels K1/K2:
-``solve(A, b, method="bicgstab", M="jacobi", device="cuda")``, ``prepare``
-and the ``BiCGStab`` handle.
+Ported so far: BiCGStab on the padded-DIA kernels K1/K2, and MINRES and CG
+on K3/K4, with BiCGStab(ℓ) as ``method="auto"``'s nonsymmetric route:
+``solve(A, b, method="bicgstab" | "minres" | "cg" | "bicgstabl" | "auto",
+M="jacobi", device="cuda")``, ``prepare`` and the ``BiCGStab``, ``MinRes``
+and ``CG`` handles.
 """
 
 from . import errors, precond, vecalg
-from .api import BiCGStab, PreparedSolver, prepare, solve
+from .api import CG, BiCGStab, MinRes, PreparedSolver, prepare, solve
 from .errors import SolveInfo, SolverError, Status
 from .ops.operator import DiagonalOperator, IdentityOperator, LinearOperator
 from .ops.optimize import optimize
 from .ops.padded_dia import PaddedDIA
 from .precond import DiagPrecond
-from .solvers import bicgstab
+from .solvers import bicgstab, bicgstabl, cg, minres
 from .sparse import COO, CSR, DIA, csr_from_dense, csr_from_scipy
 
 __version__ = "0.1.0"
@@ -28,7 +30,12 @@ __all__ = [
     "prepare",
     "PreparedSolver",
     "BiCGStab",
+    "CG",
+    "MinRes",
     "bicgstab",
+    "bicgstabl",
+    "cg",
+    "minres",
     "COO",
     "CSR",
     "DIA",

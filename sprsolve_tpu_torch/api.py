@@ -12,9 +12,12 @@ and the layout-optimizing form::
 
 Every entry point takes an explicit ``device``; by default the solve runs on
 the device of ``b`` when it is a tensor, else on the device of ``A``.
-The first slice ports ``method="bicgstab"`` with ``M=None``, ``"jacobi"`` or
-a :class:`~sprsolve_tpu_torch.precond.DiagPrecond`; other methods and
-preconditioners raise NotImplementedError naming their ROADMAP.md item.
+Ported so far: ``method="bicgstab"``, ``"bicgstabl"``, ``"cg"``,
+``"minres"`` and ``"auto"``, with ``M=None``, ``"jacobi"`` or a
+:class:`~sprsolve_tpu_torch.precond.DiagPrecond`, and the ``BiCGStab``,
+``MinRes`` and ``CG`` handles; other methods and preconditioners (and the
+routes of ``"auto"`` to them) raise NotImplementedError naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -25,20 +28,64 @@ import torch
 
 from .errors import IncompatibleMatrixFormat
 from .ops.operator import as_operator
-from .solvers import bicgstab
+from .solvers import bicgstab, bicgstabl, cg, minres
 from .sparse.containers import CSR
 
-_SOLVERS = {"bicgstab": bicgstab}
+_SOLVERS = {"bicgstab": bicgstab, "bicgstabl": bicgstabl, "cg": cg, "minres": minres}
 
 # the JAX package's other methods and preconditioner builders, by the
 # ROADMAP.md Queue 1 item that ports them
 _LATER_METHODS = {
-    **dict.fromkeys(("auto", "minres", "cg", "bicgstabl", "lsqr"), 6),
+    "lsqr": 6,
     **dict.fromkeys(("cs_minres", "cocg"), 7),
     **dict.fromkeys(("gmres", "fgmres", "idrs", "cgs", "tfqmr", "cg_single_sync",
                      "ca_cg", "ca_bicgstab"), 10),
 }
 _LATER_M = {"ilu0": 8, "ic0": 8, "block_jacobi": 8, "amg": 10}
+
+
+def _auto_method(A, parity: str = "fast") -> str:
+    """Pick a solver from the matrix structure, on the host with NumPy and
+    scipy (``sprsolve_tpu/api.py:65-105``): Hermitian, incl. real symmetric
+    → ``minres``; complex symmetric → ``cocg``; rectangular → ``lsqr``;
+    anything else (or an operator, which cannot be inspected) →
+    ``bicgstabl``, or plain ``bicgstab`` with ``parity="reference"``."""
+    import numpy as np
+    import scipy.sparse as sps
+
+    from .sparse.containers import _host
+
+    nonsym = "bicgstab" if parity == "reference" else "bicgstabl"
+    if not isinstance(A, CSR):
+        return nonsym
+    S = sps.csr_matrix((_host(A.data), _host(A.indices), _host(A.indptr)),
+                       shape=A.shape)
+    if S.shape[0] != S.shape[1]:
+        return "lsqr"
+    scale = float(abs(S).max()) if S.nnz else 0.0
+    if scale == 0.0:
+        return nonsym
+    tol = 1e-12 * scale
+
+    def dev(X):
+        return float(abs(X).max()) if X.nnz else 0.0
+
+    if dev(S - S.conj().T) <= tol:
+        return "minres"
+    if np.iscomplexobj(S.data) and dev(S - S.T) <= tol:
+        return "cocg"
+    return nonsym
+
+
+def _resolve(method: str, A, solver_kwargs: dict):
+    """The solver for ``method``; ``"auto"`` is routed by :func:`_auto_method`
+    (``parity`` is popped from ``solver_kwargs``, and BiCGStab(ℓ) gets
+    ``l=2`` unless the caller set ``l``)."""
+    if method == "auto":
+        method = _auto_method(A, parity=solver_kwargs.pop("parity", "fast"))
+        if method == "bicgstabl":
+            solver_kwargs.setdefault("l", 2)
+    return _solver(method)
 
 
 def _solver(method: str):
@@ -126,8 +173,12 @@ def solve(
     the padded-DIA kernels for a banded float32 matrix, with the padding
     handled here) or any operator, used as it is. ``x`` comes back flat, on
     the solve's device.
+
+    ``method="auto"`` picks the solver from the matrix structure (see
+    :func:`_auto_method`; ``parity="reference"`` keeps plain BiCGStab for a
+    nonsymmetric matrix).
     """
-    solver = _solver(method)
+    solver = _resolve(method, A, solver_kwargs)
     device = _device(A, b, device)
     n = getattr(A, "shape", (None,))[0]
     # validate before padding: pad_vec would silently zero-extend a short b
@@ -187,7 +238,7 @@ def prepare(
 ) -> PreparedSolver:
     """Build a :class:`PreparedSolver` for repeated solves against ``A``;
     takes what :func:`solve` takes."""
-    solver = _solver(method)
+    solver = _resolve(method, A, solver_kwargs)
     device = _device(A, None, device)
     op, M, _ = _prepare_op_M(A, M, optimize_layout, device)
     return PreparedSolver(
@@ -205,11 +256,14 @@ def _run(fn, A, b, x, max_iter, tol, M=None):
     return xr, (int(info.iterations), float(info.residual))
 
 
-class BiCGStab:
-    """BiCGStab solver handle (reference ``src/bicg_stab.rs:25-31``).
+class _Handle:
+    """The reference's solver-handle shape: ``new(A, n)``, then ``solve`` and
+    ``precond_solve``, which raise the exception of a failure status.
 
     ``A`` is used as it is (a CSR runs the gather SpMV, not the kernels);
     ``device`` moves a CSR or a dense matrix there first."""
+
+    _fn = None
 
     def __init__(self, A, size: int, device=None):
         if device is not None and isinstance(A, CSR):
@@ -224,8 +278,27 @@ class BiCGStab:
     new = classmethod(lambda cls, A, size, device=None: cls(A, size, device))
 
     def solve(self, rhs, x=None, max_iter: int = 1000, tol: float = 1e-12):
-        return _run(bicgstab, self.A, rhs, x, max_iter, tol)
+        return _run(self._fn, self.A, rhs, x, max_iter, tol)
 
     def precond_solve(self, precond, rhs, x=None, max_iter: int = 1000,
                       tol: float = 1e-12):
-        return _run(bicgstab, self.A, rhs, x, max_iter, tol, M=precond)
+        return _run(self._fn, self.A, rhs, x, max_iter, tol, M=precond)
+
+
+class BiCGStab(_Handle):
+    """BiCGStab solver handle (reference ``src/bicg_stab.rs:25-31``)."""
+
+    _fn = staticmethod(bicgstab)
+
+
+class MinRes(_Handle):
+    """MINRES solver handle (reference ``src/minres.rs:21-27``)."""
+
+    _fn = staticmethod(minres)
+
+
+class CG(_Handle):
+    """Conjugate-gradient handle for SPD systems (no reference counterpart;
+    the handle shape of :class:`BiCGStab`)."""
+
+    _fn = staticmethod(cg)

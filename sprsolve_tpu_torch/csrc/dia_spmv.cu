@@ -1,4 +1,4 @@
-// Banded (DIA) SpMV kernels for Hopper (sm_90a): K1 and K2 of the port.
+// Banded (DIA) SpMV kernels for Hopper (sm_90a): K1, K2 and K3 of the port.
 //
 // Layout (see sprsolve_tpu_torch/ops/padded_dia.py): a vector is flat,
 // h zeros | n_pad body entries | h zeros, with h >= max |offset| and n_pad a
@@ -15,10 +15,17 @@
 //     K1 on u = dinv * x (HAS_DINV) or on x, plus one pair of partials per
 //     block, [sum w*y, sum y*y]; with W_IS_X the dot reads the raw x, as
 //     w_ref = x_ref does on the TPU.
+// K3  dia_dot_kernel replaces _dia_dot_kernel
+//     (sprsolve_tpu/ops/pallas_spmv.py:140, wrapper _dia_dotmv_pallas_call
+//     :474): K1 plus one partial per block of sum x*y, with x the raw body
+//     of the SpMV input (jnp.sum(x_ref[hr:hr+br] * acc) on the TPU) -- the
+//     mkl_sparse_?_dotmv analog behind MINRES's and CG's alpha.
 //
 // What bounds them on an H100: HBM bytes.  Per row they move
-// D * band_bytes + 2 * vec_bytes (K1), plus vec_bytes for dinv and for w
-// (K2), at 2 flops per band: far below any compute limit.  The design:
+// D * band_bytes + 2 * vec_bytes (K1 and K3), plus vec_bytes for dinv and
+// for w (K2), at 2 flops per band: far below any compute limit.  K3's dot
+// adds no stream: x's body entry is one load away in L1, already fetched
+// by the off = 0 band.  The design:
 //  * one thread per row, ROW_TILE rows per block, so every band row, the
 //    x body and y are read and written fully coalesced;
 //  * the D shifted reads of x (and dinv) overlap between neighbouring rows
@@ -27,10 +34,10 @@
 //  * the offsets live in the kernel's parameter space and the band loop is
 //    unrolled to MAX_DIAGS with an early exit, so no offset is indexed
 //    dynamically;
-//  * K2's reductions use a fixed tree (warp shuffles, then shared memory)
-//    and write one partial pair per block; the caller sums the partials in
-//    a second, fixed-order step.  No float atomics, so a solve's iteration
-//    count does not change from run to run.
+//  * K2's and K3's reductions use a fixed tree (block_sum: warp shuffles,
+//    then shared memory) and write one partial per block and sum; the
+//    caller sums the partials in a second, fixed-order step.  No float
+//    atomics, so a solve's iteration count does not change from run to run.
 // The launchers allocate nothing and never synchronise; they launch on the
 // caller's stream and return cudaGetLastError().
 
@@ -58,6 +65,33 @@ __device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 b) {
   return __bfloat162float(b);
 }
 
+template <typename V>
+__device__ __forceinline__ V warp_sum(V v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum of one value per thread over a ROW_TILE block, in a fixed tree: warp
+// shuffles, then the first warp over the per-warp sums in shared memory
+// (smem holds ROW_TILE / 32 values).  The block's sum is valid in thread 0.
+// Every thread of the block must call it.  fused.cu keeps a copy, so that
+// each source builds alone.
+template <typename V>
+__device__ __forceinline__ V block_sum(V v, V* smem) {
+  v = warp_sum(v);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) smem[warp] = v;
+  __syncthreads();
+  v = V(0);
+  if (warp == 0) {
+    v = lane < ROW_TILE / 32 ? smem[lane] : V(0);
+    v = warp_sum(v);
+  }
+  return v;
+}
+
 // sum over the band loop for one row; xi and di point at row i's body entry
 template <typename V, typename B, bool HAS_DINV>
 __device__ __forceinline__ V band_accumulate(const B* __restrict__ bands,
@@ -75,13 +109,6 @@ __device__ __forceinline__ V band_accumulate(const B* __restrict__ bands,
     acc = acc + widen<V>(bands[(long long)d * n_pad + i]) * xv;
   }
   return acc;
-}
-
-template <typename V>
-__device__ __forceinline__ V warp_sum(V v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
 }
 
 template <typename V, typename B>
@@ -113,25 +140,29 @@ dia_wdot_kernel(const B* __restrict__ bands, const V* __restrict__ x,
     y[h + n_pad + i] = V(0);
   }
   const V wv = W_IS_X ? x[h + i] : w[h + i];
-  V pw = warp_sum(wv * acc);
-  V py = warp_sum(acc * acc);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    s_w[warp] = pw;
-    s_y[warp] = py;
+  const V pw = block_sum(wv * acc, s_w);
+  const V py = block_sum(acc * acc, s_y);
+  if (threadIdx.x == 0) {
+    partials[2 * (long long)blockIdx.x] = pw;
+    partials[2 * (long long)blockIdx.x + 1] = py;
   }
-  __syncthreads();
-  if (warp == 0) {
-    pw = lane < ROW_TILE / 32 ? s_w[lane] : V(0);
-    py = lane < ROW_TILE / 32 ? s_y[lane] : V(0);
-    pw = warp_sum(pw);
-    py = warp_sum(py);
-    if (lane == 0) {
-      partials[2 * (long long)blockIdx.x] = pw;
-      partials[2 * (long long)blockIdx.x + 1] = py;
-    }
+}
+
+template <typename V, typename B>
+__global__ void __launch_bounds__(ROW_TILE)
+dia_dot_kernel(const B* __restrict__ bands, const V* __restrict__ x,
+               V* __restrict__ y, V* __restrict__ partials, long long n_pad,
+               long long h, Offsets offs) {
+  __shared__ V s_d[ROW_TILE / 32];
+  const long long i = (long long)blockIdx.x * ROW_TILE + threadIdx.x;
+  const V acc = band_accumulate<V, B, false>(bands, x + h + i, nullptr, i, n_pad, offs);
+  y[h + i] = acc;
+  if (i < h) {
+    y[i] = V(0);
+    y[h + n_pad + i] = V(0);
   }
+  const V pd = block_sum(x[h + i] * acc, s_d);
+  if (threadIdx.x == 0) partials[blockIdx.x] = pd;
 }
 
 Offsets make_offsets(const long long* offsets, int nd) {
@@ -167,6 +198,13 @@ void launch_wdot(const void* bands, const void* x, const void* dinv,
     dia_wdot_kernel<V, B, false, false><<<grid, ROW_TILE, 0, s>>>(b, xv, dv, wv, yv, pv, n_pad, h, o);
   else
     dia_wdot_kernel<V, B, false, true><<<grid, ROW_TILE, 0, s>>>(b, xv, dv, wv, yv, pv, n_pad, h, o);
+}
+
+template <typename V, typename B>
+void launch_dot(const void* bands, const void* x, void* y, void* partials,
+                long long n_pad, long long h, const Offsets& o, cudaStream_t s) {
+  dia_dot_kernel<V, B><<<(unsigned)(n_pad / ROW_TILE), ROW_TILE, 0, s>>>(
+      (const B*)bands, (const V*)x, (V*)y, (V*)partials, n_pad, h, o);
 }
 
 bool bad_geometry(long long n_pad, long long h, int nd) {
@@ -215,6 +253,22 @@ extern "C" int sprsolve_dia_wdot(int vcode, int bcode, const void* bands,
   else if (vcode == 0 && bcode == 1) launch_wdot<float, __nv_bfloat16>(bands, x, dinv, w, y, partials, n_pad, h, o, s);
   else if (vcode == 0 && bcode == 2) launch_wdot<float, int8_t>(bands, x, dinv, w, y, partials, n_pad, h, o, s);
   else if (vcode == 1 && bcode == 0) launch_wdot<double, double>(bands, x, dinv, w, y, partials, n_pad, h, o, s);
+  else return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+// partials: n_pad / ROW_TILE values, one sum of x*y per block.
+extern "C" int sprsolve_dia_dot(int vcode, int bcode, const void* bands,
+                                const void* x, void* y, void* partials,
+                                long long n_pad, long long h,
+                                const long long* offsets, int nd, void* stream) {
+  if (bad_geometry(n_pad, h, nd)) return (int)cudaErrorInvalidValue;
+  const Offsets o = make_offsets(offsets, nd);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vcode == 0 && bcode == 0) launch_dot<float, float>(bands, x, y, partials, n_pad, h, o, s);
+  else if (vcode == 0 && bcode == 1) launch_dot<float, __nv_bfloat16>(bands, x, y, partials, n_pad, h, o, s);
+  else if (vcode == 0 && bcode == 2) launch_dot<float, int8_t>(bands, x, y, partials, n_pad, h, o, s);
+  else if (vcode == 1 && bcode == 0) launch_dot<double, double>(bands, x, y, partials, n_pad, h, o, s);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,14 @@
 """Build the hand-written CUDA kernels at first use and load them with ctypes.
 
-``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library with a plain C interface.  The library's name carries a hash of the
-sources and flags, so an edited source is rebuilt and an unchanged one is
-loaded as built.  Builds go to ``build/kernels/`` at the root of the
-checkout (listed in ``.gitignore``); a build is written under a temporary
-name and renamed into place, so concurrent first calls cannot load half a
-file.
+Each ``csrc/*.cu`` is compiled by its own ``nvcc`` for Hopper (``sm_90a``),
+all started together, and the objects are linked into one shared library
+with a plain C interface.  Each source stands alone (it includes no header
+of its own), and the library's name carries a hash of the sources and
+flags, so an edited source is rebuilt and an unchanged one is loaded as
+built.  Builds go to
+``build/kernels/`` at the root of the checkout (listed in ``.gitignore``); a
+build is written under a temporary name and renamed into place, so
+concurrent first calls cannot load half a file.
 
 Nothing here runs at import time: :func:`load` is called by the kernel
 wrappers the first time they meet a CUDA tensor.
@@ -26,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -40,6 +42,10 @@ _SIGNATURES = {
     "sprsolve_dia_wdot": (
         [_I32, _I32, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _I32, _P], _I32
     ),
+    # vcode, bcode, bands, x, y, partials, n_pad, h, offsets, nd, stream
+    "sprsolve_dia_dot": ([_I32, _I32, _P, _P, _P, _P, _I64, _I64, _P, _I32, _P], _I32),
+    # vcode, a, v_old, v, beta, alpha, out, partials, n_pad, h, stream
+    "sprsolve_orth_norm": ([_I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P], _I32),
 }
 
 
@@ -81,25 +87,35 @@ def library_path() -> Path:
     return build_dir() / f"libsprsolve_kernels_{_digest()}.so"
 
 
+def _run_all(cmds) -> None:
+    """Run the commands side by side; wait for all, then raise RuntimeError
+    with the output of the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for cmd in cmds]
+    outputs = [p.communicate() for p in procs]
+    for cmd, p, (out, err) in zip(cmds, procs, outputs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{out}\n{err}"
+            )
+
+
 def build() -> Path:
-    """Compile every source into :func:`library_path` unless it exists.
-    Returns the path; raises RuntimeError with nvcc's output on failure."""
+    """Compile every source into :func:`library_path` unless it exists: one
+    nvcc per source, all started together, then one link.  Returns the
+    path; raises RuntimeError with nvcc's output on failure."""
     out = library_path()
     if out.exists():
         return out
     nvcc = nvcc_path()
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(s) for s in sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                  for src, obj in zip(sources(), objs)])
+        lib = os.path.join(tmp, out.name)
+        _run_all([[nvcc, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     return out
 
 

@@ -1,4 +1,4 @@
-"""Padded DIA operator and its CUDA kernels K1/K2 — the hot single-GPU path.
+"""Padded DIA operator and its CUDA kernels K1-K3 — the hot single-GPU path.
 
 Counterpart of ``sprsolve_tpu/ops/pallas_spmv.py`` for real dtypes: a
 one-time layout step at construction (:meth:`PaddedDIA.from_dia`, the
@@ -20,6 +20,11 @@ Kernels (``csrc/dia_spmv.cu``), each beside its plain PyTorch version:
 - K2 :func:`dia_wdot` — K1 on u = dinv ⊙ x (Jacobi fold) or on x, plus
   [wᵀy, yᵀy] as per-block partials summed in a second step; w = None reads
   the dot's w from x itself.
+- K3 :func:`dia_dot` — K1 plus xᵀy (the ``dotmv`` form), per-block partials
+  summed in a second step.
+
+The fused Lanczos step K4, which :meth:`PaddedDIA.orth_norm` runs, lives in
+:mod:`.fused`.
 
 A wrapper runs the plain version for tensors on the CPU, and launches its
 kernel for CUDA tensors or raises: there is no fallback.  Each wrapper
@@ -50,7 +55,6 @@ _BAND_DTYPES = {
 _VCODE = {torch.float32: 0, torch.float64: 1}
 _BCODE = {torch.float32: 0, torch.float64: 0, torch.bfloat16: 1, torch.int8: 2}
 
-_SLICE2 = "ROADMAP.md Queue 1 item 6 (slice 2)"
 _SLICE3 = "ROADMAP.md Queue 1 item 7 (slice 3, ComplexPaddedDIA)"
 
 
@@ -86,46 +90,65 @@ def dia_wdot_plain(bands: torch.Tensor, x: torch.Tensor,
     return y, torch.sum(wv * y), torch.sum(y * y)
 
 
+def dia_dot_plain(bands: torch.Tensor, x: torch.Tensor, offsets, h: int):
+    """K3 in plain PyTorch: (y = A·x, xᵀy)."""
+    y = dia_spmv_plain(bands, x, offsets, h)
+    return y, torch.sum(x * y)
+
+
 # --- kernel wrappers --------------------------------------------------------
-def _check(bands: torch.Tensor, x: torch.Tensor, offsets, h: int, *vecs) -> int:
-    """Validate what the kernels take; returns n_pad."""
+def check_layout(n_pad: int, h: int, x: torch.Tensor, *vecs, bands=None) -> None:
+    """Validate the vectors a kernel takes: float32 or float64, flat, of the
+    layout ``(h + n_pad + h,)`` with whole row tiles, of one dtype, and with
+    ``bands`` on one device and contiguous."""
     if x.dtype not in _BAND_DTYPES:
         raise TypeError(f"vectors must be float32 or float64, got {x.dtype}")
-    if bands.dtype not in _BAND_DTYPES[x.dtype]:
-        raise TypeError(f"{bands.dtype} bands do not serve {x.dtype} vectors")
-    if bands.dim() != 2 or x.dim() != 1:
-        raise ValueError("bands must be (D, n_pad) and vectors flat")
-    n_pad = bands.shape[1]
-    if n_pad == 0 or n_pad % ROW_TILE:
+    if n_pad <= 0 or n_pad % ROW_TILE:
         raise ValueError(f"n_pad={n_pad} is not a positive multiple of {ROW_TILE}")
     if not 0 <= h <= n_pad:
         raise ValueError(f"halo h={h} outside [0, n_pad]")
-    if len(offsets) != bands.shape[0] or len(offsets) > MAX_DIAGS:
-        raise ValueError(
-            f"{len(offsets)} offsets for {bands.shape[0]} bands (at most {MAX_DIAGS})"
-        )
-    if offsets and max(abs(o) for o in offsets) > h:
-        raise ValueError("an offset reaches past the halo")
     for t in (x, *vecs):
         if t.shape != (n_pad + 2 * h,) or t.dtype != x.dtype:
             raise ValueError(
                 f"vector of shape {tuple(t.shape)} and {t.dtype}; the layout "
                 f"takes ({n_pad + 2 * h},) {x.dtype}"
             )
-    for t in (bands, x, *vecs):
+    for t in (x, *vecs) if bands is None else (bands, x, *vecs):
         if t.device != x.device:
             raise ValueError("bands and vectors must share one device")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
-    return n_pad
+
+
+def _check(bands: torch.Tensor, x: torch.Tensor, offsets, h: int, *vecs) -> int:
+    """Validate what the DIA kernels take; returns n_pad."""
+    if x.dtype not in _BAND_DTYPES:
+        raise TypeError(f"vectors must be float32 or float64, got {x.dtype}")
+    if bands.dtype not in _BAND_DTYPES[x.dtype]:
+        raise TypeError(f"{bands.dtype} bands do not serve {x.dtype} vectors")
+    if bands.dim() != 2 or x.dim() != 1:
+        raise ValueError("bands must be (D, n_pad) and vectors flat")
+    if len(offsets) != bands.shape[0] or len(offsets) > MAX_DIAGS:
+        raise ValueError(
+            f"{len(offsets)} offsets for {bands.shape[0]} bands (at most {MAX_DIAGS})"
+        )
+    if offsets and max(abs(o) for o in offsets) > h:
+        raise ValueError("an offset reaches past the halo")
+    check_layout(bands.shape[1], h, x, *vecs, bands=bands)
+    return bands.shape[1]
+
+
+def launch_env(x: torch.Tensor):
+    """``(library, stream)`` for a launch on ``x``'s CUDA device; raises for
+    a device that is neither CPU nor CUDA."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the kernels run on CPU or CUDA tensors, not {x.device}")
+    return _cuda_build.load(), torch.cuda.current_stream(x.device).cuda_stream
 
 
 def _launch_args(bands: torch.Tensor, x: torch.Tensor, offsets):
-    if x.device.type != "cuda":
-        raise ValueError(f"the DIA kernels run on CPU or CUDA tensors, not {x.device}")
-    lib = _cuda_build.load()
+    lib, stream = launch_env(x)
     offs = (ctypes.c_longlong * max(len(offsets), 1))(*offsets)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
     return lib, (_VCODE[x.dtype], _BCODE[bands.dtype]), offs, stream
 
 
@@ -177,13 +200,39 @@ def dia_wdot(bands: torch.Tensor, x: torch.Tensor, w: Optional[torch.Tensor],
     return y, sums[0], sums[1]
 
 
+def dia_dot(bands: torch.Tensor, x: torch.Tensor, offsets, h: int):
+    """K3: (y = A·x, xᵀy) in the padded layout (zero halo), with x the raw
+    SpMV input. The dot is per-block partials summed by ``torch.sum`` in a
+    fixed order. Replaces ``_dia_dot_kernel``
+    (``sprsolve_tpu/ops/pallas_spmv.py:140``)."""
+    n_pad = _check(bands, x, offsets, h)
+    if x.device.type == "cpu":
+        return dia_dot_plain(bands, x, offsets, h)
+    lib, codes, offs, stream = _launch_args(bands, x, offsets)
+    y = torch.empty_like(x)
+    partials = torch.empty(n_pad // ROW_TILE, dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.sprsolve_dia_dot(
+            *codes, bands.data_ptr(), x.data_ptr(), y.data_ptr(),
+            partials.data_ptr(), n_pad, h, ctypes.addressof(offs), len(offsets),
+            stream,
+        )
+    _cuda_build.check(lib, err, "dia_dot")
+    dia_dot.launches += 1
+    return y, torch.sum(partials)
+
+
 dia_spmv.launches = 0
 dia_wdot.launches = 0
+dia_dot.launches = 0
 
 
 def reset_launch_counts() -> None:
-    dia_spmv.launches = 0
-    dia_wdot.launches = 0
+    """Set the launch count of every kernel wrapper (K1-K4) to 0."""
+    from .fused import orth_norm
+
+    for wrapper in (dia_spmv, dia_wdot, dia_dot, orth_norm):
+        wrapper.launches = 0
 
 
 # --- the operator -----------------------------------------------------------
@@ -287,12 +336,19 @@ class PaddedDIA:
                         self.offsets, self.h)
 
     def matvec_dot(self, x2: torch.Tensor):
-        """Fused SpMV + xᵀ(A·x): kernel K3, not ported yet."""
-        raise NotImplementedError(f"PaddedDIA.matvec_dot (kernel K3): {_SLICE2}")
+        """(A·x, xᵀ(A·x)) in one pass (K3) — the ``mkl_sparse_?_dotmv``
+        analog behind MINRES's and CG's α."""
+        self._require_real(x2)
+        return dia_dot(self.bands, x2, self.offsets, self.h)
 
     def orth_norm(self, a2, vold2, v2, beta, alpha):
-        """Fused Lanczos step: kernel K4, not ported yet."""
-        raise NotImplementedError(f"PaddedDIA.orth_norm (kernel K4): {_SLICE2}")
+        """The fused Lanczos step (K4): (v₊ = a − β·v_old − α·v, Σv₊²) in one
+        pass, v₊ padded with a zero halo. β and α may be 0-d device tensors:
+        the launch reads neither on the host."""
+        from .fused import orth_norm
+
+        self._require_real(a2)
+        return orth_norm(a2, vold2, v2, beta, alpha, self.h)
 
     def diagonal_padded(self) -> torch.Tensor:
         if 0 in self.offsets:

@@ -27,6 +27,18 @@ def with_zero_rhs_guard(b: torch.Tensor, x0: torch.Tensor,
     return main(rhs_norm)
 
 
+def _guard3(b: torch.Tensor, x0: torch.Tensor,
+            main: Callable[[torch.Tensor], tuple], hist_len: int, rdt: torch.dtype):
+    """The zero-rhs guard of the three-output form ``(x, SolveInfo, hist)``
+    (``sprsolve_tpu/solvers/bicgstab.py:42-56``): if ‖b‖ ≤ ε, x = 0 with
+    Ok((0, ‖b‖)) and an all-NaN history of ``hist_len``. One host read."""
+    rhs_norm = norm2(b)
+    if bool(rhs_norm <= eps_for(b.dtype, b.device)):
+        return (torch.zeros_like(x0), make_info(0, rhs_norm, Status.CONVERGED),
+                torch.full((hist_len,), float("nan"), dtype=rdt, device=b.device))
+    return main(rhs_norm)
+
+
 def check_shapes(A, b: torch.Tensor, x0: torch.Tensor) -> None:
     """Dimension checks — the reference's IncompatibleMatrixFormat returns
     (``src/bicg_stab.rs:44-53``).

@@ -5,7 +5,8 @@ Tolerances: f32 solves to tol 1e-5 on a 16³ Poisson agree in count within
 the band of ``test_serial_parity.py:183`` (|Δ| ≤ max(3, ⌈its/4⌉); f32 sums
 in other orders move counts) and in solution to rtol 1e-3 in norm (tol times
 the grid's condition number, about a hundred). f64 solves with Jacobi on
-the reference grid keep equal counts."""
+the reference grid keep equal counts. The auto-router runs on the host in
+NumPy and scipy in both packages, so its routes must be equal."""
 
 import os
 import subprocess
@@ -19,7 +20,10 @@ import torch
 import sprsolve_tpu as jsp
 import sprsolve_tpu_torch as tsp
 from sprsolve_tpu.utils import problems as jprob
+from sprsolve_tpu.api import _auto_method as j_auto_method
+from sprsolve_tpu_torch.api import _auto_method
 from sprsolve_tpu_torch.errors import IncompatibleMatrixFormat
+from sprsolve_tpu_torch.interop import csr_from_reference
 from sprsolve_tpu_torch.utils import problems as tprob
 
 torch.set_num_threads(2)
@@ -102,7 +106,7 @@ def test_solve_dimension_checks():
         tsp.solve(tA, b, x0=np.zeros(5, np.float32))
 
 
-@pytest.mark.parametrize("method,item", [("minres", 6), ("auto", 6), ("cocg", 7),
+@pytest.mark.parametrize("method,item", [("lsqr", 6), ("cs_minres", 7), ("cocg", 7),
                                          ("gmres", 10), ("ca_cg", 10)])
 def test_unported_methods_name_their_roadmap_item(method, item):
     tA, _, b = _poisson_f32(4)
@@ -130,6 +134,119 @@ def test_object_api_precond_solve_matches_jax():
                                                               tol=1e-8)
     assert its == its_j and res <= 1e-8
     np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("method,kw", [("minres", {}), ("cg", {"M": "jacobi"})])
+def test_solve_symmetric_slice_f32_poisson_matches_jax(method, kw):
+    tA, jA, b = _poisson_f32()
+    kw = dict(method=method, tol=1e-5, max_iter=400, **kw)
+    x, info = tsp.solve(tA, b, **kw)
+    xj, info_j = jsp.solve(jA, b, **kw)
+    assert info.converged and bool(info_j.converged)
+    assert x.shape == (tA.shape[0],) and x.dtype == torch.float32
+    assert abs(info.iterations - int(info_j.iterations)) <= _band(int(info_j.iterations))
+    assert _true_res(tA, x, b) < 1e-4
+    xj = torch.from_numpy(np.array(xj))
+    assert float(torch.linalg.norm(x - xj) / torch.linalg.norm(xj)) < 1e-3
+    # prepare() runs the same solve
+    x2, info2 = tsp.prepare(tA, **kw)(b)
+    assert torch.equal(x, x2) and info2.iterations == info.iterations
+
+
+def _auto_fixtures():
+    """name → (port operator or CSR, JAX counterpart)."""
+    jC, _, _ = jprob.complex_symmetric_grid_with_diag((4, 4))
+    jH, _ = jprob.hermitian_grid((4, 4))
+    rect = np.random.default_rng(3).standard_normal((6, 4))
+    to_port = lambda j: csr_from_reference(j.data, j.indices, j.indptr, j.shape)
+    return {
+        "poisson": (tprob.poisson3d(4, 4, 4), jprob.poisson3d(4, 4, 4)),
+        "sym_grid": (tprob.sym_grid_laplacian((4, 4))[0], jprob.sym_grid_laplacian((4, 4))[0]),
+        "hermitian": (to_port(jH), jH),
+        "convection": (tprob.convection_diffusion3d(4, 4, 4),
+                       jprob.convection_diffusion3d(4, 4, 4)),
+        "complex_symmetric": (to_port(jC), jC),
+        "rectangular": (tsp.csr_from_dense(rect), jsp.csr_from_dense(rect)),
+        "zero": (tsp.csr_from_dense(np.zeros((3, 3))), jsp.csr_from_dense(np.zeros((3, 3)))),
+        "operator": (tsp.IdentityOperator(5), jsp.IdentityOperator(5)),
+    }
+
+
+AUTO_ROUTES = {"poisson": "minres", "sym_grid": "minres", "hermitian": "minres",
+               "convection": "bicgstabl", "complex_symmetric": "cocg",
+               "rectangular": "lsqr", "zero": "bicgstabl", "operator": "bicgstabl"}
+
+
+@pytest.mark.parametrize("parity", ["fast", "reference"])
+@pytest.mark.parametrize("name", sorted(AUTO_ROUTES))
+def test_auto_method_routes_as_jax(name, parity):
+    tA, jA = _auto_fixtures()[name]
+    route = _auto_method(tA, parity=parity)
+    assert route == j_auto_method(jA, parity=parity)
+    want = AUTO_ROUTES[name]
+    if parity == "reference" and want == "bicgstabl":
+        want = "bicgstab"
+    assert route == want
+
+
+@pytest.mark.parametrize("name,item", [("complex_symmetric", 7), ("rectangular", 6)])
+def test_auto_routes_to_unported_methods_name_their_roadmap_item(name, item):
+    tA, _ = _auto_fixtures()[name]
+    b = np.ones(tA.shape[0])
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+        tsp.solve(tA, b, method="auto")
+    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+        tsp.prepare(tA, method="auto")
+
+
+def test_auto_solves_through_minres_and_bicgstabl():
+    """auto routes the Poisson to MINRES and the convection-diffusion
+    operator to BiCGStab(ℓ=2), bitwise; an ``l`` the caller passes wins, and
+    ``parity="reference"`` gives plain BiCGStab."""
+    tA, _, b = _poisson_f32(8)
+    kw = dict(tol=1e-5, max_iter=300)
+    x, info = tsp.solve(tA, b, method="auto", **kw)
+    x1, info1 = tsp.solve(tA, b, method="minres", **kw)
+    assert info.converged and torch.equal(x, x1) and info.iterations == info1.iterations
+    C = tprob.convection_diffusion3d(8, 8, 8)
+    kw["M"] = "jacobi"
+    for auto_kw, direct_kw, method in (({}, {"l": 2}, "bicgstabl"),
+                                       ({"l": 4}, {"l": 4}, "bicgstabl"),
+                                       ({"parity": "reference"}, {}, "bicgstab")):
+        x, info = tsp.solve(C, b, method="auto", **kw, **auto_kw)
+        x2, info2 = tsp.solve(C, b, method=method, **kw, **direct_kw)
+        assert info.converged and torch.equal(x, x2) and info.iterations == info2.iterations
+    x3, info3 = tsp.prepare(C, method="auto", l=4, **kw)(b)
+    x4, info4 = tsp.solve(C, b, method="bicgstabl", l=4, **kw)
+    assert torch.equal(x3, x4) and info3.iterations == info4.iterations
+
+
+def test_handles_run_the_csr_path_and_match_jax():
+    """MinRes/CG handles use the operator as it is: a CSR runs the gather
+    path, no kernel, as in the JAX package."""
+    from sprsolve_tpu_torch.ops import fused
+    from sprsolve_tpu_torch.ops import padded_dia as pd
+
+    A = tprob.poisson3d(6, 6, 6, dtype=np.float64)
+    jA = jprob.poisson3d(6, 6, 6, dtype=np.float64)
+    b = np.random.default_rng(4).standard_normal(216)
+    pd.reset_launch_counts()
+    for T, J in ((tsp.MinRes, jsp.MinRes), (tsp.CG, jsp.CG)):
+        h = T.new(A, 216)
+        assert h.A is A
+        x, (its, res) = h.solve(b, max_iter=300, tol=1e-10)
+        xj, (its_j, _) = J.new(jA, 216).solve(b, max_iter=300, tol=1e-10)
+        assert its == its_j and res <= 1e-10
+        np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=1e-8, atol=1e-10)
+        M = tsp.DiagPrecond.new(A.diagonal())
+        Mj = jsp.DiagPrecond.new(jnp.asarray(jA.diagonal()))
+        x, (its, _) = h.precond_solve(M, b, max_iter=300, tol=1e-10)
+        xj, (its_j, _) = J.new(jA, 216).precond_solve(Mj, b, max_iter=300, tol=1e-10)
+        assert its == its_j
+        np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=1e-8, atol=1e-10)
+    assert pd.dia_dot.launches == 0 and fused.orth_norm.launches == 0
+    with pytest.raises(IncompatibleMatrixFormat):
+        tsp.MinRes.new(A, 5)
 
 
 def test_import_leaves_jax_out():

@@ -1,5 +1,5 @@
-"""GPU tests of the port: the CUDA kernels K1/K2 against their plain
-PyTorch versions, and the main path through them.
+"""GPU tests of the port: the CUDA kernels K1-K4 against their plain
+PyTorch versions, and the solvers' paths through them.
 
 Every test is marked ``cuda`` and skips itself where
 ``torch.cuda.is_available()`` is false.  This file imports no JAX, so it
@@ -9,8 +9,10 @@ so there run it with ``python -m pytest --noconftest tests/torch/test_torch_cuda
 Tolerances, by vector dtype (eps = 2⁻²³ for f32, 2⁻⁵² for f64):
 - y: |Δ| ≤ 8·eps·(|A|·|x|) per row (at most 7 products; either side may
   fuse a multiply-add);
-- w·y, y·y: |Δ| ≤ 1e-5 (f32) or 1e-12 (f64) · Σ|w·y| (block partials
-  against one sum);
+- w·y, y·y, xᵀy, Σv₊²: |Δ| ≤ 1e-5 (f32) or 1e-12 (f64) · Σ|w·y| (block
+  partials against one sum);
+- K4's v₊: |Δ| ≤ 8·eps·(|a| + |β||v_old| + |α||v|) per entry (the kernel
+  fuses the multiply-subtracts);
 - narrow (int8/bf16) band storage: bitwise equal to the same values
   stored f32 (widening is exact)."""
 
@@ -19,6 +21,7 @@ import pytest
 import torch
 
 import sprsolve_tpu_torch as tsp
+from sprsolve_tpu_torch.ops import fused
 from sprsolve_tpu_torch.ops import padded_dia as pd
 from sprsolve_tpu_torch.sparse.containers import DIA
 from sprsolve_tpu_torch.utils import problems
@@ -84,6 +87,83 @@ def test_cuda_kernels_match_plain(name, cuda):
     assert pd.dia_spmv.launches == 1 and pd.dia_wdot.launches == 8
 
 
+def _dirty(like):
+    """Free a NaN-filled block of ``like``'s size, so that the next kernel
+    output (``torch.empty_like``) likely reuses it: a halo left uncleared
+    then shows."""
+    junk = torch.full_like(like, float("nan"))
+    del junk
+
+
+def _zero_halo(op, v):
+    return not bool(v[: op.h].any()) and not bool(v[op.h + op.n:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["poisson10", "random10", "bf16x2.5", "grid20_f64"])
+def test_cuda_k3_k4_match_plain(name, cuda):
+    """K3 and K4 on the GPU against their plain versions on the same CUDA
+    tensors, with β and α as 0-d CUDA tensors; every output halo zero."""
+    op = pd.PaddedDIA.from_dia(_dia(name), device=cuda)
+    dt = op.vdtype
+    rng = np.random.default_rng(6)
+    mk = lambda: op.pad_vec(torch.as_tensor(rng.standard_normal(op.n), dtype=dt,
+                                            device=cuda))
+    x, vold, v = mk(), mk(), mk()
+    absb = op.bands.to(dt).abs()
+    pd.reset_launch_counts()
+    _dirty(x)
+    y, d = pd.dia_dot(op.bands, x, op.offsets, op.h)
+    y_r, d_r = pd.dia_dot_plain(op.bands, x, op.offsets, op.h)
+    scale = pd.dia_spmv_plain(absb, x.abs(), op.offsets, op.h)
+    assert bool(((y - y_r).abs() <= 8 * EPS[dt] * scale).all())
+    assert _zero_halo(op, y)
+    assert abs(float(d - d_r)) <= DOT_RTOL[dt] * float((x * y_r).abs().sum())
+    y2, d2 = pd.dia_dot(op.bands.to(dt), x, op.offsets, op.h)
+    assert torch.equal(y, y2) and torch.equal(d, d2)
+    beta = torch.tensor(0.7, dtype=dt, device=cuda)
+    alpha = torch.tensor(-1.3, dtype=dt, device=cuda)
+    _dirty(x)
+    vn, ss = op.orth_norm(x, vold, v, beta, alpha)
+    vn_r, ss_r = fused.orth_norm_plain(x, vold, v, beta, alpha)
+    scale = x.abs() + 0.7 * vold.abs() + 1.3 * v.abs()
+    assert bool(((vn - vn_r).abs() <= 8 * EPS[dt] * scale).all())
+    assert _zero_halo(op, vn)
+    assert abs(float(ss - ss_r)) <= DOT_RTOL[dt] * float(ss_r)
+    torch.cuda.synchronize()
+    assert pd.dia_dot.launches == 2 and fused.orth_norm.launches == 1
+
+
+@pytest.mark.cuda
+def test_cuda_minres_and_cg_run_through_k3_k4(cuda):
+    """MINRES launches K1 once and K3 and K4 iterations + 1 times each (the
+    converging pass is not counted); CG with Jacobi launches K3 once per
+    iteration and K4 never. Both agree with the same solves on the CPU."""
+    A = problems.poisson3d(10, 10, 10)
+    b = np.random.default_rng(0).standard_normal(A.shape[0]).astype(np.float32)
+    for kw in (dict(method="minres"), dict(method="cg", M="jacobi")):
+        pd.reset_launch_counts()
+        x, info = tsp.solve(A, b, tol=1e-5, max_iter=500, device=cuda, **kw)
+        torch.cuda.synchronize()
+        n = info.iterations
+        assert info.converged and x.is_cuda
+        minres = kw["method"] == "minres"
+        assert pd.dia_spmv.launches == 1 and pd.dia_wdot.launches == 0
+        assert pd.dia_dot.launches == (n + 1 if minres else n)
+        assert fused.orth_norm.launches == (n + 1 if minres else 0)
+        x_cpu, info_cpu = tsp.solve(A, b, tol=1e-5, max_iter=500, **kw)
+        assert abs(n - info_cpu.iterations) <= 3
+        r = A.matvec(x.cpu()).double().numpy() - b
+        assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-4
+        assert float(torch.linalg.norm(x.cpu() - x_cpu) / torch.linalg.norm(x_cpu)) < 1e-3
+    # the padded iterate keeps an exact zero halo through the solve
+    G, rhs = problems.sym_grid_laplacian((20, 20))
+    op = pd.PaddedDIA.from_dia(G.to_dia(), device=cuda)
+    x2, info = tsp.minres(op, op.pad_vec(torch.as_tensor(rhs, device=cuda)), tol=1e-12,
+                          max_iter=1000)
+    assert info.converged and _zero_halo(op, x2)
+
+
 @pytest.mark.cuda
 def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
     op = pd.PaddedDIA.from_dia(problems.poisson3d(6, 6, 6).to_dia(), device=cuda)
@@ -92,6 +172,8 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda):
         pd.dia_spmv(op.bands.cpu(), x, op.offsets, op.h)
     with pytest.raises(TypeError):
         pd.dia_wdot(op.bands, x.double(), None, None, op.offsets, op.h)
+    with pytest.raises(ValueError, match="one device"):
+        fused.orth_norm(x, x.cpu(), x, 1.0, 1.0, op.h)
 
 
 @pytest.mark.cuda

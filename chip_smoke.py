@@ -1,8 +1,8 @@
-"""Drive the PyTorch/CUDA port's main path once on one GPU, and check it.
+"""Drive the PyTorch/CUDA port's main paths once on one GPU, and check them.
 
     python3 chip_smoke.py
 
-Phases, each printing one line of its own:
+Phases, each printing lines of its own:
 
 1. device  — requires CUDA (no CPU fallback); prints the card's name and
    power limit as nvidia-smi reports them.
@@ -14,7 +14,15 @@ Phases, each printing one line of its own:
    bf16-exact set and an f64 set; narrow band storage must give bitwise the
    output of the same values stored f32.  K4 (orth_norm) against its plain
    version on f32 and f64 vectors of the same layout, with β and α as 0-d
-   CUDA tensors.  Prints median times and nnz/s.
+   CUDA tensors.  K5 (dia_complex_spmv), K6 (dia_complex_dot, ``conj_x``
+   false and true) and K7 (dia_complex_wdot, all four variants) against
+   their plain versions at 1M rows on the damped complex-symmetric Poisson
+   (int8 real and bf16 imaginary plane), the Poisson times (1 + 0.5i), a
+   random c64 and a random c128 set; narrow planes bitwise equal to the
+   same values stored f32, halos zero after a NaN block was freed.  Prints
+   the wrapper-timed and graph-replayed median times, the plain versions',
+   each kernel's bound and, for K1 and K5, the time of ``torch.mv`` on a
+   ``torch.sparse_csr_tensor`` of the same matrix.
 4. slice   — ``solve(A, b, method="bicgstab", M="jacobi")`` on the 100³
    Poisson in f32, with the launch counters reset just before: it must
    converge, reach a true relative residual (f64, scipy) below 1e-3, launch
@@ -35,10 +43,25 @@ Phases, each printing one line of its own:
 8. nonsymmetric — ``method="auto"`` with Jacobi on the 100³
    convection-diffusion operator (Péclet 20, f32) routes to BiCGStab(ℓ=2):
    it converges, and K2 launches 4 times per cycle.
+9. complex — the damped complex-symmetric 100³ Poisson (A + 0.5i·I, c64)
+   with b = r + 0.25i·r, tol 1e-4, each solve through ``solve()`` with no
+   ``device`` argument (the card by default), the launch counters reset
+   just before: ``method="auto", M="jacobi"`` routes
+   to COCG with the complex Jacobi (K5 once per iteration plus once);
+   ``"cs_minres"`` with the real 1/|d| Jacobi (K6 once per pass, K5 once);
+   ``"bicgstab"`` with the complex Jacobi folded into K7 (twice per
+   iteration); K1-K4 never.  Each converges to a true relative residual
+   (scipy, c128) below 1e-3.  Then each through ``prepare`` (median of 3
+   timed solves) beside the same solve through an operator that calls the
+   plain versions on the card, and one profiled solve each (idle share).
+10. c128   — the reference's complex fixtures at 100×100 on the c128
+   kernels, tol 1e-12: MINRES on the Hermitian grid (K6 without
+   conjugation), CS-MINRES, COCG and BiCGStab with the complex Jacobi on
+   the complex-symmetric grid; true residuals below 1e-9.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  Any failure raises, and the
-script exits non-zero.  It imports no JAX.
+The line before the last is a JSON object with one entry per kernel (K1-K7);
+the last line is ``{"ok": true, "device": {...}}``.  Any failure raises, and
+the script exits non-zero.  It imports no JAX.
 """
 
 from __future__ import annotations
@@ -55,7 +78,7 @@ import torch
 import sprsolve_tpu_torch as spt
 from sprsolve_tpu_torch.ops import _cuda_build, fused
 from sprsolve_tpu_torch.ops import padded_dia as pd
-from sprsolve_tpu_torch.sparse.containers import DIA
+from sprsolve_tpu_torch.sparse.containers import CSR, DIA
 from sprsolve_tpu_torch.utils import problems
 
 SEED = 0
@@ -65,7 +88,17 @@ KERNELS = {   # name → (source, the TPU kernel it replaces)
     "dia_wdot": ("sprsolve_tpu_torch/csrc/dia_spmv.cu", "sprsolve_tpu/ops/pallas_spmv.py:159"),
     "dia_dot": ("sprsolve_tpu_torch/csrc/dia_spmv.cu", "sprsolve_tpu/ops/pallas_spmv.py:140"),
     "orth_norm": ("sprsolve_tpu_torch/csrc/fused.cu", "sprsolve_tpu/ops/pallas_fused.py:37"),
+    "dia_complex_spmv": ("sprsolve_tpu_torch/csrc/dia_complex.cu",
+                         "sprsolve_tpu/ops/pallas_spmv.py:244"),
+    "dia_complex_dot": ("sprsolve_tpu_torch/csrc/dia_complex.cu",
+                        "sprsolve_tpu/ops/pallas_spmv.py:262"),
+    "dia_complex_wdot": ("sprsolve_tpu_torch/csrc/dia_complex.cu",
+                         "sprsolve_tpu/ops/pallas_spmv.py:343"),
 }
+# the least time of a call: bytes over the HBM rate, operations over the peak
+# rate of their type (NVIDIA H100 SXM data sheet, 700 W; vector units)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # tolerances of kernel against plain version, by vector dtype:
 #  y:        rtol of the row's |A|·|x| — the kernel fuses each multiply-add
 #            into an FMA, the plain version may not;
@@ -99,6 +132,68 @@ def median_ms(fn, reps: int = 5, inner: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 5, inner: int = 20) -> float:
+    """Device time of one call: ``inner`` calls captured in a CUDA graph,
+    replayed ``reps`` times (CUDA events), the median over ``inner``. The
+    replay has no host work, so this is the kernels' own time, on inputs
+    warm in L2 where they fit."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_ms(moved: int, flops: float, rdt) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of the bytes moved over
+    the HBM rate and the operations over the peak rate of ``rdt``."""
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[rdt] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_ms(what, csr, x, y_kernel):
+    """``torch.mv`` of a ``torch.sparse_csr_tensor`` (int32 indices) of the
+    same matrix on the unpadded x: timed as the yardstick of a kernel, never
+    called by the port. Returns its graph-replayed ms, or None (printed)
+    when torch cannot run that call on the card."""
+    try:
+        S = torch.sparse_csr_tensor(
+            torch.as_tensor(csr.indptr.numpy().astype(np.int32), device=x.device),
+            torch.as_tensor(csr.indices.numpy().astype(np.int32), device=x.device),
+            torch.as_tensor(csr.data.numpy(), device=x.device), size=csr.shape)
+        y = torch.mv(S, x)
+        err = float((y - y_kernel).abs().max())
+        t = device_ms(lambda: torch.mv(S, x))
+    except Exception as e:   # the yardstick only: report, and time nothing
+        log("library", kernel=what, call="torch.mv(sparse_csr)", unavailable=repr(e)[:200])
+        return None
+    log("library", kernel=what, call="torch.mv(sparse_csr)", dtype=str(x.dtype),
+        ms=f"{t:.5f}", max_abs_diff_vs_kernel=f"{err:.3e}")
+    return t
+
+
 def band_sets(dev):
     """(name, PaddedDIA, nnz) for the four band sets of phase 3."""
     rng = np.random.default_rng(SEED)
@@ -124,7 +219,10 @@ def band_sets(dev):
 
 def launch_counts() -> dict:
     return {"dia_spmv": pd.dia_spmv.launches, "dia_wdot": pd.dia_wdot.launches,
-            "dia_dot": pd.dia_dot.launches, "orth_norm": fused.orth_norm.launches}
+            "dia_dot": pd.dia_dot.launches, "orth_norm": fused.orth_norm.launches,
+            "dia_complex_spmv": pd.dia_complex_spmv.launches,
+            "dia_complex_dot": pd.dia_complex_dot.launches,
+            "dia_complex_wdot": pd.dia_complex_wdot.launches}
 
 
 def check_halo(name, op, v):
@@ -153,7 +251,7 @@ def phase_kernels(dev):
     """Phase 3: every kernel and variant against its plain version."""
     rng = np.random.default_rng(SEED + 1)
     errs = dict.fromkeys(KERNELS, 0.0)
-    times = {}
+    times, stats = {}, {}
     for name, op, nnz in band_sets(dev):
         dt = op.vdtype
         mk = lambda: op.pad_vec(torch.as_tensor(rng.standard_normal(op.n), dtype=dt,
@@ -227,7 +325,198 @@ def phase_kernels(dev):
             K1_Gnnz_s=f"{nnz / t['dia_spmv'] / 1e6:.1f}",
             K2_Gnnz_s=f"{nnz / t['dia_wdot'] / 1e6:.1f}",
             K3_Gnnz_s=f"{nnz / t['dia_dot'] / 1e6:.1f}")
-    return errs, times
+        if name == "poisson100_int8":
+            stats = real_kernel_stats(op, x, dinv, mk)
+    return errs, times, stats
+
+
+def real_kernel_stats(op, x, dinv, mk) -> dict:
+    """Graph-replayed device times of K1-K4 and their plain versions at the
+    main path's shapes (K2 with the Jacobi fold and w = x, BiCGStab's second
+    SpMV), each kernel's bound from these inputs, and K1's library call."""
+    D, n_pad, h = len(op.offsets), op.n_pad, op.h
+    b, o = op.bands, op.offsets
+    a, vold, v = mk(), mk(), mk()
+    beta = torch.tensor(0.7, device=x.device)
+    alpha = torch.tensor(-1.3, device=x.device)
+    calls = {
+        "dia_spmv": (lambda: pd.dia_spmv(b, x, o, h), lambda: pd.dia_spmv_plain(b, x, o, h),
+                     nbytes(b, x, x), 2 * D * n_pad),
+        "dia_wdot": (lambda: pd.dia_wdot(b, x, None, dinv, o, h),
+                     lambda: pd.dia_wdot_plain(b, x, None, dinv, o, h),
+                     nbytes(b, x, dinv, x), (2 * D + 5) * n_pad),
+        "dia_dot": (lambda: pd.dia_dot(b, x, o, h), lambda: pd.dia_dot_plain(b, x, o, h),
+                    nbytes(b, x, x), (2 * D + 2) * n_pad),
+        "orth_norm": (lambda: fused.orth_norm(a, vold, v, beta, alpha, h),
+                      lambda: fused.orth_norm_plain(a, vold, v, beta, alpha),
+                      nbytes(a, vold, v, a), 6 * n_pad),
+    }
+    stats = {}
+    for name, (kern, plain, moved, flops) in calls.items():
+        bms, by = bound_ms(moved, flops, torch.float32)
+        stats[name] = {"ms": device_ms(kern), "plain_ms": device_ms(plain),
+                       "bound_ms": bms, "bound_by": by, "library_ms": None}
+    A = problems.poisson3d(GRID, GRID, GRID)
+    stats["dia_spmv"]["library_ms"] = library_ms(
+        "K1 dia_spmv", A, op.unpad_vec(x).contiguous(),
+        op.unpad_vec(pd.dia_spmv(b, x, o, h)))
+    for name, st in stats.items():
+        log("kernels", set="poisson100_int8", kernel=name, timing="graph-replayed",
+            **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in st.items()},
+            share_of_bound=f"{st['bound_ms'] / st['ms']:.3f}")
+    return stats
+
+
+def damped_dia() -> DIA:
+    """The damped complex-symmetric 100³ Poisson, A + 0.5i·I, from the
+    port's Poisson bands (as bench.py builds it): an int8-exact real plane
+    and a bf16-exact imaginary plane."""
+    dia = DIA.from_csr(problems.poisson3d(GRID, GRID, GRID), device="cpu")
+    bands = dia.bands.numpy().astype(np.complex64)
+    bands[dia.offsets.index(0)] += 0.5j
+    return DIA(bands=torch.from_numpy(bands), offsets=dia.offsets, shape=dia.shape)
+
+
+def complex_band_sets(dev):
+    """(name, ComplexPaddedDIA) for the four two-plane band sets of phase 3,
+    with their expected plane storage checked."""
+    damped = damped_dia()
+    base = damped.bands.numpy().real
+    mask = base != 0
+    rng = np.random.default_rng(SEED + 4)
+    rand = np.where(mask, rng.uniform(0.5, 1.5, base.shape)
+                    + 1j * rng.uniform(-1.0, 1.0, base.shape), 0)
+    sets = [("damped_int8_bf16", damped)]
+    for name, vals in (("scaled_int8_bf16", base * (1 + 0.5j)),
+                       ("random_c64", rand.astype(np.complex64)),
+                       ("random_c128", rand.astype(np.complex128))):
+        sets.append((name, DIA(bands=torch.from_numpy(vals.astype(
+            np.complex128 if name == "random_c128" else np.complex64)),
+            offsets=damped.offsets, shape=damped.shape)))
+    expect = {"damped_int8_bf16": (torch.int8, torch.bfloat16),
+              "scaled_int8_bf16": (torch.int8, torch.bfloat16),
+              "random_c64": (torch.float32, torch.float32),
+              "random_c128": (torch.float64, torch.float64)}
+    out = []
+    for name, dia in sets:
+        op = spt.ComplexPaddedDIA.from_dia(dia, device=dev)
+        got = (op.re.bands.dtype, op.im.bands.dtype)
+        assert got == expect[name], (name, got)
+        out.append((name, op))
+    return out
+
+
+def phase_complex_kernels(dev, errs, stats):
+    """Phase 3, two-plane part: K5, K6 (both forms) and K7 (four variants)
+    against their plain versions on every complex band set; narrow planes
+    bitwise equal to wide ones; on the damped set the graph-replayed times,
+    the bounds and K5's library call."""
+    rng = np.random.default_rng(SEED + 5)
+    for name, op in complex_band_sets(dev):
+        rdt = op.re.vdtype
+        mk = lambda: op.pad_vec(torch.complex(
+            *(torch.as_tensor(rng.standard_normal(op.n), dtype=rdt, device=dev)
+              for _ in range(2))))
+        x, w = mk(), mk()
+        dinv = op.jacobi_precond().diag_inv
+        bre, bim, o, h = op.re.bands, op.im.bands, op.offsets, op.h
+        narrow = bre.dtype in (torch.int8, torch.bfloat16)
+        wide = (bre.to(rdt), bim.to(rdt))
+        absb = bre.to(rdt).abs() + bim.to(rdt).abs()
+        yrt, drt = Y_RTOL[rdt], DOT_RTOL[rdt]
+
+        def check_y(tag, y, y_r, u):
+            scale = pd.dia_spmv_plain(absb, u.real.abs() + u.imag.abs(), o, h).max()
+            check_halo(tag, op, y)
+            return check_close(tag + " y", y, y_r, scale, yrt)
+
+        dirty(x)
+        y = pd.dia_complex_spmv(bre, bim, x, o, h)
+        e = check_y(f"{name} K5", y, pd.dia_complex_spmv_plain(bre, bim, x, o, h), x)
+        errs["dia_complex_spmv"] = max(errs["dia_complex_spmv"], e)
+        if narrow and not torch.equal(y, pd.dia_complex_spmv(*wide, x, o, h)):
+            raise AssertionError(f"{name}: narrow and f32 planes differ (K5)")
+        for conj_x in (False, True):
+            tag = f"{name} K6 conj_x={conj_x}"
+            dirty(x)
+            y, d = pd.dia_complex_dot(bre, bim, x, o, h, conj_x)
+            y_r, d_r = pd.dia_complex_dot_plain(bre, bim, x, o, h, conj_x)
+            e = check_y(tag, y, y_r, x)
+            errs["dia_complex_dot"] = max(errs["dia_complex_dot"], e)
+            check_close(tag + " dot", d, d_r, (x.abs() * y_r.abs()).sum(), drt)
+            if narrow:
+                yw, dw = pd.dia_complex_dot(*wide, x, o, h, conj_x)
+                if not (torch.equal(y, yw) and torch.equal(d, dw)):
+                    raise AssertionError(f"{tag}: narrow and f32 planes differ")
+        for wv in (w, None):
+            for dv in (None, dinv):
+                tag = f"{name} K7 w_is_x={wv is None} has_dinv={dv is not None}"
+                dirty(x)
+                got = pd.dia_complex_wdot(bre, bim, x, wv, dv, o, h)
+                y_r, wd_r, yd_r = pd.dia_complex_wdot_plain(bre, bim, x, wv, dv, o, h)
+                e = check_y(tag, got[0], y_r, x if dv is None else x * dv)
+                errs["dia_complex_wdot"] = max(errs["dia_complex_wdot"], e)
+                ws = (x if wv is None else wv).abs()
+                check_close(tag + " wy", got[1], wd_r, (ws * y_r.abs()).sum(), drt)
+                check_close(tag + " yy", got[2], yd_r, yd_r.real, drt)
+                if narrow:
+                    gw = pd.dia_complex_wdot(*wide, x, wv, dv, o, h)
+                    if not all(torch.equal(p, q) for p, q in zip(got, gw)):
+                        raise AssertionError(f"{tag}: narrow and f32 planes differ")
+        torch.cuda.synchronize()
+        log("kernels", set=name, planes=f"{bre.dtype}/{bim.dtype}".replace("torch.", ""),
+            K5_ms=f"{median_ms(lambda: pd.dia_complex_spmv(bre, bim, x, o, h)):.4f}",
+            K5_plain_ms=f"{median_ms(lambda: pd.dia_complex_spmv_plain(bre, bim, x, o, h)):.4f}",
+            timing="wrapper, 20 back-to-back calls")
+        if name == "damped_int8_bf16":
+            stats.update(complex_kernel_stats(op, x, w, dinv))
+
+
+def complex_kernel_stats(op, x, w, dinv) -> dict:
+    """K5-K7 at the main path's shapes (the damped set): graph-replayed
+    device times of every variant and their plain versions, the bounds from
+    these inputs, and K5's library call. The kernel line reports K6 with
+    ``conj_x`` (CS-MINRES's step) and K7 with the fold and w = x
+    (BiCGStab's second SpMV)."""
+    bre, bim, o, h = op.re.bands, op.im.bands, op.offsets, op.h
+    D, n_pad = len(o), op.n_pad
+    planes = nbytes(bre, bim)
+    variants = {
+        "dia_complex_spmv": (lambda: pd.dia_complex_spmv(bre, bim, x, o, h),
+                             lambda: pd.dia_complex_spmv_plain(bre, bim, x, o, h),
+                             planes + nbytes(x, x), (8 * D + 2) * n_pad),
+        "dia_complex_dot[conj_x=False]": (
+            lambda: pd.dia_complex_dot(bre, bim, x, o, h),
+            lambda: pd.dia_complex_dot_plain(bre, bim, x, o, h),
+            planes + nbytes(x, x), (8 * D + 6) * n_pad),
+        "dia_complex_dot": (
+            lambda: pd.dia_complex_dot(bre, bim, x, o, h, True),
+            lambda: pd.dia_complex_dot_plain(bre, bim, x, o, h, True),
+            planes + nbytes(x, x), (8 * D + 6) * n_pad),
+        "dia_complex_wdot[has_dinv,w=r0]": (
+            lambda: pd.dia_complex_wdot(bre, bim, x, w, dinv, o, h),
+            lambda: pd.dia_complex_wdot_plain(bre, bim, x, w, dinv, o, h),
+            planes + nbytes(x, dinv, w, x), (14 * D + 10) * n_pad),
+        "dia_complex_wdot": (
+            lambda: pd.dia_complex_wdot(bre, bim, x, None, dinv, o, h),
+            lambda: pd.dia_complex_wdot_plain(bre, bim, x, None, dinv, o, h),
+            planes + nbytes(x, dinv, x), (14 * D + 10) * n_pad),
+    }
+    stats = {}
+    for name, (kern, plain, moved, flops) in variants.items():
+        bms, by = bound_ms(moved, flops, torch.float32)
+        stats[name] = {"ms": device_ms(kern), "plain_ms": device_ms(plain),
+                       "wrapper_ms": median_ms(kern), "bound_ms": bms, "bound_by": by,
+                       "library_ms": None}
+    csr = spt.CSR.from_arrays(*damped_csr_arrays(), shape=op.shape)
+    stats["dia_complex_spmv"]["library_ms"] = library_ms(
+        "K5 dia_complex_spmv", csr, op.unpad_vec(x).contiguous(),
+        op.unpad_vec(pd.dia_complex_spmv(bre, bim, x, o, h)))
+    for name, st in stats.items():
+        log("kernels", set="damped_int8_bf16", kernel=name, timing="graph-replayed",
+            **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in st.items()},
+            share_of_bound=f"{st['bound_ms'] / st['ms']:.3f}")
+    return stats
 
 
 def phase_orth_norm(name, op, mk, errs):
@@ -379,7 +668,8 @@ def phase_symmetric(dev):
             raise AssertionError(f"{name}: {info}, true residual {res:.3e}")
         want = {"dia_spmv": 1, "dia_wdot": 0,
                 "dia_dot": n if name == "cg" else n + 1,
-                "orth_norm": 0 if name == "cg" else n + 1}
+                "orth_norm": 0 if name == "cg" else n + 1,
+                "dia_complex_spmv": 0, "dia_complex_dot": 0, "dia_complex_wdot": 0}
         if c != want:
             raise AssertionError(f"{name}: launch counts {c}, expected {want}")
         its[name] = n
@@ -455,13 +745,221 @@ def phase_nonsymmetric(dev):
     wall = time.perf_counter() - t0
     c, n = launch_counts(), int(info.iterations)
     res = true_residual(A, x, b)
-    want = {"dia_spmv": 1, "dia_wdot": 4 * n, "dia_dot": 0, "orth_norm": 0}
+    want = {"dia_spmv": 1, "dia_wdot": 4 * n, "dia_dot": 0, "orth_norm": 0,
+            "dia_complex_spmv": 0, "dia_complex_dot": 0, "dia_complex_wdot": 0}
     if not (info.converged and res < 1e-3 and c == want):
         raise AssertionError(f"auto on convection-diffusion: {info}, true residual "
                              f"{res:.3e}, launches {c} (expected {want})")
     log("nonsymmetric", entry="solve(method='auto', M='jacobi')", route="bicgstabl(l=2)",
         cycles=n, recurrence_residual=float(info.residual), true_residual=res,
         K2_launches=c["dia_wdot"], wall_s_with_setup=f"{wall:.4f}")
+
+
+def damped_csr_arrays():
+    """(data, indices, indptr) of the damped complex-symmetric Poisson: the
+    100³ Poisson's CSR with 0.5i added on the diagonal."""
+    A = problems.poisson3d(GRID, GRID, GRID)
+    data = A.data.numpy().astype(np.complex64)
+    data[A.indices.numpy() == A.row_ids.numpy()] += 0.5j
+    return data, A.indices.numpy(), A.indptr.numpy()
+
+
+def complex_true_residual(csr_arrays, shape, x, b) -> float:
+    import scipy.sparse as sps
+
+    data, indices, indptr = csr_arrays
+    S = sps.csr_matrix((data.astype(np.complex128), indices, indptr), shape=shape)
+    xh = x.detach().cpu().numpy().astype(np.complex128)
+    bh = np.asarray(b, np.complex128)
+    return float(np.linalg.norm(S @ xh - bh) / np.linalg.norm(bh))
+
+
+class PlainComplexOperator:
+    """A ComplexPaddedDIA's operator protocol through the plain PyTorch
+    versions of K5-K7 on the same CUDA tensors: the baseline of phase 9."""
+
+    def __init__(self, op):
+        self.op, self.re, self.im = op, op.re, op.im
+        self.shape, self.padded_len, self.device = op.shape, op.padded_len, op.device
+        self.pad_vec, self.unpad_vec = op.pad_vec, op.unpad_vec
+        self.jacobi_precond, self.diagonal_padded = op.jacobi_precond, op.diagonal_padded
+        self._args = (op.re.bands, op.im.bands)
+
+    def matvec(self, x2):
+        return pd.dia_complex_spmv_plain(*self._args, x2, self.op.offsets, self.op.h)
+
+    def matvec_dot(self, x2):
+        return pd.dia_complex_dot_plain(*self._args, x2, self.op.offsets, self.op.h)
+
+    def matvec_conj_dot(self, x2):
+        return pd.dia_complex_dot_plain(*self._args, x2, self.op.offsets, self.op.h, True)
+
+    def matvec_wdot(self, x2, w2):
+        return pd.dia_complex_wdot_plain(*self._args, x2, None if w2 is x2 else w2, None,
+                                         self.op.offsets, self.op.h)
+
+    def matvec_wdot_cprec(self, x2, w2, dinv2):
+        return pd.dia_complex_wdot_plain(*self._args, x2, None if w2 is x2 else w2, dinv2,
+                                         self.op.offsets, self.op.h)
+
+
+def idle_share(handle, b):
+    """One prepared solve under torch.profiler: (wall ms, device-busy ms,
+    idle share, the K5-K7 share of device ms). None when the profiler
+    sees no device time on this machine."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    handle(b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        handle(b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    if not kernels:
+        return None
+    ours = sum(e.time_range.elapsed_us() for e in kernels if "dia_complex" in e.name) / 1e3
+    return wall, busy, 1.0 - busy / wall, ours
+
+
+def phase_complex(dev):
+    """Phase 9: the complex slice at full width through solve(), prepare(),
+    the plain versions and the profiler. Returns each kernel's launch count
+    from its own path's solve."""
+    arrays = damped_csr_arrays()
+    A = CSR.from_arrays(*arrays, shape=(GRID ** 3,) * 2)
+    r = np.random.default_rng(SEED + 6).standard_normal(A.shape[0]).astype(np.float32)
+    b = (r + 0.25j * r).astype(np.complex64)
+    runs = {   # name → (solve kwargs, plain-operator method, kernel of its path)
+        "auto": (dict(method="auto", M="jacobi"), "cocg", "dia_complex_spmv"),
+        "cs_minres": (dict(method="cs_minres", M="jacobi"), "cs_minres", "dia_complex_dot"),
+        "bicgstab": (dict(method="bicgstab", M="jacobi"), "bicgstab", "dia_complex_wdot"),
+    }
+    launches, its = {}, {}
+    for name, (kw, _, kernel) in runs.items():
+        pd.reset_launch_counts()
+        t0 = time.perf_counter()
+        # no device argument: the entry point runs on the card by default
+        x, info = spt.solve(A, b, tol=1e-4, max_iter=1000, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n, c = int(info.iterations), launch_counts()
+        res = complex_true_residual(arrays, A.shape, x, b)
+        if not (info.converged and res < 1e-3 and bool(torch.isfinite(x).all())
+                and x.shape == (A.shape[0],) and x.dtype == torch.complex64
+                and x.device.type == dev.type):
+            raise AssertionError(f"complex {name}: {info}, true residual {res:.3e}")
+        real = {k: c[k] for k in ("dia_spmv", "dia_wdot", "dia_dot", "orth_norm")}
+        want = {"auto": (n + 1, 0, 0), "cs_minres": (1, n + 1, 0),
+                "bicgstab": (c["dia_complex_spmv"], 0, 2 * n)}[name]
+        got = (c["dia_complex_spmv"], c["dia_complex_dot"], c["dia_complex_wdot"])
+        if got != want or any(real.values()) or got[0] < 1:
+            raise AssertionError(f"complex {name}: launch counts {c}, expected "
+                                 f"(K5, K6, K7) = {want} and no K1-K4")
+        launches[kernel], its[name] = c[kernel], n
+        log("complex", entry=f"solve(method={kw['method']!r}, M='jacobi')",
+            route={"auto": "cocg"}.get(name, name), iterations=n,
+            recurrence_residual=float(info.residual), true_residual=res,
+            K5_launches=got[0], K6_launches=got[1], K7_launches=got[2],
+            wall_s_with_setup=f"{wall:.4f}")
+
+    bd = torch.as_tensor(b, device=dev)
+    kernel_op = spt.ComplexPaddedDIA.from_dia(damped_dia(), device=dev)
+    prepared = spt.optimize(A, device=dev)
+    if not all(torch.equal(getattr(prepared, p).bands, getattr(kernel_op, p).bands)
+               for p in ("re", "im")):
+        raise AssertionError("optimize() and the band-built operator differ")
+    for name, (kw, plain_method, _) in runs.items():
+        for path, op, method in (("kernels", A, kw["method"]),
+                                 ("plain", PlainComplexOperator(kernel_op), plain_method)):
+            handle = spt.prepare(op, device=dev, method=method, M="jacobi", tol=1e-4,
+                                 max_iter=1000)
+            wall, walls, x, info = timed_solves(
+                handle, bd, its[name] if path == "kernels" else None, f"{name} {path}")
+            n = int(info.iterations)
+            res = complex_true_residual(arrays, A.shape, x, b)
+            if not res < 1e-3:
+                raise AssertionError(f"complex {name} {path}: true residual {res:.3e}")
+            log("complex", entry=f"prepare({method}, {path})", iterations=n,
+                wall_s_median=f"{wall:.4f}", walls_s=",".join(f"{w:.4f}" for w in walls),
+                per_iteration_ms=f"{wall / max(n, 1) * 1e3:.4f}", true_residual=res)
+            if path == "kernels":
+                prof = idle_share(handle, bd)
+                if prof is None:
+                    log("complex", entry=f"profile({method})",
+                        note="the profiler saw no device time")
+                else:
+                    log("complex", entry=f"profile({method})", wall_ms=f"{prof[0]:.4f}",
+                        device_busy_ms=f"{prof[1]:.4f}", idle_share=f"{prof[2]:.4f}",
+                        K5_K7_ms=f"{prof[3]:.4f}",
+                        device_us_per_iteration=f"{prof[1] / max(n, 1) * 1e3:.3f}")
+    return launches
+
+
+class CallCounter:
+    """Pass every attribute through to ``op``, counting calls of its
+    methods by name (which fused form a solver took)."""
+
+    def __init__(self, op):
+        self._op, self.calls = op, {}
+
+    def __getattr__(self, name):
+        attr = getattr(self._op, name)
+        if not callable(attr):
+            return attr
+
+        def counted(*args, **kwargs):
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return attr(*args, **kwargs)
+
+        return counted
+
+
+# the JAX package's counts on these fixtures (CSR path, c128, tol 1e-12, CPU)
+C128_JAX_COUNTS = {"minres_hermitian": 2537, "cs_minres": 592, "cocg_jacobi": 37,
+                   "bicgstab_jacobi": 21}
+
+
+def phase_c128(dev):
+    """Phase 10: the reference's complex fixtures on the c128 kernels."""
+    import scipy.sparse as sps
+
+    H, h_rhs = problems.hermitian_grid((100, 100))
+    C, c_rhs, _ = problems.complex_symmetric_grid_with_diag((100, 100))
+    xk = np.array([complex(i, j) for i in range(100) for j in range(100)])
+    for name, csr, rhs in (("minres_hermitian", H, h_rhs), ("cs_minres", C, c_rhs),
+                           ("cocg_jacobi", C, c_rhs), ("bicgstab_jacobi", C, c_rhs)):
+        op = spt.ComplexPaddedDIA.from_csr(csr, device=dev)
+        counted = CallCounter(op)
+        b2 = op.pad_vec(torch.as_tensor(rhs, device=dev))
+        solver = {"minres_hermitian": spt.minres, "cs_minres": spt.cs_minres,
+                  "cocg_jacobi": spt.cocg, "bicgstab_jacobi": spt.bicgstab}[name]
+        M = op.jacobi_precond() if name.endswith("jacobi") else None
+        pd.reset_launch_counts()
+        x2, info = solver(counted, b2, M=M, tol=1e-12, max_iter=5000)
+        torch.cuda.synchronize()
+        c, n = launch_counts(), int(info.iterations)
+        S = sps.csr_matrix((csr.data.numpy(), csr.indices.numpy(), csr.indptr.numpy()),
+                           shape=csr.shape)
+        x = op.unpad_vec(x2).cpu().numpy()
+        res = float(np.linalg.norm(S @ x - rhs) / np.linalg.norm(rhs))
+        err = float(np.abs(x - xk).max())
+        if not (info.converged and res < 1e-9):
+            raise AssertionError(f"c128 {name}: {info}, true residual {res:.3e}")
+        check_halo(f"c128 {name} x", op, x2)
+        if name == "minres_hermitian" and (counted.calls.get("matvec_conj_dot")
+                                           or counted.calls.get("matvec_dot") != n + 1
+                                           or c["dia_complex_dot"] != n + 1):
+            raise AssertionError(f"c128 minres: K6 without conjugation expected "
+                                 f"{n + 1} times: {counted.calls}, {c}")
+        log("c128", fixture=name, grid="100x100", iterations=n,
+            jax_iterations=C128_JAX_COUNTS[name], recurrence_residual=float(info.residual),
+            true_residual=res, max_err_vs_manufactured=f"{err:.3e}",
+            **{f"{k}_launches": v for k, v in c.items() if v},
+            calls=",".join(f"{k}:{v}" for k, v in sorted(counted.calls.items())))
 
 
 def main() -> int:
@@ -486,7 +984,8 @@ def main() -> int:
     assert lib.sprsolve_dia_row_tile() == pd.ROW_TILE
     assert lib.sprsolve_dia_max_diags() == pd.MAX_DIAGS
 
-    errs, times = phase_kernels(dev)
+    errs, _, stats = phase_kernels(dev)
+    phase_complex_kernels(dev, errs, stats)
     launches = phase_slice(dev)
     phase_f64(dev)
     # each path's kernels read their counts from that path's own run
@@ -494,12 +993,14 @@ def main() -> int:
                      if k in ("dia_dot", "orth_norm")})
     phase_f64_symmetric(dev)
     phase_nonsymmetric(dev)
+    launches.update(phase_complex(dev))
+    phase_c128(dev)
 
-    t = times["poisson100_int8"]
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": t[name], "plain_ms": t[name + "_plain"]}
+         **{k: stats[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")}}
         for name, (src, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

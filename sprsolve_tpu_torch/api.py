@@ -7,17 +7,19 @@ here::
 
 and the layout-optimizing form::
 
-    x, info = sprsolve_tpu_torch.solve(A, b, method="bicgstab", M="jacobi",
-                                       device="cuda")
+    x, info = sprsolve_tpu_torch.solve(A, b, method="bicgstab", M="jacobi")
 
-Every entry point takes an explicit ``device``; by default the solve runs on
-the device of ``b`` when it is a tensor, else on the device of ``A``.
-Ported so far: ``method="bicgstab"``, ``"bicgstabl"``, ``"cg"``,
-``"minres"`` and ``"auto"``, with ``M=None``, ``"jacobi"`` or a
-:class:`~sprsolve_tpu_torch.precond.DiagPrecond`, and the ``BiCGStab``,
-``MinRes`` and ``CG`` handles; other methods and preconditioners (and the
-routes of ``"auto"`` to them) raise NotImplementedError naming their
-ROADMAP.md item.
+Every entry point (``solve``, ``prepare``, ``optimize`` and the handles)
+runs on the CUDA device unless the caller passes ``device``, e.g.
+``device="cpu"``; without CUDA and without a device they raise.  The
+functional solvers (``bicgstab(op, b)`` and the like) run where their
+tensors are.  Ported so far: ``method="bicgstab"``, ``"bicgstabl"``,
+``"cg"``, ``"minres"``, ``"cs_minres"``, ``"cocg"`` and ``"auto"``, with
+``M=None``, ``"jacobi"``, a :class:`~sprsolve_tpu_torch.precond.DiagPrecond`
+or a :class:`~sprsolve_tpu_torch.precond.ComplexDiagPrecond`, and the
+``BiCGStab``, ``MinRes``, ``CG`` and ``CSMinRes`` handles; other methods and
+preconditioners (and the route of ``"auto"`` to LSQR) raise
+NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -26,18 +28,19 @@ from functools import partial
 
 import torch
 
-from .errors import IncompatibleMatrixFormat
+from .errors import IncompatibleMatrixFormat, InvalidPreconditioner
 from .ops.operator import as_operator
-from .solvers import bicgstab, bicgstabl, cg, minres
+from .ops.optimize import default_device
+from .solvers import bicgstab, bicgstabl, cg, cocg, cs_minres, minres
 from .sparse.containers import CSR
 
-_SOLVERS = {"bicgstab": bicgstab, "bicgstabl": bicgstabl, "cg": cg, "minres": minres}
+_SOLVERS = {"bicgstab": bicgstab, "bicgstabl": bicgstabl, "cg": cg, "cocg": cocg,
+            "cs_minres": cs_minres, "minres": minres}
 
 # the JAX package's other methods and preconditioner builders, by the
 # ROADMAP.md Queue 1 item that ports them
 _LATER_METHODS = {
     "lsqr": 6,
-    **dict.fromkeys(("cs_minres", "cocg"), 7),
     **dict.fromkeys(("gmres", "fgmres", "idrs", "cgs", "tfqmr", "cg_single_sync",
                      "ca_cg", "ca_bicgstab"), 10),
 }
@@ -78,14 +81,14 @@ def _auto_method(A, parity: str = "fast") -> str:
 
 
 def _resolve(method: str, A, solver_kwargs: dict):
-    """The solver for ``method``; ``"auto"`` is routed by :func:`_auto_method`
+    """``(method, solver)``; ``"auto"`` is routed by :func:`_auto_method`
     (``parity`` is popped from ``solver_kwargs``, and BiCGStab(ℓ) gets
     ``l=2`` unless the caller set ``l``)."""
     if method == "auto":
         method = _auto_method(A, parity=solver_kwargs.pop("parity", "fast"))
         if method == "bicgstabl":
             solver_kwargs.setdefault("l", 2)
-    return _solver(method)
+    return method, _solver(method)
 
 
 def _solver(method: str):
@@ -99,24 +102,31 @@ def _solver(method: str):
     raise ValueError(f"unknown method {method!r}")
 
 
-def _device(A, b, device) -> torch.device:
-    if device is not None:
-        return torch.device(device)
-    if isinstance(b, torch.Tensor):
-        return b.device
-    return getattr(A, "device", torch.device("cpu"))
+_CS_MINRES_M = (
+    "cs_minres's preconditioned form needs a REAL symmetric-positive M⁻¹; "
+)
 
 
-def _prepare_op_M(A, M, optimize_layout: bool, device):
+def _prepare_op_M(A, method: str, M, optimize_layout: bool, device):
     """Shared pipeline of :func:`solve` and :func:`prepare`: pick the
     execution layout for ``A`` and build or re-lay the preconditioner.
     Returns ``(op, M, padded)``; ``padded`` means the operator works in its
-    own vector layout (``pad_vec``/``unpad_vec``)."""
-    from .errors import InvalidPreconditioner
+    own vector layout (``pad_vec``/``unpad_vec``).
+
+    ``method="cs_minres"`` takes only a real symmetric-positive M: the
+    string ``"jacobi"`` builds the real 1/|d| of
+    :func:`~sprsolve_tpu_torch.precond.real_abs_jacobi` in the operator's
+    layout, and a complex diagonal is refused (``sprsolve_tpu/api.py:251-306``)."""
     from .ops.optimize import optimize
-    from .precond import DiagPrecond
+    from .precond import ComplexDiagPrecond, DiagPrecond, real_abs_jacobi
 
     if isinstance(M, str) and M != "jacobi":
+        if method == "cs_minres":
+            # gate before any builder runs
+            raise InvalidPreconditioner(
+                _CS_MINRES_M + "of the string builders only M='jacobi' (→ 1/|d|) "
+                "qualifies"
+            )
         if M in _LATER_M:
             raise NotImplementedError(
                 f"M={M!r} is not ported yet: ROADMAP.md Queue 1 item {_LATER_M[M]}"
@@ -128,10 +138,20 @@ def _prepare_op_M(A, M, optimize_layout: bool, device):
         op = optimize(A, device=device) if optimize_layout else A.to(device)
 
     padded = hasattr(op, "pad_vec")
+    if method == "cs_minres" and M is not None:
+        if isinstance(M, str):
+            # real_abs_jacobi builds in the operator's own layout: no relay
+            return op, real_abs_jacobi(op), padded
+        if isinstance(M, ComplexDiagPrecond) or (
+                isinstance(M, DiagPrecond) and M.diag_inv.is_complex()):
+            raise InvalidPreconditioner(
+                _CS_MINRES_M + "a complex diagonal is not one; use M='jacobi' "
+                "or a real symmetric-positive operator"
+            )
     if padded:
         if isinstance(M, str):
             M = op.jacobi_precond()
-        elif isinstance(M, DiagPrecond):
+        elif isinstance(M, (DiagPrecond, ComplexDiagPrecond)):
             try:
                 M = op.relay_diag_precond(M)
             except NotImplementedError as e:
@@ -170,21 +190,21 @@ def solve(
     """One-call solve: pick the execution layout, run, return ``(x, info)``.
 
     ``A`` is a CSR container (laid out by :func:`~sprsolve_tpu_torch.optimize`:
-    the padded-DIA kernels for a banded float32 matrix, with the padding
-    handled here) or any operator, used as it is. ``x`` comes back flat, on
-    the solve's device.
+    the padded-DIA kernels for a banded float32 or complex64 matrix, with the
+    padding handled here) or any operator, used as it is. The solve runs on
+    ``device``, by default the CUDA device; ``x`` comes back flat, there.
 
     ``method="auto"`` picks the solver from the matrix structure (see
     :func:`_auto_method`; ``parity="reference"`` keeps plain BiCGStab for a
     nonsymmetric matrix).
     """
-    solver = _resolve(method, A, solver_kwargs)
-    device = _device(A, b, device)
+    method, solver = _resolve(method, A, solver_kwargs)
+    device = default_device(device)
     n = getattr(A, "shape", (None,))[0]
     # validate before padding: pad_vec would silently zero-extend a short b
     b = _vec(b, n, device, "Input vec")
     x0 = None if x0 is None else _vec(x0, n, device, "x0")
-    op, M, padded = _prepare_op_M(A, M, optimize_layout, device)
+    op, M, padded = _prepare_op_M(A, method, M, optimize_layout, device)
     run = PreparedSolver(op, partial(solver, tol=tol, max_iter=max_iter, M=M,
                                      **solver_kwargs), n)
     return run(b, x0)
@@ -238,9 +258,9 @@ def prepare(
 ) -> PreparedSolver:
     """Build a :class:`PreparedSolver` for repeated solves against ``A``;
     takes what :func:`solve` takes."""
-    solver = _resolve(method, A, solver_kwargs)
-    device = _device(A, None, device)
-    op, M, _ = _prepare_op_M(A, M, optimize_layout, device)
+    method, solver = _resolve(method, A, solver_kwargs)
+    device = default_device(device)
+    op, M, _ = _prepare_op_M(A, method, M, optimize_layout, device)
     return PreparedSolver(
         op, partial(solver, tol=tol, max_iter=max_iter, M=M, **solver_kwargs),
         A.shape[0],
@@ -260,13 +280,15 @@ class _Handle:
     """The reference's solver-handle shape: ``new(A, n)``, then ``solve`` and
     ``precond_solve``, which raise the exception of a failure status.
 
-    ``A`` is used as it is (a CSR runs the gather SpMV, not the kernels);
-    ``device`` moves a CSR or a dense matrix there first."""
+    ``A`` keeps its format (a CSR runs the gather SpMV, not the kernels). A
+    CSR or a dense matrix is moved to ``device``, by default the CUDA
+    device; an operator object is used where it lives."""
 
     _fn = None
 
     def __init__(self, A, size: int, device=None):
-        if device is not None and isinstance(A, CSR):
+        device = default_device(device)
+        if isinstance(A, CSR) and A.device != device:
             A = A.to(device)
         self.A = as_operator(A, device=device)
         if self.A.shape[1] != size:
@@ -302,3 +324,12 @@ class CG(_Handle):
     the handle shape of :class:`BiCGStab`)."""
 
     _fn = staticmethod(cg)
+
+
+class CSMinRes(_Handle):
+    """Complex-symmetric MINRES handle (reference ``src/cs_minres.rs:17-25``).
+    ``precond_solve`` (beyond the reference, whose handle exports only
+    ``solve``) takes a REAL symmetric-positive M⁻¹; see
+    :mod:`~sprsolve_tpu_torch.solvers.cs_minres`."""
+
+    _fn = staticmethod(cs_minres)

@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.padded_dia import PaddedDIA, layout
+from .ops.padded_dia import ComplexPaddedDIA, PaddedDIA, layout
+from .precond import ComplexDiagPrecond
 from .sparse.containers import CSR
 
 
@@ -53,8 +54,30 @@ def padded_dia_from_reference(bands3, offsets, n: int, hr: int, shape, vdtype,
     )
 
 
+def complex_padded_dia_from_reference(re_bands3, im_bands3, offsets, n: int, hr: int,
+                                      shape, vdtype, device=None) -> ComplexPaddedDIA:
+    """Re-lay the JAX ``ComplexPaddedDIA``'s planes ``re.bands3`` and
+    ``im.bands3`` into the port's layout, each keeping its stored dtype;
+    ``vdtype`` is the planes' compute dtype (``re.vdtype``)."""
+    plane = lambda b: padded_dia_from_reference(b, offsets, n, hr, shape, vdtype,
+                                                device=device)
+    return ComplexPaddedDIA(re=plane(re_bands3), im=plane(im_bands3))
+
+
+def complex_diag_precond_from_reference(inv_re, inv_im, op, hr: int) -> ComplexDiagPrecond:
+    """The port's ``ComplexDiagPrecond`` in ``op``'s padded layout from the
+    planes of the JAX ``ComplexDiagPrecond`` in the JAX padded layout (as
+    ``jacobi_precond`` builds it: pad and halo slots 1)."""
+    body = torch.complex(vec_from_reference(inv_re, op.n, hr),
+                         vec_from_reference(inv_im, op.n, hr))
+    d = torch.ones(op.padded_len, dtype=body.dtype)
+    d[op.h: op.h + op.n] = body
+    return ComplexDiagPrecond(diag_inv=d.to(op.device))
+
+
 def vec_from_reference(x2, n: int, hr: int, device=None) -> torch.Tensor:
-    """The flat ``(n,)`` vector of a JAX padded vector ``(hr + R_pad + hr, LANES)``."""
+    """The flat ``(n,)`` vector of a JAX padded vector ``(hr + R_pad + hr, LANES)``,
+    real or complex."""
     x2 = np.asarray(x2)
     flat = x2[hr: x2.shape[0] - hr].reshape(-1)[:n]
     return torch.as_tensor(np.array(flat), device=device)

@@ -3,7 +3,7 @@ CUDA kernels (counterpart of ``sprsolve_tpu/ops``)."""
 
 from .operator import DiagonalOperator, IdentityOperator, LinearOperator, as_operator
 from .optimize import optimize
-from .padded_dia import PaddedDIA
+from .padded_dia import ComplexPaddedDIA, PaddedDIA
 from .spmv import spmv_csr, spmv_dia
 
 __all__ = [
@@ -13,6 +13,7 @@ __all__ = [
     "as_operator",
     "optimize",
     "PaddedDIA",
+    "ComplexPaddedDIA",
     "spmv_csr",
     "spmv_dia",
 ]

@@ -3,9 +3,11 @@
 Counterpart of ``sprsolve_tpu/ops/operator.py`` (the reference's
 ``MatVecMul`` trait, ``src/mat.rs:12-37``).  Anything with ``shape``,
 ``matvec(x)`` and ``matvec_dot(x)`` is an operator.  Operators that provide
-``matvec_wdot`` / ``matvec_wdot_prec`` (the padded-DIA kernel K2) take
-BiCGStab's reductions inside the SpMV pass; every other operator composes
-the matvec with separate dots, with the same result.
+``matvec_wdot`` / ``matvec_wdot_prec`` (the padded-DIA kernel K2) or
+``matvec_wdot_cprec`` (the two-plane kernel K7) take BiCGStab's reductions
+inside the SpMV pass, and ``matvec_conj_dot`` (K6) takes CS-MINRES's
+Saunders step in one pass; every other operator composes the matvec with
+separate dots, with the same result.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from typing import Protocol, Tuple, runtime_checkable
 
 import torch
 
-from ..vecalg import conj_dot
+from ..vecalg import conj, conj_dot
 
 
 @runtime_checkable
@@ -29,6 +31,19 @@ class LinearOperator(Protocol):
     def matvec_dot(self, x: torch.Tensor):
         """(A·x, conj(x)·A·x) — mirrors ``mkl_sparse_?_dotmv``."""
         ...
+
+
+def mv_conj_dot(A, x: torch.Tensor):
+    """(y = A·conj(x), conj(x)ᵀy) — the CS-MINRES Saunders step
+    (``src/cs_minres.rs:99-103``), in one pass on an operator with
+    ``matvec_conj_dot`` (K6 folds the conjugation into the accumulation),
+    composed conj → matvec → dot otherwise. The dot is the unconjugated
+    product of conj(x) with y, which is ``conj_dot(x, y)``."""
+    fn = getattr(A, "matvec_conj_dot", None)
+    if fn is not None:
+        return fn(x)
+    y = A.matvec(conj(x))
+    return y, conj_dot(x, y)
 
 
 def mv_wdot(A, x: torch.Tensor, w: torch.Tensor):
@@ -52,18 +67,29 @@ def mv_wdot2(A, x: torch.Tensor, w: torch.Tensor):
     return y, conj_dot(w, y), conj_dot(y, y)
 
 
+def _fold(A, M):
+    """The operator's method that folds ``M``'s diagonal into its SpMV pass
+    (``sprsolve_tpu/ops/operator.py:78-86``), or None."""
+    from ..precond import ComplexDiagPrecond, DiagPrecond
+
+    if type(M) is DiagPrecond:
+        return getattr(A, "matvec_wdot_prec", None)
+    if type(M) is ComplexDiagPrecond:
+        return getattr(A, "matvec_wdot_cprec", None)
+    return None
+
+
 def mv_prec_wdot(A, M, x: torch.Tensor, w: torch.Tensor):
     """(u = M⁻¹·x, y = A·u, conj(w)·y), a diagonal M folded into the SpMV
-    input where the operator supports ``matvec_wdot_prec``.
+    input where the operator supports ``matvec_wdot_prec`` (a real
+    diagonal) or ``matvec_wdot_cprec`` (a complex one).
 
-    The fold is taken for ``type(M) is DiagPrecond`` exactly, as in the JAX
-    package: a subclass may apply something else. u is returned as its own
-    tensor for BiCGStab's x-update."""
-    from ..precond import DiagPrecond
-
-    fn = getattr(A, "matvec_wdot_prec", None)
-    if fn is not None and type(M) is DiagPrecond:
-        y, wd, _ = fn(x, w, M.diag_inv)
+    The fold is taken for ``type(M) is DiagPrecond`` or ``type(M) is
+    ComplexDiagPrecond`` exactly, as in the JAX package: a subclass may apply
+    something else. u is returned as its own tensor for BiCGStab's x-update."""
+    fold = _fold(A, M)
+    if fold is not None:
+        y, wd, _ = fold(x, w, M.diag_inv)
         return x * M.diag_inv, y, wd
     u = M.matvec(x)
     y, wd = mv_wdot(A, u, w)
@@ -73,11 +99,9 @@ def mv_prec_wdot(A, M, x: torch.Tensor, w: torch.Tensor):
 def mv_prec_wdot2(A, M, x: torch.Tensor, w: torch.Tensor):
     """(u = M⁻¹·x, y = A·u, conj(w)·y, conj(y)·y) — the second-half variant
     of :func:`mv_prec_wdot`."""
-    from ..precond import DiagPrecond
-
-    fn = getattr(A, "matvec_wdot_prec", None)
-    if fn is not None and type(M) is DiagPrecond:
-        y, wd, yd = fn(x, w, M.diag_inv)
+    fold = _fold(A, M)
+    if fold is not None:
+        y, wd, yd = fold(x, w, M.diag_inv)
         return x * M.diag_inv, y, wd, yd
     u = M.matvec(x)
     y, wd, yd = mv_wdot2(A, u, w)

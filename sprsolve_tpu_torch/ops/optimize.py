@@ -3,7 +3,9 @@
 Counterpart of ``sprsolve_tpu/ops/optimize.py``, the banded branch only
 (``optimize.py:151-156`` → ``_dia_operator``, ``:67-75``): a CSR with at most
 ``max_diags`` distinct diagonals becomes a :class:`PaddedDIA` when it is
-float32, and a :class:`DIA` otherwise.  The diagonals are counted in NumPy.
+float32, a :class:`ComplexPaddedDIA` when it is complex64, and a
+:class:`DIA` otherwise (float64 and complex128 reach the kernels when the
+padded operator is built directly).  The diagonals are counted in NumPy.
 The RCM, BSR, hybrid and ELL routes are not ported yet.
 """
 
@@ -13,7 +15,21 @@ import numpy as np
 import torch
 
 from ..sparse.containers import CSR, DIA, _host
-from .padded_dia import PaddedDIA
+from .padded_dia import ComplexPaddedDIA, PaddedDIA
+
+
+def default_device(device) -> torch.device:
+    """``device`` as given, else the CUDA device: the entry points run on the
+    card unless the caller asks for the CPU. Raises RuntimeError when no
+    device was given and CUDA is absent, rather than solving on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: sprsolve_tpu_torch runs on the GPU by default; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
 
 
 def count_diagonals(m: CSR) -> int:
@@ -22,7 +38,10 @@ def count_diagonals(m: CSR) -> int:
 
 
 def _dia_operator(m: CSR, max_diags: int, device):
-    """The banded fast path: f32 → PaddedDIA (kernels K1/K2), else DIA."""
+    """The banded fast path: f32 → PaddedDIA (kernels K1-K4), c64 →
+    ComplexPaddedDIA (K5-K7), else DIA."""
+    if m.dtype == torch.complex64:
+        return ComplexPaddedDIA.from_csr(m, device=device)
     if m.dtype == torch.float32:
         dia = DIA.from_csr(m, max_diags=max_diags, device="cpu")
         return PaddedDIA.from_dia(dia, device=device)
@@ -31,11 +50,11 @@ def _dia_operator(m: CSR, max_diags: int, device):
 
 def optimize(m: CSR, *, max_diags: int = 32, device=None):
     """Analyze ``m`` and return the operator for repeated SpMV, on ``device``
-    (default: the matrix's device).
+    (default: the CUDA device; see :func:`default_device`).
 
     Only banded matrices are handled so far; any other pattern raises
     NotImplementedError."""
-    device = m.device if device is None else torch.device(device)
+    device = default_device(device)
     n_diags = count_diagonals(m)
     if n_diags <= max_diags:
         return _dia_operator(m, max_diags, device)

@@ -1,9 +1,11 @@
-"""Padded DIA operator and its CUDA kernels K1-K3 — the hot single-GPU path.
+"""Padded DIA operators and their CUDA kernels K1-K3 and K5-K7 — the hot
+single-GPU path.
 
-Counterpart of ``sprsolve_tpu/ops/pallas_spmv.py`` for real dtypes: a
-one-time layout step at construction (:meth:`PaddedDIA.from_dia`, the
-``mkl_sparse_optimize`` analog) and hand-written kernels for the
-per-iteration SpMV.
+Counterpart of ``sprsolve_tpu/ops/pallas_spmv.py``: a one-time layout step
+at construction (:meth:`PaddedDIA.from_dia`, the ``mkl_sparse_optimize``
+analog) and hand-written kernels for the per-iteration SpMV.
+:class:`PaddedDIA` holds real bands; :class:`ComplexPaddedDIA` holds a
+complex matrix as two real band planes, each narrowed on its own.
 
 Layout.  A vector is flat: ``h`` zeros, ``n_pad`` body entries, ``h`` zeros.
 ``h`` is max |offset| rounded up so that the body starts 16-byte aligned;
@@ -14,7 +16,11 @@ conversion; :meth:`PaddedDIA.pad_vec`/:meth:`PaddedDIA.unpad_vec` convert at
 the solve boundary.  (The TPU's (rows, 1024-lane) layout, lane rotations and
 VMEM budget have no counterpart here.)
 
-Kernels (``csrc/dia_spmv.cu``), each beside its plain PyTorch version:
+Complex vectors are flat complex64/complex128 tensors in the same layout;
+the kernels read them interleaved, so a solve needs no split into planes.
+
+Kernels (``csrc/dia_spmv.cu``, ``csrc/dia_complex.cu``), each beside its
+plain PyTorch version:
 
 - K1 :func:`dia_spmv` — y = Σ_d band_d ⊙ shift(x, off_d).
 - K2 :func:`dia_wdot` — K1 on u = dinv ⊙ x (Jacobi fold) or on x, plus
@@ -22,6 +28,11 @@ Kernels (``csrc/dia_spmv.cu``), each beside its plain PyTorch version:
   the dot's w from x itself.
 - K3 :func:`dia_dot` — K1 plus xᵀy (the ``dotmv`` form), per-block partials
   summed in a second step.
+- K5 :func:`dia_complex_spmv` — y = A·x over two band planes.
+- K6 :func:`dia_complex_dot` — K5 plus conj(x)ᵀy; ``conj_x`` gives
+  y = A·conj(x) by a sign fold, with the same dot (the Saunders step).
+- K7 :func:`dia_complex_wdot` — K5 on u = dinv ⊙ x (complex Jacobi fold) or
+  on x, plus [conj(w)ᵀy, ‖y‖²]; w = None reads w from x.
 
 The fused Lanczos step K4, which :meth:`PaddedDIA.orth_norm` runs, lives in
 :mod:`.fused`.
@@ -42,6 +53,7 @@ import torch
 import torch.nn.functional as F
 
 from ..sparse.containers import DIA, _host
+from ..vecalg import conj_dot
 from . import _cuda_build
 
 ROW_TILE = 256   # rows per CUDA block (ROW_TILE in csrc/dia_spmv.cu)
@@ -52,10 +64,10 @@ _BAND_DTYPES = {
     torch.float32: (torch.float32, torch.bfloat16, torch.int8),
     torch.float64: (torch.float64,),
 }
-_VCODE = {torch.float32: 0, torch.float64: 1}
+_VCODE = {torch.float32: 0, torch.float64: 1, torch.complex64: 0, torch.complex128: 1}
 _BCODE = {torch.float32: 0, torch.float64: 0, torch.bfloat16: 1, torch.int8: 2}
-
-_SLICE3 = "ROADMAP.md Queue 1 item 7 (slice 3, ComplexPaddedDIA)"
+_REAL = (torch.float32, torch.float64)
+_COMPLEX = (torch.complex64, torch.complex128)
 
 
 def layout(n: int, offsets, itemsize: int) -> Tuple[int, int]:
@@ -96,13 +108,61 @@ def dia_dot_plain(bands: torch.Tensor, x: torch.Tensor, offsets, h: int):
     return y, torch.sum(x * y)
 
 
+def _plane_sums(bre, bim, ur, ui, offsets, h):
+    """(A_re·u_re, A_im·u_im, A_re·u_im, A_im·u_re), the four real band sums
+    of the two-plane kernels (``pallas_spmv.py:254-257``)."""
+    mv = lambda b, v: dia_spmv_plain(b, v, offsets, h)
+    return mv(bre, ur), mv(bim, ui), mv(bre, ui), mv(bim, ur)
+
+
+def dia_complex_spmv_plain(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
+                           offsets, h: int) -> torch.Tensor:
+    """K5 in plain PyTorch: y = (A_re + i·A_im)·x from the four real sums."""
+    rr, ii, ri, ir = _plane_sums(bre, bim, x.real, x.imag, offsets, h)
+    return torch.complex(rr - ii, ri + ir)
+
+
+def dia_complex_dot_plain(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
+                          offsets, h: int, conj_x: bool = False):
+    """K6 in plain PyTorch: (y, conj(x)ᵀy) with y = A·x, or y = A·conj(x)
+    when ``conj_x`` (the sign fold of ``pallas_spmv.py:286-291``)."""
+    xr, xi = x.real, x.imag
+    rr, ii, ri, ir = _plane_sums(bre, bim, xr, xi, offsets, h)
+    yr, yi = (rr + ii, ir - ri) if conj_x else (rr - ii, ri + ir)
+    dot = torch.complex(torch.sum(xr * yr + xi * yi), torch.sum(xr * yi - xi * yr))
+    return torch.complex(yr, yi), dot
+
+
+def dia_complex_wdot_plain(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
+                           w: Optional[torch.Tensor], dinv: Optional[torch.Tensor],
+                           offsets, h: int):
+    """K7 in plain PyTorch: (y = A·u, conj(w)ᵀy, ‖y‖²) with u = dinv ⊙ x
+    when dinv is given, else u = x; w = None takes w from the raw x. ‖y‖²
+    comes back complex with a zero imaginary part, as in the JAX package."""
+    xr, xi = x.real, x.imag
+    if dinv is None:
+        ur, ui = xr, xi
+    else:
+        dr, di = dinv.real, dinv.imag
+        ur, ui = xr * dr - xi * di, xr * di + xi * dr
+    rr, ii, ri, ir = _plane_sums(bre, bim, ur, ui, offsets, h)
+    yr, yi = rr - ii, ri + ir
+    wr, wi = (xr, xi) if w is None else (w.real, w.imag)
+    wd = torch.complex(torch.sum(wr * yr + wi * yi), torch.sum(wr * yi - wi * yr))
+    yy = torch.sum(yr * yr + yi * yi)
+    return torch.complex(yr, yi), wd, torch.complex(yy, torch.zeros_like(yy))
+
+
 # --- kernel wrappers --------------------------------------------------------
-def check_layout(n_pad: int, h: int, x: torch.Tensor, *vecs, bands=None) -> None:
-    """Validate the vectors a kernel takes: float32 or float64, flat, of the
-    layout ``(h + n_pad + h,)`` with whole row tiles, of one dtype, and with
-    ``bands`` on one device and contiguous."""
-    if x.dtype not in _BAND_DTYPES:
-        raise TypeError(f"vectors must be float32 or float64, got {x.dtype}")
+def check_layout(n_pad: int, h: int, x: torch.Tensor, *vecs, bands=(),
+                 dtypes=_REAL) -> None:
+    """Validate the vectors a kernel takes: of one of ``dtypes``, flat, of
+    the layout ``(h + n_pad + h,)`` with whole row tiles, of one dtype, and
+    with the ``bands`` on one device, contiguous and not lazily conjugated
+    (a kernel reads the raw data)."""
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"vectors must be {names}, got {x.dtype}")
     if n_pad <= 0 or n_pad % ROW_TILE:
         raise ValueError(f"n_pad={n_pad} is not a positive multiple of {ROW_TILE}")
     if not 0 <= h <= n_pad:
@@ -113,29 +173,38 @@ def check_layout(n_pad: int, h: int, x: torch.Tensor, *vecs, bands=None) -> None
                 f"vector of shape {tuple(t.shape)} and {t.dtype}; the layout "
                 f"takes ({n_pad + 2 * h},) {x.dtype}"
             )
-    for t in (x, *vecs) if bands is None else (bands, x, *vecs):
+    for t in (*bands, x, *vecs):
         if t.device != x.device:
             raise ValueError("bands and vectors must share one device")
-        if not t.is_contiguous():
-            raise ValueError("kernel operands must be contiguous")
+        if not t.is_contiguous() or t.is_conj():
+            raise ValueError("kernel operands must be contiguous and not lazily "
+                             "conjugated (use torch.conj_physical)")
 
 
-def _check(bands: torch.Tensor, x: torch.Tensor, offsets, h: int, *vecs) -> int:
-    """Validate what the DIA kernels take; returns n_pad."""
-    if x.dtype not in _BAND_DTYPES:
-        raise TypeError(f"vectors must be float32 or float64, got {x.dtype}")
-    if bands.dtype not in _BAND_DTYPES[x.dtype]:
-        raise TypeError(f"{bands.dtype} bands do not serve {x.dtype} vectors")
-    if bands.dim() != 2 or x.dim() != 1:
-        raise ValueError("bands must be (D, n_pad) and vectors flat")
-    if len(offsets) != bands.shape[0] or len(offsets) > MAX_DIAGS:
+def _check(planes, x: torch.Tensor, offsets, h: int, *vecs) -> int:
+    """Validate what the DIA kernels take; ``planes`` is ``(bands,)`` for
+    real vectors, or the pair of band planes (re, im) for complex ones.
+    Returns n_pad."""
+    dtypes = _COMPLEX if len(planes) == 2 else _REAL
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"vectors must be {names}, got {x.dtype}")
+    rdt = x.dtype.to_real() if x.dtype.is_complex else x.dtype
+    for b in planes:
+        if b.dtype not in _BAND_DTYPES[rdt]:
+            raise TypeError(f"{b.dtype} bands do not serve {x.dtype} vectors")
+        if b.dim() != 2 or b.shape != planes[0].shape:
+            raise ValueError("bands must be (D, n_pad), both planes of one shape")
+    if x.dim() != 1:
+        raise ValueError("vectors must be flat")
+    if len(offsets) != planes[0].shape[0] or len(offsets) > MAX_DIAGS:
         raise ValueError(
-            f"{len(offsets)} offsets for {bands.shape[0]} bands (at most {MAX_DIAGS})"
+            f"{len(offsets)} offsets for {planes[0].shape[0]} bands (at most {MAX_DIAGS})"
         )
     if offsets and max(abs(o) for o in offsets) > h:
         raise ValueError("an offset reaches past the halo")
-    check_layout(bands.shape[1], h, x, *vecs, bands=bands)
-    return bands.shape[1]
+    check_layout(planes[0].shape[1], h, x, *vecs, bands=planes, dtypes=dtypes)
+    return planes[0].shape[1]
 
 
 def launch_env(x: torch.Tensor):
@@ -146,10 +215,12 @@ def launch_env(x: torch.Tensor):
     return _cuda_build.load(), torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch_args(bands: torch.Tensor, x: torch.Tensor, offsets):
+def _launch_args(planes, x: torch.Tensor, offsets):
+    """(library, type codes, offsets array, stream): the vector's type code,
+    then one for each band plane."""
     lib, stream = launch_env(x)
     offs = (ctypes.c_longlong * max(len(offsets), 1))(*offsets)
-    return lib, (_VCODE[x.dtype], _BCODE[bands.dtype]), offs, stream
+    return lib, (_VCODE[x.dtype], *(_BCODE[b.dtype] for b in planes)), offs, stream
 
 
 def dia_spmv(bands: torch.Tensor, x: torch.Tensor, offsets, h: int
@@ -157,10 +228,10 @@ def dia_spmv(bands: torch.Tensor, x: torch.Tensor, offsets, h: int
     """K1: y = Σ_d band_d ⊙ shift(x, off_d) in the padded layout (zero halo).
 
     Replaces ``_dia_kernel`` (``sprsolve_tpu/ops/pallas_spmv.py:131``)."""
-    n_pad = _check(bands, x, offsets, h)
+    n_pad = _check((bands,), x, offsets, h)
     if x.device.type == "cpu":
         return dia_spmv_plain(bands, x, offsets, h)
-    lib, codes, offs, stream = _launch_args(bands, x, offsets)
+    lib, codes, offs, stream = _launch_args((bands,), x, offsets)
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         err = lib.sprsolve_dia_spmv(
@@ -181,10 +252,10 @@ def dia_wdot(bands: torch.Tensor, x: torch.Tensor, w: Optional[torch.Tensor],
     order. Replaces ``_dia_wdot_kernel``
     (``sprsolve_tpu/ops/pallas_spmv.py:159``)."""
     vecs = [v for v in (w, dinv) if v is not None]
-    n_pad = _check(bands, x, offsets, h, *vecs)
+    n_pad = _check((bands,), x, offsets, h, *vecs)
     if x.device.type == "cpu":
         return dia_wdot_plain(bands, x, w, dinv, offsets, h)
-    lib, codes, offs, stream = _launch_args(bands, x, offsets)
+    lib, codes, offs, stream = _launch_args((bands,), x, offsets)
     y = torch.empty_like(x)
     partials = torch.empty((n_pad // ROW_TILE, 2), dtype=x.dtype, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -205,10 +276,10 @@ def dia_dot(bands: torch.Tensor, x: torch.Tensor, offsets, h: int):
     SpMV input. The dot is per-block partials summed by ``torch.sum`` in a
     fixed order. Replaces ``_dia_dot_kernel``
     (``sprsolve_tpu/ops/pallas_spmv.py:140``)."""
-    n_pad = _check(bands, x, offsets, h)
+    n_pad = _check((bands,), x, offsets, h)
     if x.device.type == "cpu":
         return dia_dot_plain(bands, x, offsets, h)
-    lib, codes, offs, stream = _launch_args(bands, x, offsets)
+    lib, codes, offs, stream = _launch_args((bands,), x, offsets)
     y = torch.empty_like(x)
     partials = torch.empty(n_pad // ROW_TILE, dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
@@ -222,16 +293,96 @@ def dia_dot(bands: torch.Tensor, x: torch.Tensor, offsets, h: int):
     return y, torch.sum(partials)
 
 
+def dia_complex_spmv(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
+                     offsets, h: int) -> torch.Tensor:
+    """K5: y = (A_re + i·A_im)·x in the padded layout (zero halo), x complex.
+
+    Replaces ``_dia_complex_kernel`` (``sprsolve_tpu/ops/pallas_spmv.py:244``)."""
+    n_pad = _check((bre, bim), x, offsets, h)
+    if x.device.type == "cpu":
+        return dia_complex_spmv_plain(bre, bim, x, offsets, h)
+    lib, codes, offs, stream = _launch_args((bre, bim), x, offsets)
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        err = lib.sprsolve_dia_complex_spmv(
+            *codes, bre.data_ptr(), bim.data_ptr(), x.data_ptr(), y.data_ptr(),
+            n_pad, h, ctypes.addressof(offs), len(offsets), stream,
+        )
+    _cuda_build.check(lib, err, "dia_complex_spmv")
+    dia_complex_spmv.launches += 1
+    return y
+
+
+def dia_complex_dot(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
+                    offsets, h: int, conj_x: bool = False):
+    """K6: (y, conj(x)ᵀy) with y = A·x, or y = A·conj(x) when ``conj_x``.
+    The dot is a 0-d complex tensor from per-block partials, summed by
+    ``torch.sum`` and never read on the host. Replaces
+    ``_dia_complex_dot_kernel`` (``sprsolve_tpu/ops/pallas_spmv.py:262``)."""
+    n_pad = _check((bre, bim), x, offsets, h)
+    if x.device.type == "cpu":
+        return dia_complex_dot_plain(bre, bim, x, offsets, h, conj_x)
+    lib, codes, offs, stream = _launch_args((bre, bim), x, offsets)
+    y = torch.empty_like(x)
+    partials = torch.empty((n_pad // ROW_TILE, 2), dtype=x.dtype.to_real(),
+                           device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.sprsolve_dia_complex_dot(
+            *codes, int(bool(conj_x)), bre.data_ptr(), bim.data_ptr(), x.data_ptr(),
+            y.data_ptr(), partials.data_ptr(), n_pad, h, ctypes.addressof(offs),
+            len(offsets), stream,
+        )
+    _cuda_build.check(lib, err, "dia_complex_dot")
+    dia_complex_dot.launches += 1
+    sums = torch.sum(partials, 0)
+    return y, torch.complex(sums[0], sums[1])
+
+
+def dia_complex_wdot(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
+                     w: Optional[torch.Tensor], dinv: Optional[torch.Tensor],
+                     offsets, h: int):
+    """K7: (y = A·u, conj(w)ᵀy, ‖y‖²), u = dinv ⊙ x when ``dinv`` is given
+    (a complex diagonal of the vectors' dtype), else u = x.
+
+    ``w=None`` takes w from the raw x. The dots are 0-d complex tensors (‖y‖²
+    with a zero imaginary part) from per-block partials. Replaces
+    ``_dia_complex_wdot_kernel`` (``sprsolve_tpu/ops/pallas_spmv.py:343``)."""
+    vecs = [v for v in (w, dinv) if v is not None]
+    n_pad = _check((bre, bim), x, offsets, h, *vecs)
+    if x.device.type == "cpu":
+        return dia_complex_wdot_plain(bre, bim, x, w, dinv, offsets, h)
+    lib, codes, offs, stream = _launch_args((bre, bim), x, offsets)
+    y = torch.empty_like(x)
+    partials = torch.empty((n_pad // ROW_TILE, 3), dtype=x.dtype.to_real(),
+                           device=x.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(x.device):
+        err = lib.sprsolve_dia_complex_wdot(
+            *codes, bre.data_ptr(), bim.data_ptr(), x.data_ptr(), ptr(dinv), ptr(w),
+            y.data_ptr(), partials.data_ptr(), n_pad, h, ctypes.addressof(offs),
+            len(offsets), stream,
+        )
+    _cuda_build.check(lib, err, "dia_complex_wdot")
+    dia_complex_wdot.launches += 1
+    sums = torch.sum(partials, 0)
+    return (y, torch.complex(sums[0], sums[1]),
+            torch.complex(sums[2], torch.zeros_like(sums[2])))
+
+
 dia_spmv.launches = 0
 dia_wdot.launches = 0
 dia_dot.launches = 0
+dia_complex_spmv.launches = 0
+dia_complex_dot.launches = 0
+dia_complex_wdot.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Set the launch count of every kernel wrapper (K1-K4) to 0."""
+    """Set the launch count of every kernel wrapper (K1-K7) to 0."""
     from .fused import orth_norm
 
-    for wrapper in (dia_spmv, dia_wdot, dia_dot, orth_norm):
+    for wrapper in (dia_spmv, dia_wdot, dia_dot, orth_norm, dia_complex_spmv,
+                    dia_complex_dot, dia_complex_wdot):
         wrapper.launches = 0
 
 
@@ -282,10 +433,12 @@ class PaddedDIA:
         return bands
 
     @staticmethod
-    def from_dia(m: DIA, narrow: bool = True, device=None) -> "PaddedDIA":
+    def from_dia(m: DIA, narrow: bool = True, device=None):
+        """The padded operator of ``m``; complex bands give a
+        :class:`ComplexPaddedDIA`."""
         bands = _host(m.bands)
         if np.iscomplexobj(bands):
-            raise NotImplementedError(f"complex bands: {_SLICE3}")
+            return ComplexPaddedDIA.from_dia(m, narrow=narrow, device=device)
         if bands.dtype not in (np.float32, np.float64):
             raise TypeError(f"bands must be float32 or float64, got {bands.dtype}")
         if len(m.offsets) > MAX_DIAGS:
@@ -312,42 +465,51 @@ class PaddedDIA:
         return x2[self.h: self.h + self.n]
 
     # --- operator protocol ---------------------------------------------------
-    def _require_real(self, x2: torch.Tensor) -> None:
-        if x2.is_complex():
-            raise NotImplementedError(f"complex vectors: {_SLICE3}")
-
+    # A complex vector is two real planes through K1, composed with separate
+    # dots, as in the JAX package (``pallas_spmv.py:682-751``).
     def matvec(self, x2: torch.Tensor) -> torch.Tensor:
-        """SpMV in the padded layout (K1)."""
-        self._require_real(x2)
+        """SpMV in the padded layout (K1; once per plane for complex x)."""
+        if x2.is_complex():
+            mv = lambda v: dia_spmv(self.bands, v.contiguous(), self.offsets, self.h)
+            return torch.complex(mv(x2.real), mv(x2.imag))
         return dia_spmv(self.bands, x2, self.offsets, self.h)
 
     def matvec_wdot(self, x2: torch.Tensor, w2: torch.Tensor):
         """(A·x, wᵀ(A·x), (A·x)ᵀ(A·x)) in one pass (K2). ``w2 is x2``, decided
         by identity as in the JAX package, drops the w stream."""
-        self._require_real(x2)
+        if x2.is_complex():
+            y = self.matvec(x2)
+            return y, conj_dot(w2, y), conj_dot(y, y)
         return dia_wdot(self.bands, x2, None if w2 is x2 else w2, None,
                         self.offsets, self.h)
 
     def matvec_wdot_prec(self, x2: torch.Tensor, w2: torch.Tensor,
                          dinv2: torch.Tensor):
         """Jacobi-folded w-dot: (A·(dinv ⊙ x), wᵀy, yᵀy) in one pass (K2)."""
-        self._require_real(x2)
+        if x2.is_complex():
+            y = self.matvec(x2 * dinv2)
+            return y, conj_dot(w2, y), conj_dot(y, y)
         return dia_wdot(self.bands, x2, None if w2 is x2 else w2, dinv2,
                         self.offsets, self.h)
 
     def matvec_dot(self, x2: torch.Tensor):
         """(A·x, xᵀ(A·x)) in one pass (K3) — the ``mkl_sparse_?_dotmv``
         analog behind MINRES's and CG's α."""
-        self._require_real(x2)
+        if x2.is_complex():
+            y = self.matvec(x2)
+            return y, conj_dot(x2, y)
         return dia_dot(self.bands, x2, self.offsets, self.h)
 
     def orth_norm(self, a2, vold2, v2, beta, alpha):
         """The fused Lanczos step (K4): (v₊ = a − β·v_old − α·v, Σv₊²) in one
         pass, v₊ padded with a zero halo. β and α may be 0-d device tensors:
-        the launch reads neither on the host."""
+        the launch reads neither on the host. Real vectors only, as in the
+        JAX package (MINRES takes it only for a real system)."""
         from .fused import orth_norm
 
-        self._require_real(a2)
+        if a2.is_complex():
+            raise TypeError("orth_norm takes real vectors; a complex Lanczos "
+                            "step runs unfused")
         return orth_norm(a2, vold2, v2, beta, alpha, self.h)
 
     def diagonal_padded(self) -> torch.Tensor:
@@ -377,3 +539,143 @@ class PaddedDIA:
                 "complex diagonal preconditioner on a real operator"
             )
         return DiagPrecond(diag_inv=self.pad_vec(M.diag_inv.to(self.device)))
+
+
+@dataclasses.dataclass(frozen=True)
+class ComplexPaddedDIA:
+    """A complex banded matrix as two real band planes over the kernels K5-K7.
+
+    Counterpart of ``sprsolve_tpu/ops/pallas_spmv.py:811-1030``. ``re`` and
+    ``im`` are :class:`PaddedDIA` planes with the same offsets, halo and
+    ``n_pad``; each narrows on its own (int8/bf16/f32 for a complex64
+    matrix, f64 for complex128). Vectors stay flat complex tensors of the
+    planes' padded layout, and the kernels read them interleaved, so a
+    complex solve needs no per-iteration split into planes. (The TPU's VMEM
+    re-fit of the block geometry has no counterpart.)"""
+
+    re: PaddedDIA
+    im: PaddedDIA
+
+    @property
+    def shape(self):
+        return self.re.shape
+
+    @property
+    def n(self) -> int:
+        return self.re.n
+
+    @property
+    def h(self) -> int:
+        return self.re.h
+
+    @property
+    def n_pad(self) -> int:
+        return self.re.n_pad
+
+    @property
+    def padded_len(self) -> int:
+        return self.re.padded_len
+
+    @property
+    def offsets(self):
+        return self.re.offsets
+
+    @property
+    def device(self) -> torch.device:
+        return self.re.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.re.vdtype.to_complex()
+
+    @staticmethod
+    def from_dia(m: DIA, narrow: bool = True, device=None) -> "ComplexPaddedDIA":
+        bands = _host(m.bands)
+        if not np.iscomplexobj(bands) or bands.dtype not in (np.complex64, np.complex128):
+            raise TypeError(f"bands must be complex64 or complex128, got {bands.dtype}")
+        dev = m.device if device is None else device
+        plane = lambda b: PaddedDIA.from_dia(
+            DIA(bands=torch.from_numpy(np.ascontiguousarray(b)), offsets=m.offsets,
+                shape=m.shape), narrow=narrow, device=dev)
+        return ComplexPaddedDIA(re=plane(bands.real), im=plane(bands.imag))
+
+    @staticmethod
+    def from_csr(m, narrow: bool = True, device=None) -> "ComplexPaddedDIA":
+        """Build from a CSR: bands extracted on the host, each plane narrowed
+        on its own (``pallas_spmv.py:884-905``)."""
+        bands, offsets = DIA.arrays_from_csr(m)
+        dia = DIA(bands=torch.from_numpy(bands), offsets=offsets, shape=m.shape)
+        return ComplexPaddedDIA.from_dia(dia, narrow=narrow,
+                                         device=m.device if device is None else device)
+
+    # --- padded-layout vector helpers ---------------------------------------
+    def pad_vec(self, x: torch.Tensor) -> torch.Tensor:
+        return self.re.pad_vec(x)
+
+    def unpad_vec(self, x2: torch.Tensor) -> torch.Tensor:
+        return self.re.unpad_vec(x2)
+
+    # --- operator protocol ---------------------------------------------------
+    def _planes(self):
+        return self.re.bands, self.im.bands
+
+    def matvec(self, x2: torch.Tensor) -> torch.Tensor:
+        """y = A·x in one pass over both planes (K5)."""
+        return dia_complex_spmv(*self._planes(), x2, self.offsets, self.h)
+
+    def matvec_dot(self, x2: torch.Tensor):
+        """(A·x, conj(x)ᵀ(A·x)) in one pass (K6) — MINRES's α on a
+        Hermitian matrix."""
+        return dia_complex_dot(*self._planes(), x2, self.offsets, self.h)
+
+    def matvec_conj_dot(self, x2: torch.Tensor):
+        """(A·conj(x), conj(x)ᵀ(A·conj(x))) in one pass (K6 with ``conj_x``)
+        — the CS-MINRES Saunders step: the conjugation is a sign fold in the
+        kernel, so no conj pass and no dot pass remain."""
+        return dia_complex_dot(*self._planes(), x2, self.offsets, self.h, conj_x=True)
+
+    def matvec_wdot(self, x2: torch.Tensor, w2: torch.Tensor):
+        """(A·x, conj(w)ᵀ(A·x), ‖A·x‖²) in one pass (K7). ``w2 is x2``,
+        decided by identity as in the JAX package, drops the w stream."""
+        return dia_complex_wdot(*self._planes(), x2, None if w2 is x2 else w2, None,
+                                self.offsets, self.h)
+
+    def matvec_wdot_cprec(self, x2: torch.Tensor, w2: torch.Tensor,
+                          dinv2: torch.Tensor):
+        """Complex-Jacobi-folded w-dot (K7): u = dinv ⊙ x in the kernel, then
+        (A·u, conj(w)ᵀ(A·u), ‖A·u‖²) in the same pass. ``dinv2`` is a complex
+        diagonal of the vectors' dtype in this layout."""
+        return dia_complex_wdot(*self._planes(), x2, None if w2 is x2 else w2, dinv2,
+                                self.offsets, self.h)
+
+    def diagonal_padded(self) -> torch.Tensor:
+        return torch.complex(self.re.diagonal_padded(), self.im.diagonal_padded())
+
+    def jacobi_precond(self):
+        """Complex Jacobi in the padded layout: 1/d = (d_re − i·d_im)/|d|²
+        from the planes (``pallas_spmv.py:992-1007``). Halo and pad slots
+        have a zero diagonal; their reciprocal is forced to 1 + 0i."""
+        from ..precond import ComplexDiagPrecond
+
+        dr, di = self.re.diagonal_padded(), self.im.diagonal_padded()
+        denom = dr * dr + di * di
+        one = torch.ones((), dtype=dr.dtype, device=dr.device)
+        zero = torch.zeros((), dtype=dr.dtype, device=dr.device)
+        safe = torch.where(denom == 0, one, denom)
+        inv_re = torch.where(denom == 0, one, dr) / safe
+        inv_im = torch.where(denom == 0, zero, -di) / safe
+        return ComplexDiagPrecond(diag_inv=torch.complex(inv_re, inv_im))
+
+    def relay_diag_precond(self, M):
+        """Re-lay a flat diagonal preconditioner into the padded layout (zero
+        pads keep pad coordinates inert): a complex diagonal gives a
+        :class:`~sprsolve_tpu_torch.precond.ComplexDiagPrecond` of the
+        vectors' dtype, a real one a real ``DiagPrecond`` of the planes'
+        dtype — a real diagonal on a complex system (reference
+        ``src/precond.rs:6-13``)."""
+        from ..precond import ComplexDiagPrecond, DiagPrecond
+
+        d = M.diag_inv.to(self.device)
+        if d.is_complex():
+            return ComplexDiagPrecond(diag_inv=self.pad_vec(d.to(self.dtype)))
+        return DiagPrecond(diag_inv=self.pad_vec(d.to(self.re.vdtype)))

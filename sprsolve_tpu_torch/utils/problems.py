@@ -8,6 +8,10 @@ same matrices entry for entry:
   ``tests/test_solvers.rs:74-124``;
 - :func:`sym_grid_laplacian` and :func:`simple_diag_system` — the MINRES
   goldens of the reference's ``tests/test_minres.rs``;
+- :func:`hermitian_grid`, :func:`hermitian_grid_with_diag` and
+  :func:`complex_symmetric_grid_with_diag` — the reference's complex grids
+  with the manufactured solution x[vid] = row + col·i
+  (``tests/test_complex_solve.rs:95-214``, ``tests/test_complex_solve2.rs:35-96``);
 - :func:`poisson3d` — the 7-point 3-D Poisson operator (interior unknowns);
 - :func:`convection_diffusion3d` — its nonsymmetric upwind variant.
 """
@@ -107,6 +111,69 @@ def simple_diag_system(shape: Tuple[int, int], dtype=np.float64,
     n = shape[0] * shape[1]
     idx = np.arange(n)
     return _coo_to_csr(idx, idx, (idx + 1) * 2.0, n, dtype, device), (idx + 1).astype(dtype)
+
+
+def _complex_grid(shape, off_diag: Callable[[int, int], complex],
+                  diag_fn: Callable[[int, int], complex], dtype, device):
+    """The manufactured-solution complex grids: rhs = A·x_known with
+    x_known[vid] = row + col·i, accumulated term by term in the reference's
+    order (``tests/test_complex_solve.rs:109-149``). Returns
+    ``(A, rhs, diag)``."""
+    rows, cols = shape
+    n = rows * cols
+    rhs = np.zeros(n, dtype=dtype)
+    diag = np.zeros(n, dtype=dtype)
+    ri, ci, vv = [], [], []
+    for i in range(rows):
+        for j in range(cols):
+            vid = i * cols + j
+            c = diag_fn(i, j)
+            diag[vid] = c
+            ri.append(vid); ci.append(vid); vv.append(c)
+            rv = 0.0 + 0.0j
+            rv += c * complex(i, j)
+            for tid, ti, tj, inside in (((i - 1) * cols + j, i - 1, j, i > 0),
+                                        (i * cols + j - 1, i, j - 1, j > 0),
+                                        ((i + 1) * cols + j, i + 1, j, i < rows - 1),
+                                        (i * cols + j + 1, i, j + 1, j < cols - 1)):
+                if inside:
+                    cv = off_diag(vid, tid)
+                    ri.append(vid); ci.append(tid); vv.append(cv)
+                    rv += cv * complex(ti, tj)
+            rhs[vid] = rv
+    return _coo_to_csr(ri, ci, vv, n, dtype, device), rhs, diag
+
+
+def _hermitian(shape, dtype, device):
+    return _complex_grid(shape, off_diag=lambda r, c: (1 + 2.5j) if r > c else (1 - 2.5j),
+                         diag_fn=lambda i, j: complex(-3.0 - i, 0.0), dtype=dtype,
+                         device=device)
+
+
+def hermitian_grid(shape, dtype=np.complex128, device=None) -> Tuple[CSR, np.ndarray]:
+    """Hermitian grid operator (``tests/test_complex_solve.rs:95-151``):
+    off-diagonals (1 ± 2.5i) in conjugate pairs, real diagonal −3 − row.
+    Returns ``(A, rhs)``."""
+    A, rhs, _ = _hermitian(shape, dtype, device)
+    return A, rhs
+
+
+def hermitian_grid_with_diag(shape, dtype=np.complex128, device=None
+                             ) -> Tuple[CSR, np.ndarray, np.ndarray]:
+    """Same, plus the **real** preconditioner diagonal −Re(a_ii) = 3 + row
+    (``tests/test_complex_solve.rs:153-214``)."""
+    A, rhs, diag = _hermitian(shape, dtype, device)
+    return A, rhs, -diag.real
+
+
+def complex_symmetric_grid_with_diag(shape, dtype=np.complex128, device=None
+                                     ) -> Tuple[CSR, np.ndarray, np.ndarray]:
+    """Complex-symmetric (non-Hermitian) grid
+    (``tests/test_complex_solve2.rs:35-96``): both off-diagonals (1 − 2.5i),
+    complex diagonal (−2 − row) + (−2 − col)·i. Returns ``(A, rhs, diag)``."""
+    return _complex_grid(shape, off_diag=lambda r, c: 1 - 2.5j,
+                         diag_fn=lambda i, j: complex(-2.0 - i, -2.0 - j),
+                         dtype=dtype, device=device)
 
 
 def poisson3d(nx: int, ny: int, nz: int, dtype=np.float32, device=None) -> CSR:

@@ -89,7 +89,7 @@ def test_csr_golden_object_api(tol):
     """The reference's tests/test_solvers.rs:33-57 through BiCGStab.new on
     the CSR gather path (no kernel), against the JAX handle."""
     tA, jA, rhs = _grid()
-    x, (its, res) = tsp.BiCGStab.new(tA, 400).solve(rhs, max_iter=1500, tol=tol)
+    x, (its, res) = tsp.BiCGStab.new(tA, 400, device="cpu").solve(rhs, max_iter=1500, tol=tol)
     _, (its_j, res_j) = jsp.BiCGStab.new(jA, 400).solve(rhs, max_iter=1500, tol=tol)
     assert res <= tol
     assert _true_res(tA, x, rhs) < (1e-12 if tol < 1e-12 else 1e-6)
@@ -98,15 +98,15 @@ def test_csr_golden_object_api(tol):
 
 def test_warm_start_early_exit():
     tA, _, rhs = _grid((10, 10))
-    x, _ = tsp.BiCGStab.new(tA, 100).solve(rhs, max_iter=1500, tol=1e-15)
-    x2, (its2, _) = tsp.BiCGStab.new(tA, 100).solve(rhs, x=x, max_iter=1500, tol=1e-12)
+    x, _ = tsp.BiCGStab.new(tA, 100, device="cpu").solve(rhs, max_iter=1500, tol=1e-15)
+    x2, (its2, _) = tsp.BiCGStab.new(tA, 100, device="cpu").solve(rhs, x=x, max_iter=1500, tol=1e-12)
     assert its2 == 0 and torch.equal(x2, x)
 
 
 def test_insufficient_iter_matches_jax():
     tA, jA, rhs = _grid((10, 10))
     with pytest.raises(InsufficientIterNum):
-        tsp.BiCGStab.new(tA, 100).solve(rhs, max_iter=5, tol=1e-15)
+        tsp.BiCGStab.new(tA, 100, device="cpu").solve(rhs, max_iter=5, tol=1e-15)
     _, info = tsp.bicgstab(tA, torch.from_numpy(rhs), tol=1e-15, max_iter=5)
     _, info_j = jsp.bicgstab(jA, jnp.asarray(rhs), tol=1e-15, max_iter=5)
     assert (info.status, info.iterations) == (int(info_j.status), int(info_j.iterations))
@@ -117,7 +117,7 @@ def test_insufficient_iter_matches_jax():
 def test_dimension_mismatch_raises():
     tA, _, rhs = _grid((10, 10))
     with pytest.raises(IncompatibleMatrixFormat):
-        tsp.BiCGStab.new(tA, 99)
+        tsp.BiCGStab.new(tA, 99, device="cpu")
     with pytest.raises(IncompatibleMatrixFormat):
         tsp.bicgstab(tA, torch.ones(99), tol=1e-8, max_iter=10)
     with pytest.raises(IncompatibleMatrixFormat):

@@ -71,7 +71,7 @@ def test_insufficient_iterations_status_matches_jax():
     assert bool(torch.isfinite(x).all()) and float(info.residual) > 1e-13
     assert float(info.residual) == pytest.approx(float(info_j.residual), rel=1e-8)
     np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=1e-8, atol=1e-10)
-    _, info2 = tsp.solve(tA, b, method="bicgstabl", tol=1e-13, max_iter=2)
+    _, info2 = tsp.solve(tA, b, method="bicgstabl", tol=1e-13, max_iter=2, device="cpu")
     with pytest.raises(InsufficientIterNum):
         info2.raise_if_error()
 

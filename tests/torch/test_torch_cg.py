@@ -68,10 +68,10 @@ def test_negative_definite_breaks_down_like_jax():
     assert float(info.residual) == pytest.approx(float(info_j.residual), rel=1e-12)
     assert not bool(x.any()) and not np.asarray(xj).any()
     with pytest.raises(BreakDown):
-        tsp.CG.new(tA, 64).solve(rhs, tol=1e-10)
+        tsp.CG.new(tA, 64, device="cpu").solve(rhs, tol=1e-10)
     # on the negated (SPD) matrix the handle converges
     neg = tsp.csr_from_scipy(-_scipy(tA))
-    xn, (its, res) = tsp.CG.new(neg, 64).solve(-rhs, tol=1e-10)
+    xn, (its, res) = tsp.CG.new(neg, 64, device="cpu").solve(-rhs, tol=1e-10)
     assert res <= 1e-10
     np.testing.assert_allclose(tA.matvec(xn).numpy(), rhs, rtol=1e-8, atol=1e-8)
 
@@ -110,4 +110,4 @@ def test_cg_single_sync_names_its_roadmap_item():
     tA = tprob.poisson3d(4, 4, 4)
     b = np.ones(64, np.float32)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tsp.solve(tA, b, method="cg_single_sync")
+        tsp.solve(tA, b, method="cg_single_sync", device="cpu")

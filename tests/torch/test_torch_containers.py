@@ -134,18 +134,18 @@ def test_scipy_dense_and_reference_builders_agree():
 def test_optimize_routes_banded_like_jax():
     """f32 banded → PaddedDIA (the kernels), f64 → DIA, as optimize.py:67-75."""
     A32 = tprob.poisson3d(6, 6, 6)
-    op = tsp.optimize(A32)
+    op = tsp.optimize(A32, device="cpu")
     assert isinstance(op, tsp.PaddedDIA) and op.bands.dtype == torch.int8
     assert isinstance(jsp.optimize(jprob.poisson3d(6, 6, 6)), jsp.PaddedDIA)
     A64 = tprob.grid_laplacian_dirichlet((10, 10))
-    assert type(tsp.optimize(A64)) is tsp.DIA
+    assert type(tsp.optimize(A64, device="cpu")) is tsp.DIA
     assert type(jsp.optimize(jprob.grid_laplacian_dirichlet((10, 10)))) is jsp.DIA
 
 
 def test_optimize_non_banded_names_roadmap_item():
     S = sps.random(200, 200, density=0.05, random_state=0, format="csr") + sps.eye(200)
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tsp.optimize(tsp.csr_from_scipy(S.astype(np.float32)))
+        tsp.optimize(tsp.csr_from_scipy(S.astype(np.float32)), device="cpu")
 
 
 def test_dia_max_diags_guard():

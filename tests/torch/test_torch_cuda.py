@@ -1,4 +1,4 @@
-"""GPU tests of the port: the CUDA kernels K1-K4 against their plain
+"""GPU tests of the port: the CUDA kernels K1-K7 against their plain
 PyTorch versions, and the solvers' paths through them.
 
 Every test is marked ``cuda`` and skips itself where
@@ -14,7 +14,9 @@ Tolerances, by vector dtype (eps = 2⁻²³ for f32, 2⁻⁵² for f64):
 - K4's v₊: |Δ| ≤ 8·eps·(|a| + |β||v_old| + |α||v|) per entry (the kernel
   fuses the multiply-subtracts);
 - narrow (int8/bf16) band storage: bitwise equal to the same values
-  stored f32 (widening is exact)."""
+  stored f32 (widening is exact);
+- K5-K7 (complex): y within 8·eps·((|A_re| + |A_im|)·(|u_re| + |u_im|)) per
+  row, the partials within 1e-5 (c64) or 1e-12 (c128) · Σ|w||y|."""
 
 import numpy as np
 import pytest
@@ -151,7 +153,7 @@ def test_cuda_minres_and_cg_run_through_k3_k4(cuda):
         assert pd.dia_spmv.launches == 1 and pd.dia_wdot.launches == 0
         assert pd.dia_dot.launches == (n + 1 if minres else n)
         assert fused.orth_norm.launches == (n + 1 if minres else 0)
-        x_cpu, info_cpu = tsp.solve(A, b, tol=1e-5, max_iter=500, **kw)
+        x_cpu, info_cpu = tsp.solve(A, b, tol=1e-5, max_iter=500, device="cpu", **kw)
         assert abs(n - info_cpu.iterations) <= 3
         r = A.matvec(x.cpu()).double().numpy() - b
         assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-4
@@ -186,7 +188,8 @@ def test_cuda_solve_runs_through_the_kernels(cuda):
     x, info = tsp.solve(A, b, M="jacobi", tol=1e-5, max_iter=400, device=cuda)
     assert info.converged and x.is_cuda
     assert pd.dia_spmv.launches == 1 and pd.dia_wdot.launches == 2 * info.iterations
-    x_cpu, info_cpu = tsp.solve(A, b, M="jacobi", tol=1e-5, max_iter=400)
+    x_cpu, info_cpu = tsp.solve(A, b, M="jacobi", tol=1e-5, max_iter=400,
+                                device="cpu")
     assert abs(info.iterations - info_cpu.iterations) <= 3
     r = A.matvec(x.cpu()).double().numpy() - b
     assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-4
@@ -202,9 +205,173 @@ def test_cuda_object_api_and_f64_route(cuda):
     A = problems.grid_laplacian_dirichlet((20, 20))
     x, (its, res) = tsp.BiCGStab.new(A, 400, device=cuda).solve(rhs, max_iter=1500,
                                                                 tol=1e-12)
-    x_cpu, (its_cpu, _) = tsp.BiCGStab.new(A, 400).solve(rhs, max_iter=1500, tol=1e-12)
+    x_cpu, (its_cpu, _) = tsp.BiCGStab.new(A, 400, device="cpu").solve(rhs, max_iter=1500,
+                                                                    tol=1e-12)
     assert x.is_cuda and res <= 1e-12 and abs(its - its_cpu) <= max(3, its_cpu // 4)
     np.testing.assert_allclose(x.cpu().numpy(), x_cpu.numpy(), rtol=1e-9, atol=1e-9)
     x2, info = tsp.solve(A, rhs, M="jacobi", tol=1e-12, max_iter=1500, device=cuda)
     assert x2.is_cuda and info.converged
     np.testing.assert_allclose(x2.cpu().numpy(), x_cpu.numpy(), rtol=1e-9, atol=1e-9)
+
+
+def _complex_dia(name, k=10) -> DIA:
+    """The two-plane band sets: the damped Poisson (A + 0.5i·I: int8 real
+    plane, bf16 imaginary plane), the Poisson times (1 + 0.5i) (int8/bf16),
+    and random complex64 and complex128 values on the Poisson's pattern."""
+    base = problems.poisson3d(k, k, k).to_dia()
+    vals = base.bands.numpy().astype(np.complex128)
+    if name == "damped":
+        vals[base.offsets.index(0)] += 0.5j
+    elif name == "scaled":
+        vals = vals * (1 + 0.5j)
+    else:
+        rng = np.random.default_rng(8)
+        mask = vals != 0
+        vals = np.where(mask, rng.uniform(0.5, 1.5, vals.shape)
+                        + 1j * rng.uniform(-1, 1, vals.shape), 0)
+    dt = np.complex128 if name == "random_c128" else np.complex64
+    return DIA(bands=torch.from_numpy(vals.astype(dt)), offsets=base.offsets,
+               shape=base.shape)
+
+
+COMPLEX_STORAGE = {"damped": (torch.int8, torch.bfloat16),
+                   "scaled": (torch.int8, torch.bfloat16),
+                   "random_c64": (torch.float32, torch.float32),
+                   "random_c128": (torch.float64, torch.float64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(COMPLEX_STORAGE))
+def test_cuda_complex_kernels_match_plain(name, cuda):
+    """K5, K6 (both forms) and the four K7 variants on the GPU against their
+    plain versions on the same CUDA tensors; every output halo zero; narrow
+    planes bitwise equal to the same values stored wide."""
+    op = tsp.ComplexPaddedDIA.from_dia(_complex_dia(name), device=cuda)
+    assert (op.re.bands.dtype, op.im.bands.dtype) == COMPLEX_STORAGE[name]
+    rdt = op.re.vdtype
+    rng = np.random.default_rng(9)
+    mk = lambda: op.pad_vec(torch.complex(
+        *(torch.as_tensor(rng.standard_normal(op.n), dtype=rdt, device=cuda)
+          for _ in range(2))))
+    x, w = mk(), mk()
+    dinv = op.jacobi_precond().diag_inv
+    bre, bim = op.re.bands, op.im.bands
+    wide = (bre.to(rdt), bim.to(rdt))
+    absb = bre.to(rdt).abs() + bim.to(rdt).abs()
+    eps, dot_rtol = EPS[rdt], DOT_RTOL[rdt]
+
+    def y_ok(y, y_r, u):
+        scale = pd.dia_spmv_plain(absb, u.real.abs() + u.imag.abs(), op.offsets, op.h)
+        return bool(((y - y_r).abs() <= 8 * eps * scale).all()) and _zero_halo(op, y)
+
+    pd.reset_launch_counts()
+    _dirty(x)
+    y = pd.dia_complex_spmv(bre, bim, x, op.offsets, op.h)
+    assert y_ok(y, pd.dia_complex_spmv_plain(bre, bim, x, op.offsets, op.h), x)
+    assert torch.equal(y, pd.dia_complex_spmv(*wide, x, op.offsets, op.h))
+    for conj_x in (False, True):
+        _dirty(x)
+        y, d = pd.dia_complex_dot(bre, bim, x, op.offsets, op.h, conj_x)
+        y_r, d_r = pd.dia_complex_dot_plain(bre, bim, x, op.offsets, op.h, conj_x)
+        assert y_ok(y, y_r, x)
+        assert abs(complex(d - d_r)) <= dot_rtol * float((x.abs() * y_r.abs()).sum())
+        yw, dw = pd.dia_complex_dot(*wide, x, op.offsets, op.h, conj_x)
+        assert torch.equal(y, yw) and torch.equal(d, dw)
+    for wv in (w, None):
+        for dv in (None, dinv):
+            _dirty(x)
+            y, wd, yd = pd.dia_complex_wdot(bre, bim, x, wv, dv, op.offsets, op.h)
+            y_r, wd_r, yd_r = pd.dia_complex_wdot_plain(bre, bim, x, wv, dv,
+                                                        op.offsets, op.h)
+            assert y_ok(y, y_r, x if dv is None else x * dv)
+            ws = (x if wv is None else wv).abs()
+            assert abs(complex(wd - wd_r)) <= dot_rtol * float((ws * y_r.abs()).sum())
+            assert abs(complex(yd - yd_r)) <= dot_rtol * float(yd_r.real)
+            assert yd.dtype == x.dtype and float(yd.imag) == 0.0
+            got_w = pd.dia_complex_wdot(*wide, x, wv, dv, op.offsets, op.h)
+            assert all(torch.equal(a, b) for a, b in zip((y, wd, yd), got_w))
+    torch.cuda.synchronize()
+    assert pd.dia_complex_spmv.launches == 2 and pd.dia_complex_dot.launches == 4
+    assert pd.dia_complex_wdot.launches == 8
+    assert pd.dia_spmv.launches == pd.dia_wdot.launches == pd.dia_dot.launches == 0
+
+
+@pytest.mark.cuda
+def test_cuda_complex_solves_run_through_k5_k7(cuda):
+    """The slice on the GPU at small size, on the damped complex-symmetric
+    Poisson: auto → COCG launches K5 once per iteration plus once; CS-MINRES
+    with M="jacobi" (real 1/|d|) launches K6 per pass; BiCGStab with the
+    complex Jacobi launches K7 twice per iteration; none touches K1-K4. Each
+    agrees with the same solve on the CPU."""
+    from sprsolve_tpu_torch.sparse.containers import CSR
+
+    dia = _complex_dia("damped", 12)
+    S = sum_planes(dia)
+    A = CSR.from_arrays(S.data, S.indices, S.indptr, S.shape)
+    rng = np.random.default_rng(1)
+    r = rng.standard_normal(A.shape[0])
+    b = (r + 0.25j * r).astype(np.complex64)
+    for method in ("auto", "cs_minres", "bicgstab"):
+        pd.reset_launch_counts()
+        x, info = tsp.solve(A, b, method=method, M="jacobi", tol=1e-5, max_iter=400,
+                            device=cuda)
+        torch.cuda.synchronize()
+        n = info.iterations
+        assert info.converged and x.is_cuda and x.dtype == torch.complex64
+        want = {"auto": (n + 1, 0, 0), "cs_minres": (1, n + 1, 0),
+                "bicgstab": (1, 0, 2 * n)}[method]
+        got = (pd.dia_complex_spmv.launches, pd.dia_complex_dot.launches,
+               pd.dia_complex_wdot.launches)
+        assert got == want, (method, got, want)
+        assert pd.dia_spmv.launches == pd.dia_wdot.launches == pd.dia_dot.launches == 0
+        assert fused.orth_norm.launches == 0
+        x_cpu, info_cpu = tsp.solve(A, b, method=method, M="jacobi", tol=1e-5,
+                                    max_iter=400, device="cpu")
+        assert abs(n - info_cpu.iterations) <= 3
+        res = np.linalg.norm(S @ x.cpu().numpy().astype(np.complex128) - b)
+        assert res / np.linalg.norm(b) < 1e-4
+        assert float(torch.linalg.norm(x.cpu() - x_cpu) / torch.linalg.norm(x_cpu)) < 1e-3
+
+
+def sum_planes(dia: DIA):
+    """scipy CSR of a DIA (the test's reference operator)."""
+    import scipy.sparse as sps
+
+    n = dia.shape[0]
+    bands = dia.bands.numpy()
+    cols = [np.arange(n) + off for off in dia.offsets]
+    rows = np.concatenate([np.arange(n)[(c >= 0) & (c < n)] for c in cols])
+    vals = np.concatenate([bands[d][(c >= 0) & (c < n)] for d, c in enumerate(cols)])
+    cols = np.concatenate([c[(c >= 0) & (c < n)] for c in cols])
+    return sps.csr_matrix((vals, (rows, cols)), shape=dia.shape)
+
+
+@pytest.mark.cuda
+def test_cuda_c128_minres_on_a_hermitian_grid_runs_k6(cuda):
+    """MINRES on a Hermitian c128 ComplexPaddedDIA takes α from K6 without
+    conjugation; the manufactured solution comes back to 1e-9."""
+    A, rhs = problems.hermitian_grid((20, 20))
+    op = tsp.ComplexPaddedDIA.from_csr(A, device=cuda)
+    pd.reset_launch_counts()
+    x2, info = tsp.minres(op, op.pad_vec(torch.as_tensor(rhs, device=cuda)), tol=1e-12,
+                          max_iter=3000)
+    torch.cuda.synchronize()
+    assert info.converged and _zero_halo(op, x2)
+    assert pd.dia_complex_dot.launches == info.iterations + 1
+    xk = np.array([complex(i, j) for i in range(20) for j in range(20)])
+    assert np.abs(op.unpad_vec(x2).cpu().numpy() - xk).max() < 1e-9
+
+
+@pytest.mark.cuda
+def test_cuda_solve_defaults_to_the_card(cuda):
+    """Without a device argument solve() runs on the GPU through the
+    kernels."""
+    A = problems.poisson3d(8, 8, 8)
+    b = np.random.default_rng(2).standard_normal(A.shape[0]).astype(np.float32)
+    pd.reset_launch_counts()
+    x, info = tsp.solve(A, b, M="jacobi", tol=1e-5, max_iter=200)
+    torch.cuda.synchronize()
+    assert info.converged and x.is_cuda
+    assert pd.dia_wdot.launches == 2 * info.iterations
+    assert isinstance(tsp.optimize(A), tsp.PaddedDIA)
+    assert tsp.optimize(A).device.type == "cuda"

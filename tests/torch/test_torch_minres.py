@@ -51,7 +51,7 @@ def test_goldens_through_the_handle_match_jax(name):
     tA, rhs = getattr(tprob, name)((8, 8))
     jA, rhs_j = getattr(jprob, name)((8, 8))
     assert np.array_equal(rhs, rhs_j)
-    handle = tsp.MinRes.new(tA, 64)
+    handle = tsp.MinRes.new(tA, 64, device="cpu")
     assert handle.A is tA   # a CSR runs the gather path, not a kernel
     x, (its, res) = handle.solve(rhs, max_iter=300, tol=tol)
     xj, (its_j, _) = jsp.MinRes.new(jA, 64).solve(rhs, max_iter=300, tol=tol)
@@ -150,7 +150,7 @@ def test_exact_jacobi_lucky_breakdown():
     d = np.linspace(1.0, 9.0, 64)
     S = sps.diags(d).tocsr()
     b = np.random.default_rng(8).standard_normal(64)
-    x, info = tsp.solve(tsp.csr_from_scipy(S), b, method="minres", M="jacobi",
+    x, info = tsp.solve(tsp.csr_from_scipy(S), b, method="minres", M="jacobi", device="cpu",
                         tol=1e-12, max_iter=50)
     _, info_j = jsp.solve(jsp.csr_from_scipy(S), b, method="minres", M="jacobi",
                           tol=1e-12, max_iter=50)
@@ -181,4 +181,4 @@ def test_invalid_preconditioner_matches_jax(signs):
     assert info.iterations == (0 if signs == "all_negative" else 4)
     np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=1e-10, atol=1e-12)
     with pytest.raises(tsp.errors.InvalidPreconditioner):
-        tsp.MinRes.new(tA, 64).precond_solve(tsp.DiagPrecond.new(diag), rhs)
+        tsp.MinRes.new(tA, 64, device="cpu").precond_solve(tsp.DiagPrecond.new(diag), rhs)

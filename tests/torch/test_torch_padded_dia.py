@@ -266,8 +266,56 @@ def test_cpu_path_counts_no_launch():
     assert fused.orth_norm.launches == 0 and pd.dia_dot.launches == 0
 
 
+def _cvec(pj, pt, seed, dtype=np.complex64):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(pt.n) + 1j * rng.standard_normal(pt.n)).astype(dtype)
+    return pj.pad_vec(jnp.asarray(x)), pt.pad_vec(torch.from_numpy(x))
+
+
+def _planes_close(pt, got, want_j, pj, u):
+    """A complex y of a real operator, plane by plane: y_re from u_re, y_im
+    from u_im."""
+    _y_close(pt, got.real.contiguous(), np.real(np.asarray(want_j)), pj, u.real)
+    _y_close(pt, got.imag.contiguous(), np.imag(np.asarray(want_j)), pj, u.imag)
+
+
+@pytest.mark.parametrize("name", ["poisson8", "random10"])
+def test_real_padded_dia_takes_complex_vectors(name):
+    """A real PaddedDIA times a complex vector runs K1 on each plane, and
+    matvec_dot/matvec_wdot/matvec_wdot_prec compose it with separate dots,
+    as the JAX package does (pallas_spmv.py:682-751)."""
+    pj, pt, _ = _pair(name)
+    (xj, xt), (wj, wt) = _cvec(pj, pt, 12), _cvec(pj, pt, 13)
+    pd.reset_launch_counts()
+    y = pt.matvec(xt)
+    assert y.dtype == torch.complex64
+    _planes_close(pt, y, pj.matvec(xj), pj, xt)
+    assert torch.equal(y, torch.complex(pt.matvec(xt.real.contiguous()),
+                                        pt.matvec(xt.imag.contiguous())))
+    scale = float((xt.abs() * y.abs()).sum())
+    y2, d = pt.matvec_dot(xt)
+    yj2, dj = pj.matvec_dot(xj)
+    assert torch.equal(y2, y) and abs(complex(d) - complex(dj)) <= 1e-5 * scale
+    dinv = pt.jacobi_precond().diag_inv
+    for fold in (False, True):
+        if fold:
+            got = pt.matvec_wdot_prec(xt, wt, dinv)
+            want = pj.matvec_wdot_prec(xj, wj, pj.jacobi_precond().diag_inv)
+            u = xt * dinv
+        else:
+            got, want, u = pt.matvec_wdot(xt, wt), pj.matvec_wdot(xj, wj), xt
+        _planes_close(pt, got[0], want[0], pj, u)
+        ws = float((wt.abs() * got[0].abs()).sum())
+        assert abs(complex(got[1]) - complex(want[1])) <= 1e-5 * ws
+        assert abs(complex(got[2]) - complex(want[2])) <= 1e-5 * abs(complex(want[2]))
+    # on the CPU every plane takes the plain version: no launch
+    assert pd.dia_spmv.launches == pd.dia_wdot.launches == pd.dia_dot.launches == 0
+
+
 def test_slice2_and_complex_entry_points_name_their_roadmap_item():
-    """The slice-2 entry points run; their complex forms name slice 3."""
+    """The slice-2 entry points run on real vectors. Their complex forms run
+    since slice 3 (see test_real_padded_dia_takes_complex_vectors), but the
+    fused Lanczos step stays real-only, as in the JAX package."""
     pt = pd.PaddedDIA.from_dia(tprob.poisson3d(4, 4, 4).to_dia())
     x = pt.pad_vec(torch.ones(pt.n))
     y, d = pt.matvec_dot(x)
@@ -275,10 +323,8 @@ def test_slice2_and_complex_entry_points_name_their_roadmap_item():
     vn, ss = pt.orth_norm(x, x, x, 0.0, 1.0)
     assert not bool(vn.any()) and float(ss) == 0.0
     xc = x.to(torch.complex64)
-    for call in (lambda: pt.matvec(xc), lambda: pt.matvec_dot(xc),
-                 lambda: pt.orth_norm(xc, xc, xc, 0.0, 1.0)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            call()
+    with pytest.raises(TypeError, match="real vectors"):
+        pt.orth_norm(xc, xc, xc, 0.0, 1.0)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -19,10 +19,16 @@ Phases, each printing lines of its own:
    their plain versions at 1M rows on the damped complex-symmetric Poisson
    (int8 real and bf16 imaginary plane), the Poisson times (1 + 0.5i), a
    random c64 and a random c128 set; narrow planes bitwise equal to the
-   same values stored f32, halos zero after a NaN block was freed.  Prints
-   the wrapper-timed and graph-replayed median times, the plain versions',
-   each kernel's bound and, for K1 and K5, the time of ``torch.mv`` on a
-   ``torch.sparse_csr_tensor`` of the same matrix.
+   same values stored f32, halos zero after a NaN block was freed.  K2 (all
+   four variants) and K3 on every real band set: y bitwise K1's on the
+   same input (x ⊙ dinv under the fold), the dots of 10 eager calls and of
+   3 CUDA-graph replays bitwise the same, every ticket back at 0; on the
+   Poisson, torch.profiler sees one kernel per call.  Prints the
+   wrapper-timed and graph-replayed median times, warm in L2 (``ms``) and
+   cold (``cold_ms``: rotating through copies of the inputs whose total
+   exceeds twice L2), the plain versions', each kernel's bound, K2's
+   w = r0 variant as a row of its own and, for K1 and K5, the time of
+   ``torch.mv`` on a ``torch.sparse_csr_tensor`` of the same matrix.
 4. slice   — ``solve(A, b, method="bicgstab", M="jacobi")`` on the 100³
    Poisson in f32, with the launch counters reset just before: it must
    converge, reach a true relative residual (f64, scipy) below 1e-3, launch
@@ -59,7 +65,8 @@ Phases, each printing lines of its own:
    conjugation), CS-MINRES, COCG and BiCGStab with the complex Jacobi on
    the complex-symmetric grid; true residuals below 1e-9.
 
-The line before the last is a JSON object with one entry per kernel (K1-K7);
+The line before the last is a JSON object with one entry per kernel (K1-K7,
+each with its warm ``ms`` and its ``cold_ms``);
 the last line is ``{"ok": true, "device": {...}}``.  Any failure raises, and
 the script exits non-zero.  It imports no JAX.
 """
@@ -163,6 +170,37 @@ def device_ms(fn, reps: int = 5, inner: int = 20) -> float:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def cold_device_ms(call, operands, reps: int = 5) -> float:
+    """Device time of one call on inputs cold in L2: ``device_ms``'s graph
+    replay, rotating through at least 4 copies of ``operands`` whose total
+    exceeds twice the card's L2, so that no call finds its inputs left
+    there by the call before."""
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 50 << 20)
+    n = max(4, -(-2 * l2 // nbytes(*operands)))
+    copies = [tuple(t.clone() for t in operands) for _ in range(n)]
+
+    def one_pass():
+        for c in copies:
+            call(*c)
+
+    return device_ms(one_pass, reps=reps, inner=2) / n
+
+
+def kernel_events(fn) -> list:
+    """``[(name, µs)]`` of the device events (kernels, copies, memsets) of
+    one call of ``fn`` under torch.profiler, after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
 
 
 def bound_ms(moved: int, flops: float, rdt) -> tuple:
@@ -274,7 +312,9 @@ def phase_kernels(dev):
         for wv in (w, None):
             for dv in (None, dinv):
                 tag = f"{name} K2 w_is_x={wv is None} has_dinv={dv is not None}"
+                dirty(x)
                 y, wd, yd = pd.dia_wdot(op.bands, x, wv, dv, op.offsets, op.h)
+                check_halo(tag + " y", op, y)
                 y_r, wd_r, yd_r = pd.dia_wdot_plain(op.bands, x, wv, dv, op.offsets, op.h)
                 u = x if dv is None else x * dv
                 scale = pd.dia_spmv_plain(absb, u.abs(), op.offsets, op.h).max()
@@ -302,6 +342,7 @@ def phase_kernels(dev):
             yw, dw = pd.dia_dot(op.bands.to(torch.float32), x, op.offsets, op.h)
             if not (torch.equal(y, yw) and torch.equal(d, dw)):
                 raise AssertionError(f"{name}: narrow and f32 bands differ (K3)")
+        check_dot_kernels(name, op, x, w, dinv, profile=name == "poisson100_int8")
         torch.cuda.synchronize()
         # timings at the main path's shapes: K2 as BiCGStab's second SpMV
         # (Jacobi fold, w = x)
@@ -330,31 +371,90 @@ def phase_kernels(dev):
     return errs, times, stats
 
 
+def check_dot_kernels(name, op, x, w, dinv, profile: bool) -> None:
+    """K3 and the four K2 variants: y bitwise K1's on the SpMV input (x, or
+    x ⊙ dinv under the fold); the dots of 10 eager calls and of a CUDA-graph
+    replay bitwise the same; with ``profile``, one CUDA kernel per call."""
+    b, o, h = op.bands, op.offsets, op.h
+    calls = {   # name → (call, SpMV input)
+        "K3": (lambda: pd.dia_dot(b, x, o, h), x),
+        "K2 w=r0": (lambda: pd.dia_wdot(b, x, w, None, o, h), x),
+        "K2 w=x": (lambda: pd.dia_wdot(b, x, None, None, o, h), x),
+        "K2 fold w=r0": (lambda: pd.dia_wdot(b, x, w, dinv, o, h), x * dinv),
+        "K2 fold w=x": (lambda: pd.dia_wdot(b, x, None, dinv, o, h), x * dinv),
+    }
+    same = lambda p, q: all(torch.equal(s, t) for s, t in zip(p, q))
+    eager = {}
+    for tag, (call, u) in calls.items():
+        eager[tag] = call()
+        if not torch.equal(eager[tag][0], pd.dia_spmv(b, u, o, h)):
+            raise AssertionError(f"{name} {tag}: y is not K1's bit for bit")
+        for _ in range(10):
+            if not same(call(), eager[tag]):
+                raise AssertionError(f"{name} {tag}: dots differ between eager calls")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for call, _ in calls.values():
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = {tag: call() for tag, (call, _) in calls.items()}
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for tag in calls:
+            if not same(captured[tag], eager[tag]):
+                raise AssertionError(f"{name} {tag}: a graph replay differs from eager")
+    if any(int(buf[:4].view(torch.int32).item()) for buf in pd._dot_scratch.values()):
+        raise AssertionError("a K2/K3 ticket is not back at 0")
+    if profile:
+        for tag, (call, _) in calls.items():
+            ev = kernel_events(call)
+            if len(ev) != 1 or "dia_dots_kernel" not in ev[0][0]:
+                raise AssertionError(f"{tag}: one call ran {ev}, not one kernel")
+            log("kernels", set=name, call=tag, profiler_events=1,
+                kernel_us=f"{ev[0][1]:.3f}")
+    log("kernels", set=name, K2_K3="y bitwise K1's; dots bitwise equal over 10 "
+        "eager calls and 3 graph replays; tickets at 0")
+
+
 def real_kernel_stats(op, x, dinv, mk) -> dict:
     """Graph-replayed device times of K1-K4 and their plain versions at the
     main path's shapes (K2 with the Jacobi fold and w = x, BiCGStab's second
-    SpMV), each kernel's bound from these inputs, and K1's library call."""
+    SpMV; and with w = r0, its first, as a row of its own), warm and cold in
+    L2, the wrapper times, each kernel's bound from these inputs, and K1's
+    library call."""
     D, n_pad, h = len(op.offsets), op.n_pad, op.h
     b, o = op.bands, op.offsets
-    a, vold, v = mk(), mk(), mk()
+    a, vold, v, r0 = mk(), mk(), mk(), mk()
     beta = torch.tensor(0.7, device=x.device)
     alpha = torch.tensor(-1.3, device=x.device)
-    calls = {
-        "dia_spmv": (lambda: pd.dia_spmv(b, x, o, h), lambda: pd.dia_spmv_plain(b, x, o, h),
-                     nbytes(b, x, x), 2 * D * n_pad),
-        "dia_wdot": (lambda: pd.dia_wdot(b, x, None, dinv, o, h),
-                     lambda: pd.dia_wdot_plain(b, x, None, dinv, o, h),
-                     nbytes(b, x, dinv, x), (2 * D + 5) * n_pad),
-        "dia_dot": (lambda: pd.dia_dot(b, x, o, h), lambda: pd.dia_dot_plain(b, x, o, h),
-                    nbytes(b, x, x), (2 * D + 2) * n_pad),
-        "orth_norm": (lambda: fused.orth_norm(a, vold, v, beta, alpha, h),
-                      lambda: fused.orth_norm_plain(a, vold, v, beta, alpha),
-                      nbytes(a, vold, v, a), 6 * n_pad),
+    calls = {   # name → (kernel, plain version, operands, bytes moved, flops)
+        "dia_spmv": (lambda b, x: pd.dia_spmv(b, x, o, h),
+                     lambda b, x: pd.dia_spmv_plain(b, x, o, h),
+                     (b, x), nbytes(b, x, x), 2 * D * n_pad),
+        "dia_wdot": (lambda b, x, d: pd.dia_wdot(b, x, None, d, o, h),
+                     lambda b, x, d: pd.dia_wdot_plain(b, x, None, d, o, h),
+                     (b, x, dinv), nbytes(b, x, dinv, x), (2 * D + 5) * n_pad),
+        "dia_wdot[has_dinv,w=r0]": (
+            lambda b, x, w, d: pd.dia_wdot(b, x, w, d, o, h),
+            lambda b, x, w, d: pd.dia_wdot_plain(b, x, w, d, o, h),
+            (b, x, r0, dinv), nbytes(b, x, dinv, r0, x), (2 * D + 5) * n_pad),
+        "dia_dot": (lambda b, x: pd.dia_dot(b, x, o, h),
+                    lambda b, x: pd.dia_dot_plain(b, x, o, h),
+                    (b, x), nbytes(b, x, x), (2 * D + 2) * n_pad),
+        "orth_norm": (lambda *t: fused.orth_norm(*t, h), fused.orth_norm_plain,
+                      (a, vold, v, beta, alpha), nbytes(a, vold, v, a), 6 * n_pad),
     }
     stats = {}
-    for name, (kern, plain, moved, flops) in calls.items():
+    for name, (kern, plain, ops, moved, flops) in calls.items():
         bms, by = bound_ms(moved, flops, torch.float32)
-        stats[name] = {"ms": device_ms(kern), "plain_ms": device_ms(plain),
+        stats[name] = {"ms": device_ms(lambda: kern(*ops)),
+                       "cold_ms": cold_device_ms(kern, ops),
+                       "plain_ms": device_ms(lambda: plain(*ops)),
+                       "wrapper_ms": median_ms(lambda: kern(*ops)),
                        "bound_ms": bms, "bound_by": by, "library_ms": None}
     A = problems.poisson3d(GRID, GRID, GRID)
     stats["dia_spmv"]["library_ms"] = library_ms(
@@ -363,7 +463,8 @@ def real_kernel_stats(op, x, dinv, mk) -> dict:
     for name, st in stats.items():
         log("kernels", set="poisson100_int8", kernel=name, timing="graph-replayed",
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in st.items()},
-            share_of_bound=f"{st['bound_ms'] / st['ms']:.3f}")
+            share_of_bound=f"{st['bound_ms'] / st['ms']:.3f}",
+            cold_share_of_bound=f"{st['bound_ms'] / st['cold_ms']:.3f}")
     return stats
 
 
@@ -481,33 +582,35 @@ def complex_kernel_stats(op, x, w, dinv) -> dict:
     bre, bim, o, h = op.re.bands, op.im.bands, op.offsets, op.h
     D, n_pad = len(o), op.n_pad
     planes = nbytes(bre, bim)
-    variants = {
-        "dia_complex_spmv": (lambda: pd.dia_complex_spmv(bre, bim, x, o, h),
-                             lambda: pd.dia_complex_spmv_plain(bre, bim, x, o, h),
-                             planes + nbytes(x, x), (8 * D + 2) * n_pad),
+    variants = {   # name → (kernel, plain version, operands, bytes moved, flops)
+        "dia_complex_spmv": (lambda br, bi, x: pd.dia_complex_spmv(br, bi, x, o, h),
+                             lambda br, bi, x: pd.dia_complex_spmv_plain(br, bi, x, o, h),
+                             (bre, bim, x), planes + nbytes(x, x), (8 * D + 2) * n_pad),
         "dia_complex_dot[conj_x=False]": (
-            lambda: pd.dia_complex_dot(bre, bim, x, o, h),
-            lambda: pd.dia_complex_dot_plain(bre, bim, x, o, h),
-            planes + nbytes(x, x), (8 * D + 6) * n_pad),
+            lambda br, bi, x: pd.dia_complex_dot(br, bi, x, o, h),
+            lambda br, bi, x: pd.dia_complex_dot_plain(br, bi, x, o, h),
+            (bre, bim, x), planes + nbytes(x, x), (8 * D + 6) * n_pad),
         "dia_complex_dot": (
-            lambda: pd.dia_complex_dot(bre, bim, x, o, h, True),
-            lambda: pd.dia_complex_dot_plain(bre, bim, x, o, h, True),
-            planes + nbytes(x, x), (8 * D + 6) * n_pad),
+            lambda br, bi, x: pd.dia_complex_dot(br, bi, x, o, h, True),
+            lambda br, bi, x: pd.dia_complex_dot_plain(br, bi, x, o, h, True),
+            (bre, bim, x), planes + nbytes(x, x), (8 * D + 6) * n_pad),
         "dia_complex_wdot[has_dinv,w=r0]": (
-            lambda: pd.dia_complex_wdot(bre, bim, x, w, dinv, o, h),
-            lambda: pd.dia_complex_wdot_plain(bre, bim, x, w, dinv, o, h),
-            planes + nbytes(x, dinv, w, x), (14 * D + 10) * n_pad),
+            lambda br, bi, x, w, d: pd.dia_complex_wdot(br, bi, x, w, d, o, h),
+            lambda br, bi, x, w, d: pd.dia_complex_wdot_plain(br, bi, x, w, d, o, h),
+            (bre, bim, x, w, dinv), planes + nbytes(x, dinv, w, x), (14 * D + 10) * n_pad),
         "dia_complex_wdot": (
-            lambda: pd.dia_complex_wdot(bre, bim, x, None, dinv, o, h),
-            lambda: pd.dia_complex_wdot_plain(bre, bim, x, None, dinv, o, h),
-            planes + nbytes(x, dinv, x), (14 * D + 10) * n_pad),
+            lambda br, bi, x, d: pd.dia_complex_wdot(br, bi, x, None, d, o, h),
+            lambda br, bi, x, d: pd.dia_complex_wdot_plain(br, bi, x, None, d, o, h),
+            (bre, bim, x, dinv), planes + nbytes(x, dinv, x), (14 * D + 10) * n_pad),
     }
     stats = {}
-    for name, (kern, plain, moved, flops) in variants.items():
+    for name, (kern, plain, ops, moved, flops) in variants.items():
         bms, by = bound_ms(moved, flops, torch.float32)
-        stats[name] = {"ms": device_ms(kern), "plain_ms": device_ms(plain),
-                       "wrapper_ms": median_ms(kern), "bound_ms": bms, "bound_by": by,
-                       "library_ms": None}
+        stats[name] = {"ms": device_ms(lambda: kern(*ops)),
+                       "cold_ms": cold_device_ms(kern, ops),
+                       "plain_ms": device_ms(lambda: plain(*ops)),
+                       "wrapper_ms": median_ms(lambda: kern(*ops)), "bound_ms": bms,
+                       "bound_by": by, "library_ms": None}
     csr = spt.CSR.from_arrays(*damped_csr_arrays(), shape=op.shape)
     stats["dia_complex_spmv"]["library_ms"] = library_ms(
         "K5 dia_complex_spmv", csr, op.unpad_vec(x).contiguous(),
@@ -515,7 +618,8 @@ def complex_kernel_stats(op, x, w, dinv) -> dict:
     for name, st in stats.items():
         log("kernels", set="damped_int8_bf16", kernel=name, timing="graph-replayed",
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in st.items()},
-            share_of_bound=f"{st['bound_ms'] / st['ms']:.3f}")
+            share_of_bound=f"{st['bound_ms'] / st['ms']:.3f}",
+            cold_share_of_bound=f"{st['bound_ms'] / st['cold_ms']:.3f}")
     return stats
 
 
@@ -983,6 +1087,10 @@ def main() -> int:
         row_tile=lib.sprsolve_dia_row_tile())
     assert lib.sprsolve_dia_row_tile() == pd.ROW_TILE
     assert lib.sprsolve_dia_max_diags() == pd.MAX_DIAGS
+    assert lib.sprsolve_dia_dots_tile() == pd.DOT_TILE
+    assert lib.sprsolve_dia_dots_scratch_head() == pd.DOT_SCRATCH_HEAD
+    assert all(lib.sprsolve_dia_dots_blocks_per_sm(pd._VCODE[dt]) == b
+               for dt, b in pd.DOT_BLOCKS_PER_SM.items())
 
     errs, _, stats = phase_kernels(dev)
     phase_complex_kernels(dev, errs, stats)
@@ -999,8 +1107,8 @@ def main() -> int:
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name],
-         **{k: stats[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                         "library_ms")}}
+         **{k: stats[name][k] for k in ("ms", "cold_ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}}
         for name, (src, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

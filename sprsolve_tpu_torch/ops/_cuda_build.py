@@ -36,14 +36,22 @@ _SIGNATURES = {
     "sprsolve_dia_row_tile": ([], _I32),
     "sprsolve_dia_max_diags": ([], _I32),
     "sprsolve_cuda_error_string": ([_I32], ctypes.c_char_p),
+    "sprsolve_dia_dots_tile": ([], _I32),
+    "sprsolve_dia_dots_scratch_head": ([], _I32),
+    "sprsolve_dia_dots_blocks_per_sm": ([_I32], _I32),   # vcode
     # vcode, bcode, bands, x, y, n_pad, h, offsets, nd, stream
     "sprsolve_dia_spmv": ([_I32, _I32, _P, _P, _P, _I64, _I64, _P, _I32, _P], _I32),
-    # vcode, bcode, bands, x, dinv, w, y, partials, n_pad, h, offsets, nd, stream
+    # vcode, bcode, bands, x, dinv, w, y, out, scratch, scratch_bytes, grid,
+    # n_pad, h, offsets, nd, stream
     "sprsolve_dia_wdot": (
-        [_I32, _I32, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _I32, _P], _I32
+        [_I32, _I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P, _I32, _P],
+        _I32,
     ),
-    # vcode, bcode, bands, x, y, partials, n_pad, h, offsets, nd, stream
-    "sprsolve_dia_dot": ([_I32, _I32, _P, _P, _P, _P, _I64, _I64, _P, _I32, _P], _I32),
+    # vcode, bcode, bands, x, y, out, scratch, scratch_bytes, grid, n_pad, h,
+    # offsets, nd, stream
+    "sprsolve_dia_dot": (
+        [_I32, _I32, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P, _I32, _P], _I32
+    ),
     # vcode, a, v_old, v, beta, alpha, out, partials, n_pad, h, stream
     "sprsolve_orth_norm": ([_I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P], _I32),
     # vcode, re_code, im_code, bre, bim, x, y, n_pad, h, offsets, nd, stream

@@ -24,10 +24,13 @@ plain PyTorch version:
 
 - K1 :func:`dia_spmv` — y = Σ_d band_d ⊙ shift(x, off_d).
 - K2 :func:`dia_wdot` — K1 on u = dinv ⊙ x (Jacobi fold) or on x, plus
-  [wᵀy, yᵀy] as per-block partials summed in a second step; w = None reads
-  the dot's w from x itself.
-- K3 :func:`dia_dot` — K1 plus xᵀy (the ``dotmv`` form), per-block partials
-  summed in a second step.
+  [wᵀy, yᵀy]; w = None reads the dot's w from x itself.
+- K3 :func:`dia_dot` — K1 plus xᵀy (the ``dotmv`` form).
+
+  K2 and K3 are one launch each: the last block to finish sums the
+  per-tile partials in tile order (a ticket in a per-(device, stream)
+  scratch, :func:`dot_scratch`), over one wave of blocks
+  (:func:`persistent_grid`).
 - K5 :func:`dia_complex_spmv` — y = A·x over two band planes.
 - K6 :func:`dia_complex_dot` — K5 plus conj(x)ᵀy; ``conj_x`` gives
   y = A·conj(x) by a sign fold, with the same dot (the Saunders step).
@@ -46,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -215,12 +219,63 @@ def launch_env(x: torch.Tensor):
     return _cuda_build.load(), torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch_args(planes, x: torch.Tensor, offsets):
-    """(library, type codes, offsets array, stream): the vector's type code,
-    then one for each band plane."""
-    lib, stream = launch_env(x)
+@functools.lru_cache(maxsize=256)
+def _launch_consts(offsets: tuple, vdtype: torch.dtype, bdtypes: tuple):
+    """(type codes, ctypes offsets array) of an operator, built once: the
+    vector's type code, then one for each band plane."""
     offs = (ctypes.c_longlong * max(len(offsets), 1))(*offsets)
-    return lib, (_VCODE[x.dtype], *(_BCODE[b.dtype] for b in planes)), offs, stream
+    return (_VCODE[vdtype], *(_BCODE[b] for b in bdtypes)), offs
+
+
+def _launch_args(planes, x: torch.Tensor, offsets):
+    """(library, type codes, ctypes offsets array, stream); ctypes passes
+    the array by address."""
+    lib, stream = launch_env(x)
+    codes, offs = _launch_consts(tuple(offsets), x.dtype, tuple(b.dtype for b in planes))
+    return lib, codes, offs, stream
+
+
+def _on_device(x: torch.Tensor, launch, *args) -> int:
+    """``launch(*args)`` with ``x``'s device current (entered only when it
+    is not already)."""
+    if x.device.index == torch.cuda.current_device():
+        return launch(*args)
+    with torch.cuda.device(x.device):
+        return launch(*args)
+
+
+# K2/K3 launch geometry (DOT_TILE, SCRATCH_HEAD, blocks_per_sm in
+# csrc/dia_spmv.cu)
+DOT_TILE = 1024         # rows of a tile: 256 threads of 4 rows
+DOT_SCRATCH_HEAD = 256  # scratch bytes before the partials: the ticket
+DOT_BLOCKS_PER_SM = {torch.float32: 8, torch.float64: 4}
+_dot_scratch = {}       # (device, stream handle) → zeroed uint8 tensor
+
+
+def persistent_grid(n_pad: int, vdtype: torch.dtype, sm_count: int) -> int:
+    """Blocks of one K2/K3 launch: one per tile, at most the blocks that
+    share an SM times the SM count (one wave); each block walks the tiles
+    blockIdx, + grid, ... The dots do not depend on it: the kernel sums
+    per-tile partials."""
+    return max(1, min(-(-n_pad // DOT_TILE), DOT_BLOCKS_PER_SM[vdtype] * sm_count))
+
+
+def dot_scratch(device: torch.device, stream: int, n_pad: int) -> torch.Tensor:
+    """The K2/K3 scratch of one (device, stream): the last-block ticket, then
+    two partials (f64 at most) per tile of ``n_pad`` rows, zeroed when made
+    and made again only to grow. Each launch leaves the ticket at 0, so the
+    launches in one stream's order share it; two streams never do."""
+    need = DOT_SCRATCH_HEAD + 16 * -(-n_pad // DOT_TILE)
+    key = (device.type, device.index, stream)
+    buf = _dot_scratch.get(key)
+    if buf is None or buf.numel() < need:
+        buf = _dot_scratch[key] = torch.zeros(need, dtype=torch.uint8, device=device)
+    return buf
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def dia_spmv(bands: torch.Tensor, x: torch.Tensor, offsets, h: int
@@ -236,7 +291,7 @@ def dia_spmv(bands: torch.Tensor, x: torch.Tensor, offsets, h: int
     with torch.cuda.device(x.device):
         err = lib.sprsolve_dia_spmv(
             *codes, bands.data_ptr(), x.data_ptr(), y.data_ptr(), n_pad, h,
-            ctypes.addressof(offs), len(offsets), stream,
+            offs, len(offsets), stream,
         )
     _cuda_build.check(lib, err, "dia_spmv")
     dia_spmv.launches += 1
@@ -247,50 +302,53 @@ def dia_wdot(bands: torch.Tensor, x: torch.Tensor, w: Optional[torch.Tensor],
              dinv: Optional[torch.Tensor], offsets, h: int):
     """K2: (y = A·u, wᵀy, yᵀy), u = dinv ⊙ x when ``dinv`` is given.
 
-    ``w=None`` takes w from the raw x (one stream fewer). The dots are
-    per-block partials summed by ``torch.sum(partials, 0)`` in a fixed
-    order. Replaces ``_dia_wdot_kernel``
-    (``sprsolve_tpu/ops/pallas_spmv.py:159``)."""
+    ``w=None`` takes w from the raw x (one stream fewer). One launch: the
+    kernel sums its per-tile partials itself, in tile order, into a
+    ``(2,)`` tensor whose 0-d views come back; the dots depend on n_pad
+    alone, not on the grid, the card or the band storage. Replaces
+    ``_dia_wdot_kernel`` (``sprsolve_tpu/ops/pallas_spmv.py:159``)."""
     vecs = [v for v in (w, dinv) if v is not None]
     n_pad = _check((bands,), x, offsets, h, *vecs)
     if x.device.type == "cpu":
         return dia_wdot_plain(bands, x, w, dinv, offsets, h)
     lib, codes, offs, stream = _launch_args((bands,), x, offsets)
+    grid = persistent_grid(n_pad, x.dtype, _sm_count(x.device.index))
     y = torch.empty_like(x)
-    partials = torch.empty((n_pad // ROW_TILE, 2), dtype=x.dtype, device=x.device)
+    out = torch.empty(2, dtype=x.dtype, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(x.device):
-        err = lib.sprsolve_dia_wdot(
-            *codes, bands.data_ptr(), x.data_ptr(), ptr(dinv), ptr(w),
-            y.data_ptr(), partials.data_ptr(), n_pad, h,
-            ctypes.addressof(offs), len(offsets), stream,
-        )
+    scratch = dot_scratch(x.device, stream, n_pad)
+    err = _on_device(
+        x, lib.sprsolve_dia_wdot, *codes, bands.data_ptr(), x.data_ptr(), ptr(dinv),
+        ptr(w), y.data_ptr(), out.data_ptr(), scratch.data_ptr(), scratch.numel(),
+        grid, n_pad, h, offs, len(offsets), stream,
+    )
     _cuda_build.check(lib, err, "dia_wdot")
     dia_wdot.launches += 1
-    sums = torch.sum(partials, 0)
-    return y, sums[0], sums[1]
+    wd, yd = out.unbind()
+    return y, wd, yd
 
 
 def dia_dot(bands: torch.Tensor, x: torch.Tensor, offsets, h: int):
     """K3: (y = A·x, xᵀy) in the padded layout (zero halo), with x the raw
-    SpMV input. The dot is per-block partials summed by ``torch.sum`` in a
-    fixed order. Replaces ``_dia_dot_kernel``
+    SpMV input. One launch: the kernel sums its per-tile partials itself,
+    in tile order, into the 0-d dot. Replaces ``_dia_dot_kernel``
     (``sprsolve_tpu/ops/pallas_spmv.py:140``)."""
     n_pad = _check((bands,), x, offsets, h)
     if x.device.type == "cpu":
         return dia_dot_plain(bands, x, offsets, h)
     lib, codes, offs, stream = _launch_args((bands,), x, offsets)
+    grid = persistent_grid(n_pad, x.dtype, _sm_count(x.device.index))
     y = torch.empty_like(x)
-    partials = torch.empty(n_pad // ROW_TILE, dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.sprsolve_dia_dot(
-            *codes, bands.data_ptr(), x.data_ptr(), y.data_ptr(),
-            partials.data_ptr(), n_pad, h, ctypes.addressof(offs), len(offsets),
-            stream,
-        )
+    d = torch.empty((), dtype=x.dtype, device=x.device)
+    scratch = dot_scratch(x.device, stream, n_pad)
+    err = _on_device(
+        x, lib.sprsolve_dia_dot, *codes, bands.data_ptr(), x.data_ptr(), y.data_ptr(),
+        d.data_ptr(), scratch.data_ptr(), scratch.numel(), grid, n_pad, h, offs,
+        len(offsets), stream,
+    )
     _cuda_build.check(lib, err, "dia_dot")
     dia_dot.launches += 1
-    return y, torch.sum(partials)
+    return y, d
 
 
 def dia_complex_spmv(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
@@ -306,7 +364,7 @@ def dia_complex_spmv(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
     with torch.cuda.device(x.device):
         err = lib.sprsolve_dia_complex_spmv(
             *codes, bre.data_ptr(), bim.data_ptr(), x.data_ptr(), y.data_ptr(),
-            n_pad, h, ctypes.addressof(offs), len(offsets), stream,
+            n_pad, h, offs, len(offsets), stream,
         )
     _cuda_build.check(lib, err, "dia_complex_spmv")
     dia_complex_spmv.launches += 1
@@ -329,7 +387,7 @@ def dia_complex_dot(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
     with torch.cuda.device(x.device):
         err = lib.sprsolve_dia_complex_dot(
             *codes, int(bool(conj_x)), bre.data_ptr(), bim.data_ptr(), x.data_ptr(),
-            y.data_ptr(), partials.data_ptr(), n_pad, h, ctypes.addressof(offs),
+            y.data_ptr(), partials.data_ptr(), n_pad, h, offs,
             len(offsets), stream,
         )
     _cuda_build.check(lib, err, "dia_complex_dot")
@@ -359,7 +417,7 @@ def dia_complex_wdot(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
     with torch.cuda.device(x.device):
         err = lib.sprsolve_dia_complex_wdot(
             *codes, bre.data_ptr(), bim.data_ptr(), x.data_ptr(), ptr(dinv), ptr(w),
-            y.data_ptr(), partials.data_ptr(), n_pad, h, ctypes.addressof(offs),
+            y.data_ptr(), partials.data_ptr(), n_pad, h, offs,
             len(offsets), stream,
         )
     _cuda_build.check(lib, err, "dia_complex_wdot")

@@ -1,5 +1,7 @@
 """GPU tests of the port: the CUDA kernels K1-K7 against their plain
-PyTorch versions, and the solvers' paths through them.
+PyTorch versions, and the solvers' paths through them; K2's and K3's y
+bitwise equal to K1's, and their dots bitwise the same from call to call
+and through a CUDA-graph replay.
 
 Every test is marked ``cuda`` and skips itself where
 ``torch.cuda.is_available()`` is false.  This file imports no JAX, so it
@@ -375,3 +377,125 @@ def test_cuda_solve_defaults_to_the_card(cuda):
     assert pd.dia_wdot.launches == 2 * info.iterations
     assert isinstance(tsp.optimize(A), tsp.PaddedDIA)
     assert tsp.optimize(A).device.type == "cuda"
+
+
+# --- K2 and K3: one launch, y bitwise K1's, deterministic dots --------------
+def _dot_op(storage, k, cuda):
+    """A PaddedDIA on the k³ Poisson's pattern whose bands store as
+    ``storage``: the Poisson itself (int8), ×2.5 (bf16), random values (f32)
+    or random f64 values."""
+    base = problems.poisson3d(k, k, k).to_dia()
+    vals = base.bands.numpy().astype(np.float64)
+    rng = np.random.default_rng(11)
+    if storage == "bfloat16":
+        vals = vals * 2.5
+    elif storage in ("float32", "float64"):
+        vals = np.where(vals != 0, rng.uniform(0.5, 1.5, vals.shape), 0)
+    dt = np.float64 if storage == "float64" else np.float32
+    op = pd.PaddedDIA.from_dia(DIA(bands=torch.from_numpy(vals.astype(dt)),
+                                   offsets=base.offsets, shape=base.shape), device=cuda)
+    assert str(op.bands.dtype) == f"torch.{storage}"
+    return op
+
+
+def _dot_vecs(op, cuda, seed=12):
+    rng = np.random.default_rng(seed)
+    mk = lambda: op.pad_vec(torch.as_tensor(rng.standard_normal(op.n), dtype=op.vdtype,
+                                            device=cuda))
+    return mk(), mk(), op.jacobi_precond().diag_inv
+
+
+def _dot_calls(op, x, w, dinv):
+    """name → (call, the SpMV input u) for K3 and the four K2 variants."""
+    b, o, h = op.bands, op.offsets, op.h
+    return {
+        "K3": (lambda bb: pd.dia_dot(bb, x, o, h), x),
+        "K2 w": (lambda bb: pd.dia_wdot(bb, x, w, None, o, h), x),
+        "K2 w=x": (lambda bb: pd.dia_wdot(bb, x, None, None, o, h), x),
+        "K2 w dinv": (lambda bb: pd.dia_wdot(bb, x, w, dinv, o, h), x * dinv),
+        "K2 w=x dinv": (lambda bb: pd.dia_wdot(bb, x, None, dinv, o, h), x * dinv),
+    }
+
+
+# n = 216 (one row tile, offsets 1, 6, 36), 2197 (ragged: the last tile is
+# part full; offset 169 lies beyond the staged halo and breaks 16-byte
+# alignment) and 13824 (offset 576 beyond the halo, aligned): each grid is
+# smaller than the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [6, 13, 24])
+@pytest.mark.parametrize("storage", ["int8", "bfloat16", "float32", "float64"])
+def test_cuda_k2_k3_y_is_k1_bitwise_and_dots_match_plain(storage, k, cuda):
+    """K3's y equals K1(x) and K2's y equals K1(x ⊙ dinv) or K1(x) bit for
+    bit, with a zero halo; the dots agree with the plain versions; narrow
+    bands give bitwise the output of the same values stored wide; one
+    launch per call."""
+    op = _dot_op(storage, k, cuda)
+    x, w, dinv = _dot_vecs(op, cuda)
+    dt, wide = op.vdtype, op.bands.to(op.vdtype)
+    pd.reset_launch_counts()
+    for name, (call, u) in _dot_calls(op, x, w, dinv).items():
+        _dirty(x)
+        got = call(op.bands)
+        assert torch.equal(got[0], pd.dia_spmv(op.bands, u, op.offsets, op.h)), name
+        assert _zero_halo(op, got[0]), name
+        assert all(d.shape == () and d.dtype == dt for d in got[1:])
+        if name == "K3":
+            want = pd.dia_dot_plain(op.bands, x, op.offsets, op.h)
+            scales = [(x * want[0]).abs().sum()]
+        else:
+            wv = None if "w=x" in name else w
+            dv = dinv if "dinv" in name else None
+            want = pd.dia_wdot_plain(op.bands, x, wv, dv, op.offsets, op.h)
+            scales = [((x if wv is None else wv) * want[0]).abs().sum(), want[2]]
+        for d, d_r, s in zip(got[1:], want[1:], scales):
+            assert abs(float(d - d_r)) <= DOT_RTOL[dt] * float(s), name
+        assert all(torch.equal(a, b) for a, b in zip(got, call(wide))), name
+    torch.cuda.synchronize()
+    assert pd.dia_dot.launches == 2 and pd.dia_wdot.launches == 8
+    assert pd.dia_spmv.launches == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["int8", "float64"])
+def test_cuda_k2_k3_are_deterministic_and_replay_in_a_graph(storage, cuda):
+    """Ten eager calls give bitwise the same dots; a CUDA graph of the same
+    calls replays to bitwise the eager outputs, and every ticket is back at
+    0 after the replay."""
+    op = _dot_op(storage, 24, cuda)
+    x, w, dinv = _dot_vecs(op, cuda)
+    calls = _dot_calls(op, x, w, dinv)
+    eager = {name: call(op.bands) for name, (call, _) in calls.items()}
+    for _ in range(10):
+        for name, (call, _) in calls.items():
+            assert all(torch.equal(a, b) for a, b in zip(call(op.bands), eager[name]))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for call, _ in calls.values():
+            call(op.bands)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = {name: call(op.bands) for name, (call, _) in calls.items()}
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for name in calls:
+            assert all(torch.equal(a, b) for a, b in zip(captured[name], eager[name])), name
+    for buf in pd._dot_scratch.values():
+        assert int(buf[:4].view(torch.int32).item()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_k2_k3_walk_many_tiles_on_a_small_grid(monkeypatch, cuda):
+    """With the card said to have one SM (8 blocks), each block walks many
+    tiles: y and the dots are bitwise those of the full grid (the kernel
+    sums per-tile partials in tile order, whatever the grid)."""
+    op = _dot_op("int8", 24, cuda)
+    x, w, dinv = _dot_vecs(op, cuda)
+    calls = _dot_calls(op, x, w, dinv)
+    full = {name: call(op.bands) for name, (call, _) in calls.items()}
+    monkeypatch.setattr(pd, "_sm_count", lambda index: 1)
+    assert pd.persistent_grid(op.n_pad, op.vdtype, 1) == 8 < op.n_pad // pd.DOT_TILE
+    for name, (call, _) in calls.items():
+        assert all(torch.equal(a, b) for a, b in zip(call(op.bands), full[name])), name

@@ -327,6 +327,43 @@ def test_slice2_and_complex_entry_points_name_their_roadmap_item():
         pt.orth_norm(xc, xc, xc, 0.0, 1.0)
 
 
+def test_persistent_grid_is_one_block_per_tile_in_one_wave():
+    """K2/K3 launch one block per tile of DOT_TILE rows, at most one wave:
+    8 blocks per SM in f32, 4 in f64."""
+    assert pd.DOT_TILE == 4 * pd.ROW_TILE
+    assert pd.persistent_grid(pd.ROW_TILE, torch.float32, 132) == 1
+    assert pd.persistent_grid(1_000_192, torch.float32, 132) == 977   # 100³ Poisson
+    assert pd.persistent_grid(1_000_192, torch.float64, 132) == 528
+    assert pd.persistent_grid(4_000_000, torch.float32, 132) == 1056
+    assert pd.persistent_grid(4096, torch.float32, 0) == 1
+
+
+def test_dot_scratch_is_kept_per_device_and_stream_and_grows(monkeypatch):
+    """K2/K3's scratch: the ticket, then two f64 partials per tile; zeroed
+    once per (device, stream) and made again only to grow."""
+    monkeypatch.setattr(pd, "_dot_scratch", {})
+    cpu = torch.device("cpu")
+    a = pd.dot_scratch(cpu, 1, 1_000_192)           # the 100³ Poisson
+    assert a.dtype == torch.uint8 and a.shape == (pd.DOT_SCRATCH_HEAD + 16 * 977,)
+    assert not bool(a.any())                        # the ticket starts at 0
+    assert pd.dot_scratch(cpu, 1, 1_000_192) is a
+    assert pd.dot_scratch(cpu, 1, pd.ROW_TILE) is a
+    assert pd.dot_scratch(cpu, 2, pd.ROW_TILE) is not a
+    b = pd.dot_scratch(cpu, 1, 2_000_128)           # a larger operator: it grows
+    assert b.numel() == pd.DOT_SCRATCH_HEAD + 16 * 1954 and not bool(b.any())
+    assert pd.dot_scratch(cpu, 1, pd.ROW_TILE) is b
+    assert len(pd._dot_scratch) == 2
+
+
+def test_launch_constants_are_built_once_per_operator():
+    codes, offs = pd._launch_consts((1, -1, 100), torch.float32, (torch.int8,))
+    assert codes == (0, 2) and list(offs) == [1, -1, 100]
+    assert pd._launch_consts((1, -1, 100), torch.float32, (torch.int8,))[1] is offs
+    codes, _ = pd._launch_consts((0,), torch.complex128, (torch.float64, torch.float64))
+    assert codes == (1, 0, 0)
+    assert list(pd._launch_consts((), torch.float64, (torch.float64,))[1]) == [0]
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     import shutil
 

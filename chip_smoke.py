@@ -23,7 +23,10 @@ Phases, each printing lines of its own:
    four variants) and K3 on every real band set: y bitwise K1's on the
    same input (x ⊙ dinv under the fold), the dots of 10 eager calls and of
    3 CUDA-graph replays bitwise the same, every ticket back at 0; on the
-   Poisson, torch.profiler sees one kernel per call.  Prints the
+   Poisson, torch.profiler sees one kernel per call.  The same for K6
+   (both forms) and K7 (all four variants) on every complex band set, with
+   y bitwise K5's: K6's on x, K6 with ``conj_x`` on conj(x), K7's without
+   the fold on x; on the damped set one kernel per call.  Prints the
    wrapper-timed and graph-replayed median times, warm in L2 (``ms``) and
    cold (``cold_ms``: rotating through copies of the inputs whose total
    exceeds twice L2), the plain versions', each kernel's bound, K2's
@@ -383,12 +386,41 @@ def check_dot_kernels(name, op, x, w, dinv, profile: bool) -> None:
         "K2 fold w=r0": (lambda: pd.dia_wdot(b, x, w, dinv, o, h), x * dinv),
         "K2 fold w=x": (lambda: pd.dia_wdot(b, x, None, dinv, o, h), x * dinv),
     }
+    check_one_launch(name, calls, lambda u: pd.dia_spmv(b, u, o, h), "K1",
+                     "dia_dots_kernel", profile)
+
+
+def check_complex_dot_kernels(name, op, x, w, dinv, profile: bool) -> None:
+    """K6 (both forms) and the four K7 variants: y bitwise K5's (K6 on x, K6
+    with ``conj_x`` on conj(x), K7 without the fold on x); the dots of 10
+    eager calls and of a CUDA-graph replay bitwise the same; with
+    ``profile``, one CUDA kernel per call."""
+    bre, bim, o, h = op.re.bands, op.im.bands, op.offsets, op.h
+    calls = {   # name → (call, K5's input giving y bit for bit; None: the fold)
+        "K6": (lambda: pd.dia_complex_dot(bre, bim, x, o, h), x),
+        "K6 conj_x": (lambda: pd.dia_complex_dot(bre, bim, x, o, h, True),
+                      torch.conj_physical(x)),
+        "K7 w=r0": (lambda: pd.dia_complex_wdot(bre, bim, x, w, None, o, h), x),
+        "K7 w=x": (lambda: pd.dia_complex_wdot(bre, bim, x, None, None, o, h), x),
+        "K7 fold w=r0": (lambda: pd.dia_complex_wdot(bre, bim, x, w, dinv, o, h), None),
+        "K7 fold w=x": (lambda: pd.dia_complex_wdot(bre, bim, x, None, dinv, o, h), None),
+    }
+    check_one_launch(name, calls, lambda u: pd.dia_complex_spmv(bre, bim, u, o, h), "K5",
+                     "dia_complex_dots_kernel", profile)
+
+
+def check_one_launch(name, calls, spmv, spmv_name, kernel, profile: bool) -> None:
+    """The checks of a one-launch dot kernel: each call's y bitwise
+    ``spmv`` of its input (where one is given); the outputs of 10 eager
+    calls and of 3 replays of a CUDA graph of all the calls bitwise the
+    first call's; every ticket back at 0; with ``profile``, one CUDA kernel
+    (``kernel``) per call under torch.profiler."""
     same = lambda p, q: all(torch.equal(s, t) for s, t in zip(p, q))
     eager = {}
     for tag, (call, u) in calls.items():
         eager[tag] = call()
-        if not torch.equal(eager[tag][0], pd.dia_spmv(b, u, o, h)):
-            raise AssertionError(f"{name} {tag}: y is not K1's bit for bit")
+        if u is not None and not torch.equal(eager[tag][0], spmv(u)):
+            raise AssertionError(f"{name} {tag}: y is not {spmv_name}'s bit for bit")
         for _ in range(10):
             if not same(call(), eager[tag]):
                 raise AssertionError(f"{name} {tag}: dots differ between eager calls")
@@ -408,15 +440,16 @@ def check_dot_kernels(name, op, x, w, dinv, profile: bool) -> None:
             if not same(captured[tag], eager[tag]):
                 raise AssertionError(f"{name} {tag}: a graph replay differs from eager")
     if any(int(buf[:4].view(torch.int32).item()) for buf in pd._dot_scratch.values()):
-        raise AssertionError("a K2/K3 ticket is not back at 0")
+        raise AssertionError("a dot kernel's ticket is not back at 0")
     if profile:
         for tag, (call, _) in calls.items():
             ev = kernel_events(call)
-            if len(ev) != 1 or "dia_dots_kernel" not in ev[0][0]:
+            if len(ev) != 1 or kernel not in ev[0][0]:
                 raise AssertionError(f"{tag}: one call ran {ev}, not one kernel")
             log("kernels", set=name, call=tag, profiler_events=1,
                 kernel_us=f"{ev[0][1]:.3f}")
-    log("kernels", set=name, K2_K3="y bitwise K1's; dots bitwise equal over 10 "
+    log("kernels", set=name, kernels="/".join(dict.fromkeys(t.split()[0] for t in calls)),
+        result=f"y bitwise {spmv_name}'s where unfolded; dots bitwise equal over 10 "
         "eager calls and 3 graph replays; tickets at 0")
 
 
@@ -564,6 +597,7 @@ def phase_complex_kernels(dev, errs, stats):
                     gw = pd.dia_complex_wdot(*wide, x, wv, dv, o, h)
                     if not all(torch.equal(p, q) for p, q in zip(got, gw)):
                         raise AssertionError(f"{tag}: narrow and f32 planes differ")
+        check_complex_dot_kernels(name, op, x, w, dinv, profile=name == "damped_int8_bf16")
         torch.cuda.synchronize()
         log("kernels", set=name, planes=f"{bre.dtype}/{bim.dtype}".replace("torch.", ""),
             K5_ms=f"{median_ms(lambda: pd.dia_complex_spmv(bre, bim, x, o, h)):.4f}",
@@ -1089,7 +1123,9 @@ def main() -> int:
     assert lib.sprsolve_dia_max_diags() == pd.MAX_DIAGS
     assert lib.sprsolve_dia_dots_tile() == pd.DOT_TILE
     assert lib.sprsolve_dia_dots_scratch_head() == pd.DOT_SCRATCH_HEAD
-    assert all(lib.sprsolve_dia_dots_blocks_per_sm(pd._VCODE[dt]) == b
+    assert lib.sprsolve_dia_complex_dots_tile() == pd.COMPLEX_DOT_TILE
+    assert all((lib.sprsolve_dia_complex_dots_blocks_per_sm if dt.is_complex
+                else lib.sprsolve_dia_dots_blocks_per_sm)(pd._VCODE[dt]) == b
                for dt, b in pd.DOT_BLOCKS_PER_SM.items())
 
     errs, _, stats = phase_kernels(dev)

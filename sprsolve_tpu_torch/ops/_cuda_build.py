@@ -58,15 +58,21 @@ _SIGNATURES = {
     "sprsolve_dia_complex_spmv": (
         [_I32, _I32, _I32, _P, _P, _P, _P, _I64, _I64, _P, _I32, _P], _I32
     ),
-    # vcode, re_code, im_code, conj_x, bre, bim, x, y, partials, n_pad, h,
-    # offsets, nd, stream
+    "sprsolve_dia_complex_dots_tile": ([], _I32),
+    "sprsolve_dia_complex_dots_blocks_per_sm": ([_I32], _I32),   # vcode
+    # vcode, re_code, im_code, conj_x, bre, bim, x, y, out, scratch,
+    # scratch_bytes, grid, n_pad, h, offsets, nd, stream
     "sprsolve_dia_complex_dot": (
-        [_I32, _I32, _I32, _I32, _P, _P, _P, _P, _P, _I64, _I64, _P, _I32, _P], _I32
+        [_I32, _I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P,
+         _I32, _P],
+        _I32,
     ),
-    # vcode, re_code, im_code, bre, bim, x, dinv, w, y, partials, n_pad, h,
-    # offsets, nd, stream
+    # vcode, re_code, im_code, bre, bim, x, dinv, w, y, out, scratch,
+    # scratch_bytes, grid, n_pad, h, offsets, nd, stream
     "sprsolve_dia_complex_wdot": (
-        [_I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P, _I32, _P], _I32
+        [_I32, _I32, _I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P,
+         _I32, _P],
+        _I32,
     ),
 }
 

@@ -30,7 +30,7 @@ plain PyTorch version:
   K2 and K3 are one launch each: the last block to finish sums the
   per-tile partials in tile order (a ticket in a per-(device, stream)
   scratch, :func:`dot_scratch`), over one wave of blocks
-  (:func:`persistent_grid`).
+  (:func:`persistent_grid`). K6 and K7 below are built the same way.
 - K5 :func:`dia_complex_spmv` — y = A·x over two band planes.
 - K6 :func:`dia_complex_dot` — K5 plus conj(x)ᵀy; ``conj_x`` gives
   y = A·conj(x) by a sign fold, with the same dot (the Saunders step).
@@ -244,28 +244,34 @@ def _on_device(x: torch.Tensor, launch, *args) -> int:
         return launch(*args)
 
 
-# K2/K3 launch geometry (DOT_TILE, SCRATCH_HEAD, blocks_per_sm in
-# csrc/dia_spmv.cu)
-DOT_TILE = 1024         # rows of a tile: 256 threads of 4 rows
-DOT_SCRATCH_HEAD = 256  # scratch bytes before the partials: the ticket
-DOT_BLOCKS_PER_SM = {torch.float32: 8, torch.float64: 4}
-_dot_scratch = {}       # (device, stream handle) → zeroed uint8 tensor
+# Launch geometry of the dot kernels (DOT_TILE, SCRATCH_HEAD and
+# blocks_per_sm in csrc/dia_spmv.cu for K2/K3; CDOT_TILE and
+# cdot_blocks_per_sm in csrc/dia_complex.cu for K6/K7)
+DOT_TILE = 1024          # rows of a K2/K3 tile: 256 threads of 4 rows
+COMPLEX_DOT_TILE = 512   # rows of a K6/K7 tile: 256 threads of 2 rows
+DOT_SCRATCH_HEAD = 256   # scratch bytes before the partials: the ticket
+DOT_BLOCKS_PER_SM = {torch.float32: 8, torch.float64: 4,
+                     torch.complex64: 4, torch.complex128: 3}
+_dot_scratch = {}        # (device, stream handle) → zeroed uint8 tensor
 
 
 def persistent_grid(n_pad: int, vdtype: torch.dtype, sm_count: int) -> int:
-    """Blocks of one K2/K3 launch: one per tile, at most the blocks that
-    share an SM times the SM count (one wave); each block walks the tiles
-    blockIdx, + grid, ... The dots do not depend on it: the kernel sums
-    per-tile partials."""
-    return max(1, min(-(-n_pad // DOT_TILE), DOT_BLOCKS_PER_SM[vdtype] * sm_count))
+    """Blocks of one dot-kernel launch (K2/K3 for real ``vdtype``, K6/K7 for
+    complex): one per tile, at most the blocks that share an SM times the
+    SM count (one wave); each block walks the tiles blockIdx, + grid, ...
+    The dots do not depend on it: the kernel sums per-tile partials."""
+    tile = COMPLEX_DOT_TILE if vdtype.is_complex else DOT_TILE
+    return max(1, min(-(-n_pad // tile), DOT_BLOCKS_PER_SM[vdtype] * sm_count))
 
 
 def dot_scratch(device: torch.device, stream: int, n_pad: int) -> torch.Tensor:
-    """The K2/K3 scratch of one (device, stream): the last-block ticket, then
-    two partials (f64 at most) per tile of ``n_pad`` rows, zeroed when made
-    and made again only to grow. Each launch leaves the ticket at 0, so the
-    launches in one stream's order share it; two streams never do."""
-    need = DOT_SCRATCH_HEAD + 16 * -(-n_pad // DOT_TILE)
+    """The dot kernels' scratch of one (device, stream): the last-block
+    ticket, then room for the partials of any one launch on ``n_pad`` rows
+    (f64 at most: two per K2/K3 tile, three per K6/K7 tile), zeroed when
+    made and made again only to grow. Each launch leaves the ticket at 0,
+    so the launches in one stream's order share it; two streams never do."""
+    need = DOT_SCRATCH_HEAD + max(16 * -(-n_pad // DOT_TILE),
+                                  24 * -(-n_pad // COMPLEX_DOT_TILE))
     key = (device.type, device.index, stream)
     buf = _dot_scratch.get(key)
     if buf is None or buf.numel() < need:
@@ -374,26 +380,27 @@ def dia_complex_spmv(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
 def dia_complex_dot(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
                     offsets, h: int, conj_x: bool = False):
     """K6: (y, conj(x)ᵀy) with y = A·x, or y = A·conj(x) when ``conj_x``.
-    The dot is a 0-d complex tensor from per-block partials, summed by
-    ``torch.sum`` and never read on the host. Replaces
-    ``_dia_complex_dot_kernel`` (``sprsolve_tpu/ops/pallas_spmv.py:262``)."""
+
+    One launch: the kernel sums its per-tile partials itself, in tile order,
+    into the 0-d complex dot; it depends on n_pad alone, not on the grid,
+    the card or the plane storage. Replaces ``_dia_complex_dot_kernel``
+    (``sprsolve_tpu/ops/pallas_spmv.py:262``)."""
     n_pad = _check((bre, bim), x, offsets, h)
     if x.device.type == "cpu":
         return dia_complex_dot_plain(bre, bim, x, offsets, h, conj_x)
     lib, codes, offs, stream = _launch_args((bre, bim), x, offsets)
+    grid = persistent_grid(n_pad, x.dtype, _sm_count(x.device.index))
     y = torch.empty_like(x)
-    partials = torch.empty((n_pad // ROW_TILE, 2), dtype=x.dtype.to_real(),
-                           device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.sprsolve_dia_complex_dot(
-            *codes, int(bool(conj_x)), bre.data_ptr(), bim.data_ptr(), x.data_ptr(),
-            y.data_ptr(), partials.data_ptr(), n_pad, h, offs,
-            len(offsets), stream,
-        )
+    d = torch.empty((), dtype=x.dtype, device=x.device)
+    scratch = dot_scratch(x.device, stream, n_pad)
+    err = _on_device(
+        x, lib.sprsolve_dia_complex_dot, *codes, int(bool(conj_x)), bre.data_ptr(),
+        bim.data_ptr(), x.data_ptr(), y.data_ptr(), d.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), grid, n_pad, h, offs, len(offsets), stream,
+    )
     _cuda_build.check(lib, err, "dia_complex_dot")
     dia_complex_dot.launches += 1
-    sums = torch.sum(partials, 0)
-    return y, torch.complex(sums[0], sums[1])
+    return y, d
 
 
 def dia_complex_wdot(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
@@ -402,29 +409,29 @@ def dia_complex_wdot(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
     """K7: (y = A·u, conj(w)ᵀy, ‖y‖²), u = dinv ⊙ x when ``dinv`` is given
     (a complex diagonal of the vectors' dtype), else u = x.
 
-    ``w=None`` takes w from the raw x. The dots are 0-d complex tensors (‖y‖²
-    with a zero imaginary part) from per-block partials. Replaces
+    ``w=None`` takes w from the raw x. One launch: the kernel sums its
+    per-tile partials itself, in tile order, into a ``(2,)`` complex tensor
+    whose 0-d views come back (‖y‖² with a zero imaginary part). Replaces
     ``_dia_complex_wdot_kernel`` (``sprsolve_tpu/ops/pallas_spmv.py:343``)."""
     vecs = [v for v in (w, dinv) if v is not None]
     n_pad = _check((bre, bim), x, offsets, h, *vecs)
     if x.device.type == "cpu":
         return dia_complex_wdot_plain(bre, bim, x, w, dinv, offsets, h)
     lib, codes, offs, stream = _launch_args((bre, bim), x, offsets)
+    grid = persistent_grid(n_pad, x.dtype, _sm_count(x.device.index))
     y = torch.empty_like(x)
-    partials = torch.empty((n_pad // ROW_TILE, 3), dtype=x.dtype.to_real(),
-                           device=x.device)
+    out = torch.empty(2, dtype=x.dtype, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(x.device):
-        err = lib.sprsolve_dia_complex_wdot(
-            *codes, bre.data_ptr(), bim.data_ptr(), x.data_ptr(), ptr(dinv), ptr(w),
-            y.data_ptr(), partials.data_ptr(), n_pad, h, offs,
-            len(offsets), stream,
-        )
+    scratch = dot_scratch(x.device, stream, n_pad)
+    err = _on_device(
+        x, lib.sprsolve_dia_complex_wdot, *codes, bre.data_ptr(), bim.data_ptr(),
+        x.data_ptr(), ptr(dinv), ptr(w), y.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), grid, n_pad, h, offs, len(offsets), stream,
+    )
     _cuda_build.check(lib, err, "dia_complex_wdot")
     dia_complex_wdot.launches += 1
-    sums = torch.sum(partials, 0)
-    return (y, torch.complex(sums[0], sums[1]),
-            torch.complex(sums[2], torch.zeros_like(sums[2])))
+    wd, yd = out.unbind()
+    return y, wd, yd
 
 
 dia_spmv.launches = 0

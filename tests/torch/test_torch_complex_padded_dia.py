@@ -170,6 +170,25 @@ def test_k7_matches_jax(name, fold, w_is_x):
     assert torch.equal(y, y2) and torch.equal(wd, wd2) and torch.equal(yd, yd2)
 
 
+@pytest.mark.parametrize("name", sorted(BANDSETS))
+def test_plain_k6_k7_y_are_k5s_bitwise(name):
+    """The identities the CUDA kernels are held to on the card, here on the
+    plain versions: K6's y is K5's, K6 with ``conj_x`` is K5 on conj(x) bit
+    for bit (negation is exact in every product and sum, and ir − ri equals
+    (−ri) + ir), and K7's y without the fold is K5's."""
+    pt = pd.ComplexPaddedDIA.from_dia(BANDSETS[name][1])
+    x, = _vec(pt, 8)
+    w, = _vec(pt, 9)
+    p, o, h = (pt.re.bands, pt.im.bands), pt.offsets, pt.h
+    k5 = lambda v: pd.dia_complex_spmv_plain(*p, v, o, h)
+    assert torch.equal(pd.dia_complex_dot_plain(*p, x, o, h)[0], k5(x))
+    xc = torch.conj_physical(x)
+    assert torch.equal(pd.dia_complex_dot_plain(*p, x, o, h, conj_x=True)[0], k5(xc))
+    assert torch.equal(pt.matvec_conj_dot(x)[0], pt.matvec(xc))
+    for wv in (w, None):
+        assert torch.equal(pd.dia_complex_wdot_plain(*p, x, wv, None, o, h)[0], k5(x))
+
+
 def test_c128_matches_the_jax_xla_path():
     """The c128 planes against the JAX package's XLA DIA matvec (its Pallas
     kernels stop at complex64), every method."""

@@ -1,7 +1,7 @@
 """GPU tests of the port: the CUDA kernels K1-K7 against their plain
 PyTorch versions, and the solvers' paths through them; K2's and K3's y
-bitwise equal to K1's, and their dots bitwise the same from call to call
-and through a CUDA-graph replay.
+bitwise equal to K1's, K6's and K7's (without the fold) to K5's, and their
+dots bitwise the same from call to call and through a CUDA-graph replay.
 
 Every test is marked ``cuda`` and skips itself where
 ``torch.cuda.is_available()`` is false.  This file imports no JAX, so it
@@ -499,3 +499,153 @@ def test_cuda_k2_k3_walk_many_tiles_on_a_small_grid(monkeypatch, cuda):
     assert pd.persistent_grid(op.n_pad, op.vdtype, 1) == 8 < op.n_pad // pd.DOT_TILE
     for name, (call, _) in calls.items():
         assert all(torch.equal(a, b) for a, b in zip(call(op.bands), full[name])), name
+
+
+# --- K6 and K7: one launch, y bitwise K5's, deterministic dots --------------
+COMPLEX_PLANES = ["int8/bfloat16", "bfloat16/int8", "float32/float32", "float64/float64"]
+
+
+def _cdot_op(planes, k, cuda):
+    """A ComplexPaddedDIA on the k³ Poisson's pattern whose planes store as
+    ``planes`` (real/imaginary): the damped Poisson A + 0.5i·I, the Poisson
+    times (2.5 + i), random complex64 or random complex128 values."""
+    base = problems.poisson3d(k, k, k).to_dia()
+    vals = base.bands.numpy().astype(np.complex128)
+    if planes == "int8/bfloat16":
+        vals[base.offsets.index(0)] += 0.5j
+    elif planes == "bfloat16/int8":
+        vals = vals * (2.5 + 1j)
+    else:
+        rng = np.random.default_rng(13)
+        vals = np.where(vals != 0, rng.uniform(0.5, 1.5, vals.shape)
+                        + 1j * rng.uniform(-1, 1, vals.shape), 0)
+    dt = np.complex128 if planes == "float64/float64" else np.complex64
+    op = tsp.ComplexPaddedDIA.from_dia(DIA(bands=torch.from_numpy(vals.astype(dt)),
+                                           offsets=base.offsets, shape=base.shape),
+                                       device=cuda)
+    got = "/".join(str(p.bands.dtype).replace("torch.", "") for p in (op.re, op.im))
+    assert got == planes
+    return op
+
+
+def _cdot_vecs(op, cuda, seed=14):
+    rng = np.random.default_rng(seed)
+    rdt = op.re.vdtype
+    mk = lambda: op.pad_vec(torch.complex(
+        *(torch.as_tensor(rng.standard_normal(op.n), dtype=rdt, device=cuda)
+          for _ in range(2))))
+    return mk(), mk(), op.jacobi_precond().diag_inv
+
+
+def _cdot_calls(op, x, w, dinv):
+    """name → (call on a pair of planes, K5's input that gives its y bit for
+    bit, or None under the fold) for K6 (both forms) and the four K7
+    variants."""
+    o, h = op.offsets, op.h
+    return {
+        "K6": (lambda p: pd.dia_complex_dot(*p, x, o, h), x),
+        "K6 conj": (lambda p: pd.dia_complex_dot(*p, x, o, h, True), torch.conj_physical(x)),
+        "K7 w": (lambda p: pd.dia_complex_wdot(*p, x, w, None, o, h), x),
+        "K7 w=x": (lambda p: pd.dia_complex_wdot(*p, x, None, None, o, h), x),
+        "K7 w dinv": (lambda p: pd.dia_complex_wdot(*p, x, w, dinv, o, h), None),
+        "K7 w=x dinv": (lambda p: pd.dia_complex_wdot(*p, x, None, dinv, o, h), None),
+    }
+
+
+# k as for K2/K3 above: offset 169 (k = 13) lies beyond the staged halo and is
+# odd, 576 (k = 24) is even; n_pad 256, 2304 and 13824 give 1, 5 (the last
+# half full) and 27 tiles of 512 rows
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [6, 13, 24])
+@pytest.mark.parametrize("planes", COMPLEX_PLANES)
+def test_cuda_k6_k7_y_is_k5_bitwise_and_dots_match_plain(planes, k, cuda):
+    """K6's y equals K5(x), K6 with conj_x K5(conj(x)) and K7's without the
+    fold K5(x) bit for bit, with a zero halo; under the fold y agrees with
+    the plain version; the dots agree with the plain versions and come back
+    as 0-d complex tensors; narrow planes give bitwise the output of the
+    same values stored wide; one launch per call."""
+    op = _cdot_op(planes, k, cuda)
+    x, w, dinv = _cdot_vecs(op, cuda)
+    rdt, o, h = op.re.vdtype, op.offsets, op.h
+    planes_t = (op.re.bands, op.im.bands)
+    wide = tuple(p.to(rdt) for p in planes_t)
+    absb = wide[0].abs() + wide[1].abs()
+    pd.reset_launch_counts()
+    for name, (call, u) in _cdot_calls(op, x, w, dinv).items():
+        _dirty(x)
+        got = call(planes_t)
+        if u is not None:
+            assert torch.equal(got[0], pd.dia_complex_spmv(*planes_t, u, o, h)), name
+        assert _zero_halo(op, got[0]), name
+        assert all(d.shape == () and d.dtype == x.dtype for d in got[1:]), name
+        if name.startswith("K6"):
+            want = pd.dia_complex_dot_plain(*planes_t, x, o, h, name == "K6 conj")
+            ws = x
+        else:
+            wv = None if "w=x" in name else w
+            dv = dinv if "dinv" in name else None
+            want = pd.dia_complex_wdot_plain(*planes_t, x, wv, dv, o, h)
+            ws = x if wv is None else wv
+            assert float(got[2].imag) == 0.0, name
+        uu = x if "dinv" not in name else x * dinv
+        scale = pd.dia_spmv_plain(absb, uu.real.abs() + uu.imag.abs(), o, h)
+        assert bool(((got[0] - want[0]).abs() <= 8 * EPS[rdt] * scale).all()), name
+        scales = [(ws.abs() * want[0].abs()).sum(), want[2].real if len(want) > 2 else 0]
+        for d, d_r, s in zip(got[1:], want[1:], scales):
+            assert abs(complex(d - d_r)) <= DOT_RTOL[rdt] * float(s), name
+        assert all(torch.equal(a, b) for a, b in zip(got, call(wide))), name
+    torch.cuda.synchronize()
+    assert pd.dia_complex_dot.launches == 4 and pd.dia_complex_wdot.launches == 8
+    assert pd.dia_complex_spmv.launches == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("planes", ["int8/bfloat16", "float64/float64"])
+def test_cuda_k6_k7_are_deterministic_and_replay_in_a_graph(planes, cuda):
+    """Ten eager calls give bitwise the same outputs; a CUDA graph of the
+    same calls replays to bitwise the eager outputs, and every ticket is
+    back at 0 after the replay."""
+    op = _cdot_op(planes, 24, cuda)
+    x, w, dinv = _cdot_vecs(op, cuda)
+    p = (op.re.bands, op.im.bands)
+    calls = _cdot_calls(op, x, w, dinv)
+    eager = {name: call(p) for name, (call, _) in calls.items()}
+    for _ in range(10):
+        for name, (call, _) in calls.items():
+            assert all(torch.equal(a, b) for a, b in zip(call(p), eager[name])), name
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for call, _ in calls.values():
+            call(p)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = {name: call(p) for name, (call, _) in calls.items()}
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for name in calls:
+            assert all(torch.equal(a, b) for a, b in zip(captured[name], eager[name])), name
+    for buf in pd._dot_scratch.values():
+        assert int(buf[:4].view(torch.int32).item()) == 0
+
+
+@pytest.mark.cuda
+def test_cuda_k6_k7_walk_many_tiles_on_a_small_grid(monkeypatch, cuda):
+    """With the card said to have one SM, each K6/K7 block walks 72 tiles
+    through its two-stage pipeline: y is still K5's bit for bit where
+    unfolded, and y and the dots are bitwise those of the full grid."""
+    op = _cdot_op("int8/bfloat16", 48, cuda)
+    x, w, dinv = _cdot_vecs(op, cuda)
+    p = (op.re.bands, op.im.bands)
+    calls = _cdot_calls(op, x, w, dinv)
+    full = {name: call(p) for name, (call, _) in calls.items()}
+    monkeypatch.setattr(pd, "_sm_count", lambda index: 1)
+    blocks = pd.persistent_grid(op.n_pad, x.dtype, 1)
+    assert blocks == pd.DOT_BLOCKS_PER_SM[x.dtype] and op.n_pad // pd.COMPLEX_DOT_TILE == 216
+    for name, (call, u) in calls.items():
+        got = call(p)
+        if u is not None:
+            assert torch.equal(got[0], pd.dia_complex_spmv(*p, u, op.offsets, op.h)), name
+        assert all(torch.equal(a, b) for a, b in zip(got, full[name])), name

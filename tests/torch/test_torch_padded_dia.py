@@ -339,20 +339,39 @@ def test_persistent_grid_is_one_block_per_tile_in_one_wave():
 
 
 def test_dot_scratch_is_kept_per_device_and_stream_and_grows(monkeypatch):
-    """K2/K3's scratch: the ticket, then two f64 partials per tile; zeroed
-    once per (device, stream) and made again only to grow."""
+    """The dot kernels' scratch: the ticket, then three f64 partials per
+    K6/K7 tile of 512 rows (which also holds K2/K3's two per 1024-row tile);
+    zeroed once per (device, stream) and made again only to grow."""
     monkeypatch.setattr(pd, "_dot_scratch", {})
     cpu = torch.device("cpu")
     a = pd.dot_scratch(cpu, 1, 1_000_192)           # the 100³ Poisson
-    assert a.dtype == torch.uint8 and a.shape == (pd.DOT_SCRATCH_HEAD + 16 * 977,)
+    assert a.dtype == torch.uint8 and a.shape == (pd.DOT_SCRATCH_HEAD + 24 * 1954,)
     assert not bool(a.any())                        # the ticket starts at 0
     assert pd.dot_scratch(cpu, 1, 1_000_192) is a
     assert pd.dot_scratch(cpu, 1, pd.ROW_TILE) is a
     assert pd.dot_scratch(cpu, 2, pd.ROW_TILE) is not a
     b = pd.dot_scratch(cpu, 1, 2_000_128)           # a larger operator: it grows
-    assert b.numel() == pd.DOT_SCRATCH_HEAD + 16 * 1954 and not bool(b.any())
+    assert b.numel() == pd.DOT_SCRATCH_HEAD + 24 * 3907 and not bool(b.any())
     assert pd.dot_scratch(cpu, 1, pd.ROW_TILE) is b
     assert len(pd._dot_scratch) == 2
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_complex_grid_and_scratch_at_the_100_cubed_shapes(dtype, monkeypatch):
+    """K6/K7 on the damped 100³ Poisson (n_pad 1,000,192): 1954 tiles of
+    COMPLEX_DOT_TILE rows, walked by one wave of blocks on 132 SMs; the
+    scratch holds each kernel's partials, K7's three per tile in f64 too."""
+    assert pd.COMPLEX_DOT_TILE == 2 * pd.ROW_TILE
+    n_pad, tiles, sms = 1_000_192, 1954, 132
+    assert pd.persistent_grid(n_pad, dtype, sms) == pd.DOT_BLOCKS_PER_SM[dtype] * sms
+    assert pd.DOT_BLOCKS_PER_SM[dtype] * sms < tiles
+    assert pd.persistent_grid(pd.ROW_TILE, dtype, sms) == 1
+    assert pd.persistent_grid(n_pad, dtype, 0) == 1
+    monkeypatch.setattr(pd, "_dot_scratch", {})
+    buf = pd.dot_scratch(torch.device("cpu"), 1, n_pad)
+    real_bytes = dtype.to_real().itemsize
+    assert buf.numel() >= pd.DOT_SCRATCH_HEAD + 3 * tiles * real_bytes
+    assert buf.numel() >= pd.DOT_SCRATCH_HEAD + 2 * 977 * 8   # K2/K3 in f64
 
 
 def test_launch_constants_are_built_once_per_operator():

@@ -1,6 +1,10 @@
-"""Time the port's dot kernels K2 (``dia_wdot``) and K3 (``dia_dot``), beside
-K1 (``dia_spmv``), on one GPU at the main path's shapes (the 100³ Poisson,
-int8 bands, f32 vectors):
+"""Time the port's dot kernels on one GPU at the main path's shapes: K2
+(``dia_wdot``) and K3 (``dia_dot``) beside K1 (``dia_spmv``) on the 100³
+Poisson (int8 bands, f32 vectors), and K6 (``dia_complex_dot``, with and
+without ``conj_x``) and K7 (``dia_complex_wdot``, Jacobi fold with w = x and
+with w = r0) beside K5 (``dia_complex_spmv``) on the damped complex-symmetric
+100³ Poisson (c64, int8 real and bf16 imaginary plane, as
+``chip_smoke.damped_dia()`` builds it):
 
 - the device events of one wrapper call, by torch.profiler (which kernels a
   call launches, and how long each runs);
@@ -62,6 +66,13 @@ def main() -> int:
     x, r0 = mk(), mk()
     dinv = op.jacobi_precond().diag_inv
     b, o, h = op.bands, op.offsets, op.h
+    cop = spt.ComplexPaddedDIA.from_dia(smoke.damped_dia(), device=dev)
+    cmk = lambda: cop.pad_vec(torch.complex(
+        *(torch.as_tensor(rng.standard_normal(cop.n), dtype=torch.float32, device=dev)
+          for _ in range(2))))
+    cx, cr0 = cmk(), cmk()
+    cdinv = cop.jacobi_precond().diag_inv
+    co, ch = cop.offsets, cop.h
     calls = {   # name → (call, operands)
         "K1 dia_spmv": (lambda b, x: pd.dia_spmv(b, x, o, h), (b, x)),
         "K2 dia_wdot[has_dinv,w=x]": (
@@ -69,6 +80,20 @@ def main() -> int:
         "K2 dia_wdot[has_dinv,w=r0]": (
             lambda b, x, w, d: pd.dia_wdot(b, x, w, d, o, h), (b, x, r0, dinv)),
         "K3 dia_dot": (lambda b, x: pd.dia_dot(b, x, o, h), (b, x)),
+        "K5 dia_complex_spmv": (lambda br, bi, x: pd.dia_complex_spmv(br, bi, x, co, ch),
+                                (cop.re.bands, cop.im.bands, cx)),
+        "K6 dia_complex_dot[conj_x]": (
+            lambda br, bi, x: pd.dia_complex_dot(br, bi, x, co, ch, True),
+            (cop.re.bands, cop.im.bands, cx)),
+        "K6 dia_complex_dot": (
+            lambda br, bi, x: pd.dia_complex_dot(br, bi, x, co, ch),
+            (cop.re.bands, cop.im.bands, cx)),
+        "K7 dia_complex_wdot[has_dinv,w=x]": (
+            lambda br, bi, x, d: pd.dia_complex_wdot(br, bi, x, None, d, co, ch),
+            (cop.re.bands, cop.im.bands, cx, cdinv)),
+        "K7 dia_complex_wdot[has_dinv,w=r0]": (
+            lambda br, bi, x, w, d: pd.dia_complex_wdot(br, bi, x, w, d, co, ch),
+            (cop.re.bands, cop.im.bands, cx, cr0, cdinv)),
     }
     out = {"label": args.label, "package": spt.__file__, "gpu": smi, "calls": {}}
     print(smi, flush=True)

@@ -67,6 +67,27 @@ Phases, each printing lines of its own:
    kernels, tol 1e-12: MINRES on the Hermitian grid (K6 without
    conjugation), CS-MINRES, COCG and BiCGStab with the complex Jacobi on
    the complex-symmetric grid; true residuals below 1e-9.
+11. preconditioned — (a) BASELINE config #4 on the 100³ Poisson (f32,
+   phase 4's rhs, tol 1e-4): ``greedy_color`` must give 2 colors; a 2-color
+   ``MaskedGSPrecond`` (sweeps=1) in the padded layout, masks False on the
+   halo; one apply launches K1 once and agrees with the same apply through
+   the plain K1; ``bicgstab`` with it converges to a true residual below
+   1e-3 with K1 launched 1 + 2·its and K2 2·its times; then through
+   ``prepare(op, M=...)`` (median of 3 timed solves, not relayed), one
+   profiled solve (idle share), and the same solve through the plain
+   versions.  CG with multicolor SSOR (ω = 1.5; K1 twice per apply) and
+   with ``ChebyshevPrecond.auto`` of degree 4 (K1 four times per apply):
+   K1 1 + k·(its + 1), K3 its.  Setup seconds of the coloring, Chebyshev's
+   Lanczos and block-Jacobi at 1M rows.  (b) On the 32³ Poisson, ``solve``
+   relays ILU(0), block-Jacobi and a flat ``MaskedGSPrecond`` under
+   BiCGStab (K1 once, K2 2·its) and IC(0) under MINRES (K1 once, K3
+   its + 1) through ``RelayedPrecond``; each converges below 1e-3.  (c)
+   ``GaussSeidel`` on the reference's 10×10 golden on the card: 296
+   sweeps, residual exactly 0 (the sweep runs on the host by design);
+   ``gauss_seidel_redblack`` on a 64×64 grid at eps 1e-8 with the same
+   sweep count as its CPU run; ``solve(method="auto")`` on the stacked
+   2M×1M ``[A; I]`` routes to LSQR, converges, and agrees to 1e-3 with
+   ``lsqr(A, b, damp=1)`` and with scipy's f64 LSQR.
 
 The line before the last is a JSON object with one entry per kernel (K1-K7,
 each with its warm ``ms`` and its ``cold_ms``);
@@ -941,10 +962,11 @@ class PlainComplexOperator:
                                          self.op.offsets, self.op.h)
 
 
-def idle_share(handle, b):
+def idle_share(handle, b, names=("dia_complex",)):
     """One prepared solve under torch.profiler: (wall ms, device-busy ms,
-    idle share, the K5-K7 share of device ms). None when the profiler
-    sees no device time on this machine."""
+    idle share, the device ms of the kernels whose names hold one of
+    ``names``: K5-K7 by default). None when the profiler sees no device time
+    on this machine."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -959,7 +981,8 @@ def idle_share(handle, b):
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     if not kernels:
         return None
-    ours = sum(e.time_range.elapsed_us() for e in kernels if "dia_complex" in e.name) / 1e3
+    ours = sum(e.time_range.elapsed_us() for e in kernels
+               if any(k in e.name for k in names)) / 1e3
     return wall, busy, 1.0 - busy / wall, ours
 
 
@@ -1100,6 +1123,250 @@ def phase_c128(dev):
             calls=",".join(f"{k}:{v}" for k, v in sorted(counted.calls.items())))
 
 
+# --- phase 11: the preconditioners ------------------------------------------
+REAL_KERNELS = ("dia_spmv", "dia_dots", "orth_norm")
+
+
+def expect_counts(what, got, **nonzero):
+    """The launch counts of a run must be exactly ``nonzero``, every other
+    kernel at 0."""
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(nonzero)
+    if got != want:
+        raise AssertionError(f"{what}: launch counts {got}, expected {want}")
+
+
+def padded_masks(op, colors, dev):
+    """The color masks in ``op``'s padded layout. A float copy is padded
+    and compared, so the halo and the tail come out False; the masks must
+    split the body's rows between them."""
+    masks = tuple(op.pad_vec(m.to(torch.float32)) > 0
+                  for m in spt.color_masks(colors, device=dev))
+    for m in masks:
+        check_halo("color mask", op, m)
+    if not bool((sum(m.to(torch.int32) for m in masks)[op.h: op.h + op.n] == 1).all()):
+        raise AssertionError("the color masks do not split the rows")
+    return masks
+
+
+def log_profile(tag, handle, b, n):
+    prof = idle_share(handle, b, names=REAL_KERNELS)
+    if prof is None:
+        log("preconditioned", entry=f"profile({tag})", note="the profiler saw no device time")
+        return
+    log("preconditioned", entry=f"profile({tag})", wall_ms=f"{prof[0]:.4f}",
+        device_busy_ms=f"{prof[1]:.4f}", idle_share=f"{prof[2]:.4f}",
+        hand_kernels_ms=f"{prof[3]:.4f}",
+        device_us_per_iteration=f"{prof[1] / max(n, 1) * 1e3:.3f}")
+
+
+def timed_log(tag, handle, bd, its, A, b):
+    """Three timed solves through ``handle`` (``timed_solves``), logged."""
+    wall, walls, x, info = timed_solves(handle, bd, its, tag)
+    n = int(info.iterations)
+    res = true_residual(A, x, b)
+    if not res < 1e-3:
+        raise AssertionError(f"{tag}: true residual {res:.3e}")
+    log("preconditioned", entry=tag, iterations=n, wall_s_median=f"{wall:.4f}",
+        walls_s=",".join(f"{w:.4f}" for w in walls),
+        per_iteration_ms=f"{wall / max(n, 1) * 1e3:.4f}", true_residual=res)
+
+
+def phase_config4(dev, jacobi_its):
+    """Phase 11 (a): BASELINE config #4, BiCGStab + 2-color Gauss-Seidel on
+    the 100³ Poisson, then CG with multicolor SSOR and with Chebyshev.
+    Returns K1's launch count of the BiCGStab run."""
+    A = problems.poisson3d(GRID, GRID, GRID)
+    b = poisson_rhs(A)
+    t0 = time.perf_counter()
+    colors = spt.greedy_color(A)
+    t_color = time.perf_counter() - t0
+    if int(colors.max()) + 1 != 2:
+        raise AssertionError(f"greedy_color gave {int(colors.max()) + 1} colors, not 2")
+    op = spt.PaddedDIA.from_dia(DIA.from_csr(A, device="cpu"), device=dev)
+    masks = padded_masks(op, colors, dev)
+    diag = op.diagonal_padded()
+    M = spt.MaskedGSPrecond(A=op, diag=diag, masks=masks, sweeps=1)
+    torch.cuda.synchronize()
+    log("preconditioned", precond="MaskedGSPrecond(2 colors, sweeps=1)",
+        setup_s=f"{time.perf_counter() - t0:.4f}", greedy_color_s=f"{t_color:.4f}")
+
+    # one apply: K1 once (the first color's update skips its SpMV), against
+    # the same apply through the plain K1 on the same tensors
+    bd = torch.as_tensor(b, device=dev)
+    r2 = op.pad_vec(bd)
+    plain = PlainOperator(op)
+    M_plain = spt.MaskedGSPrecond(A=plain, diag=diag, masks=masks, sweeps=1)
+    pd.reset_launch_counts()
+    z = M.matvec(r2)
+    torch.cuda.synchronize()
+    expect_counts("one forward GS apply", launch_counts(), dia_spmv=1)
+    check_halo("GS apply", op, z)
+    zp = M_plain.matvec(r2)
+    absb = op.bands.to(torch.float32).abs()
+    safe = torch.where(diag == 0, torch.ones_like(diag), diag).abs()
+    scale = ((r2.abs() + pd.dia_spmv_plain(absb, zp.abs(), op.offsets, op.h)) / safe).max()
+    err = check_close("GS apply (K1 against plain)", z, zp, scale, Y_RTOL[torch.float32])
+    log("preconditioned", apply="forward GS", K1_launches=1, max_abs_err_vs_plain=err)
+
+    pd.reset_launch_counts()
+    t0 = time.perf_counter()
+    x2, info = spt.bicgstab(op, r2, M=M, tol=1e-4, max_iter=400)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c, n = launch_counts(), int(info.iterations)
+    res = true_residual(A, op.unpad_vec(x2), b)
+    if not (info.converged and res < 1e-3 and bool(torch.isfinite(x2).all())):
+        raise AssertionError(f"config #4: {info}, true residual {res:.3e}")
+    check_halo("config #4 x", op, x2)
+    expect_counts("config #4 bicgstab", c, dia_spmv=1 + 2 * n, dia_wdot=2 * n)
+    k1 = c["dia_spmv"]
+    log("preconditioned", entry="bicgstab(PaddedDIA, M=MaskedGSPrecond)", iterations=n,
+        jacobi_iterations=jacobi_its, recurrence_residual=float(info.residual),
+        true_residual=res, K1_launches=k1, K2_launches=c["dia_wdot"],
+        wall_s=f"{wall:.4f}")
+    handle = spt.prepare(op, method="bicgstab", M=M, tol=1e-4, max_iter=400, device=dev)
+    if handle._run.keywords["M"] is not M:
+        raise AssertionError("prepare() relayed a preconditioner built on its operator")
+    timed_log("prepare(bicgstab, MaskedGS, kernels)", handle, bd, n, A, b)
+    log_profile("bicgstab, MaskedGS", handle, bd, n)
+    handle = spt.prepare(plain, method="bicgstab", M=M_plain, tol=1e-4, max_iter=400,
+                         device=dev)
+    timed_log("prepare(bicgstab, MaskedGS, plain)", handle, bd, None, A, b)
+
+    # CG with multicolor SSOR (K1 twice per apply) and with Chebyshev of
+    # degree 4 (K1 four times per apply); CG applies M once more than it
+    # iterates, and launches K3 once per iteration
+    t0 = time.perf_counter()
+    M_cheb = spt.ChebyshevPrecond.auto(op, degree=4)
+    torch.cuda.synchronize()
+    log("preconditioned", precond="ChebyshevPrecond.auto(degree=4)",
+        setup_s=f"{time.perf_counter() - t0:.4f}", lmin=M_cheb.lmin, lmax=M_cheb.lmax)
+    M_ssor = spt.MaskedGSPrecond(A=op, diag=diag, masks=masks, sweeps=1, omega=1.5,
+                                 symmetric=True)
+    for tag, Mx, per_apply in (("SSOR omega=1.5", M_ssor, 2), ("Chebyshev", M_cheb, 4)):
+        handle = spt.prepare(op, method="cg", M=Mx, tol=1e-4, max_iter=1000, device=dev)
+        pd.reset_launch_counts()
+        x, info = handle(bd)
+        torch.cuda.synchronize()
+        c, n = launch_counts(), int(info.iterations)
+        res = true_residual(A, x, b)
+        if not (info.converged and res < 1e-3):
+            raise AssertionError(f"cg + {tag}: {info}, true residual {res:.3e}")
+        expect_counts(f"cg + {tag}", c, dia_spmv=1 + per_apply * (n + 1), dia_dot=n)
+        log("preconditioned", entry=f"cg(M={tag})", iterations=n, true_residual=res,
+            K1_launches=c["dia_spmv"], K3_launches=c["dia_dot"])
+        timed_log(f"prepare(cg, {tag}, kernels)", handle, bd, n, A, b)
+        log_profile(f"cg, {tag}", handle, bd, n)
+    t0 = time.perf_counter()
+    spt.BlockJacobiPrecond.from_csr(A, device=dev)
+    torch.cuda.synchronize()
+    log("preconditioned", precond="BlockJacobiPrecond(block_size=16)", rows=A.shape[0],
+        setup_s=f"{time.perf_counter() - t0:.4f}")
+    return k1
+
+
+def phase_relayed(dev):
+    """Phase 11 (b): flat preconditioners relayed onto the padded operator
+    of the 32³ Poisson (the host factorizations are Python loops)."""
+    A = problems.poisson3d(32, 32, 32)
+    b = np.random.default_rng(SEED + 7).standard_normal(A.shape[0]).astype(np.float32)
+    bd = torch.as_tensor(b, device=dev)
+    dia = DIA.from_csr(A, device=dev)
+    gs = spt.MaskedGSPrecond(A=dia, diag=dia.diagonal(),
+                             masks=spt.color_masks(spt.greedy_color(A), device=dev))
+    for method, M in (("bicgstab", "ilu0"), ("bicgstab", "block_jacobi"),
+                      ("bicgstab", gs), ("minres", "ic0")):
+        name = M if isinstance(M, str) else "MaskedGSPrecond(flat)"
+        t0 = time.perf_counter()
+        handle = spt.prepare(A, method=method, M=M, tol=1e-4, max_iter=1000, device=dev)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        if not isinstance(handle._run.keywords["M"], spt.RelayedPrecond):
+            raise AssertionError(f"{name}: the flat preconditioner was not relayed")
+        pd.reset_launch_counts()
+        t0 = time.perf_counter()
+        x, info = handle(bd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c, n = launch_counts(), int(info.iterations)
+        res = true_residual(A, x, b)
+        if not (info.converged and res < 1e-3):
+            raise AssertionError(f"{method} + {name}: {info}, true residual {res:.3e}")
+        if method == "bicgstab":
+            expect_counts(f"{method} + {name}", c, dia_spmv=1, dia_wdot=2 * n)
+        else:
+            expect_counts(f"{method} + {name}", c, dia_spmv=1, dia_dot=n + 1)
+        log("preconditioned", entry=f"solve(method={method!r}, M={name})", grid="32^3",
+            setup_s=f"{setup:.4f}", iterations=n, true_residual=res, wall_s=f"{wall:.4f}",
+            **{f"{k}_launches": v for k, v in c.items() if v})
+
+
+def phase_exact_and_lsqr(dev):
+    """Phase 11 (c): the exact sweep on the reference's golden, the
+    multicolor sweep against its CPU run, and auto's LSQR route at 2M×1M."""
+    import scipy.sparse as sps
+    import scipy.sparse.linalg as spla
+
+    G = problems.grid_laplacian_dirichlet((10, 10))
+    rhs = np.zeros(100)
+    problems.set_boundary_condition(rhs, (10, 10), lambda r, c: float(r + c))
+    t0 = time.perf_counter()
+    x, (its, res) = spt.GaussSeidel.new(G).solve(rhs, max_iter=300, eps=0.0)
+    if not (x.is_cuda and its == 296 and res == 0.0):
+        raise AssertionError(f"GaussSeidel golden: {its} sweeps, residual {res}")
+    log("preconditioned", entry="GaussSeidel(10x10).solve(eps=0)", sweeps=its, residual=res,
+        wall_s=f"{time.perf_counter() - t0:.4f}")
+
+    G = problems.grid_laplacian_dirichlet((64, 64))
+    rhs = np.zeros(64 * 64)
+    problems.set_boundary_condition(rhs, (64, 64), lambda r, c: float(r + c))
+    runs = []
+    for where in ("cpu", dev):
+        C = spt.ColoredELL.from_csr(G.to(where))
+        t0 = time.perf_counter()
+        xr, info = spt.gauss_seidel_redblack(C, torch.as_tensor(rhs, device=where),
+                                             max_iter=20000, eps=1e-8)
+        runs.append((xr.cpu(), info, time.perf_counter() - t0))
+    (x_c, i_c, t_c), (x_g, i_g, t_g) = runs
+    if not (i_c.converged and i_g.converged and i_c.iterations == i_g.iterations):
+        raise AssertionError(f"redblack 64x64: cpu {i_c}, gpu {i_g}")
+    log("preconditioned", entry="gauss_seidel_redblack(64x64, eps=1e-8)",
+        sweeps=i_g.iterations, cpu_sweeps=i_c.iterations,
+        max_abs_diff_vs_cpu=float((x_g - x_c).abs().max()), wall_s=f"{t_g:.4f}",
+        cpu_wall_s=f"{t_c:.4f}")
+
+    A = problems.poisson3d(GRID, GRID, GRID)
+    n = A.shape[0]
+    b = poisson_rhs(A)
+    ip = A.indptr.numpy()
+    stacked = CSR.from_arrays(
+        np.concatenate([A.data.numpy(), np.ones(n, np.float32)]),
+        np.concatenate([A.indices.numpy(), np.arange(n)]),
+        np.concatenate([ip, ip[-1] + 1 + np.arange(n)]), (2 * n, n))
+    bs = np.concatenate([b, np.zeros(n, np.float32)])
+    t0 = time.perf_counter()
+    x, info = spt.solve(stacked, bs, method="auto", tol=1e-5, max_iter=500)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    xd, info_d = spt.lsqr(A.to(dev), torch.as_tensor(b, device=dev), damp=1.0, tol=1e-5,
+                          max_iter=500)
+    S = sps.csr_matrix((A.data.numpy().astype(np.float64), A.indices.numpy(), ip),
+                       shape=A.shape)
+    x_ref = spla.lsqr(S, b.astype(np.float64), damp=1.0, atol=1e-10, btol=1e-10)[0]
+    rel = lambda u, v: float(np.linalg.norm(u - v) / np.linalg.norm(v))
+    e_damp = rel(x.cpu().numpy().astype(np.float64), xd.cpu().numpy().astype(np.float64))
+    e_ref = rel(x.cpu().numpy().astype(np.float64), x_ref)
+    if not (info.converged and info_d.converged and x.is_cuda and x.shape == (n,)
+            and e_damp < 1e-3 and e_ref < 1e-3):
+        raise AssertionError(f"lsqr: {info}, damped {info_d}, rel. diffs {e_damp:.3e} "
+                             f"{e_ref:.3e}")
+    log("preconditioned", entry="solve([A; I], method='auto') -> lsqr", rows=2 * n,
+        nnz=stacked.nnz, iterations=int(info.iterations), residual=float(info.residual),
+        damped_iterations=int(info_d.iterations), rel_diff_vs_damped=e_damp,
+        rel_diff_vs_scipy_f64=e_ref, wall_s_with_setup=f"{wall:.4f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -1139,6 +1406,9 @@ def main() -> int:
     phase_nonsymmetric(dev)
     launches.update(phase_complex(dev))
     phase_c128(dev)
+    phase_config4(dev, launches["dia_wdot"] // 2)
+    phase_relayed(dev)
+    phase_exact_and_lsqr(dev)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

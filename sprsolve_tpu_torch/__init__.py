@@ -7,23 +7,55 @@ JAX package wrote in Pallas are CUDA C++ for Hopper (``csrc/``), built with
 nvcc at first use.  The package imports no JAX.
 
 Ported so far: BiCGStab on the padded-DIA kernels K1/K2, MINRES and CG on
-K3/K4, BiCGStab(ℓ) as ``method="auto"``'s nonsymmetric route, and the complex
+K3/K4, BiCGStab(ℓ) as ``method="auto"``'s nonsymmetric route, the complex
 path on the two-plane kernels K5-K7 (COCG, CS-MINRES, complex BiCGStab and
-MINRES): ``solve(A, b, method="bicgstab" | "minres" | "cg" | "bicgstabl" |
-"cs_minres" | "cocg" | "auto", M="jacobi")``, ``prepare`` and the
-``BiCGStab``, ``MinRes``, ``CG`` and ``CSMinRes`` handles.  The entry points
-run on the CUDA device unless given ``device`` (e.g. ``device="cpu"``).
+MINRES), LSQR (``auto``'s rectangular route, on the CSR path), the exact
+Gauss-Seidel sweep (on the host by design) and the multicolor one, and the
+preconditioners: Jacobi, multicolor GS/SOR/SSOR, Chebyshev, block-Jacobi,
+ILU(0) and IC(0), a flat one relayed onto a padded operator.
+``solve(A, b, method="bicgstab" | "minres" | "cg" | "bicgstabl" |
+"cs_minres" | "cocg" | "lsqr" | "auto", M="jacobi" | "block_jacobi" |
+"ilu0" | "ic0" | object)``, ``prepare`` and the ``BiCGStab``, ``MinRes``,
+``CG``, ``CSMinRes`` and ``GaussSeidel`` handles.  The entry points run on
+the CUDA device unless given ``device`` (e.g. ``device="cpu"``).
 """
 
 from . import errors, precond, vecalg
-from .api import CG, BiCGStab, CSMinRes, MinRes, PreparedSolver, prepare, solve
+from .api import CG, BiCGStab, CSMinRes, GaussSeidel, MinRes, PreparedSolver, prepare, solve
 from .errors import SolveInfo, SolverError, Status
 from .ops.operator import DiagonalOperator, IdentityOperator, LinearOperator
 from .ops.optimize import optimize
 from .ops.padded_dia import ComplexPaddedDIA, PaddedDIA
-from .precond import ComplexDiagPrecond, DiagPrecond, real_abs_jacobi
-from .solvers import bicgstab, bicgstabl, cg, cocg, cs_minres, minres, with_real_planes
-from .sparse import COO, CSR, DIA, csr_from_dense, csr_from_scipy
+from .precond import (
+    BlockJacobiPrecond,
+    ChebyshevPrecond,
+    ComplexDiagPrecond,
+    DiagPrecond,
+    IC0Precond,
+    ILU0Precond,
+    RelayedPrecond,
+    estimate_spectral_bounds,
+    real_abs_jacobi,
+)
+from .solvers import (
+    ColoredELL,
+    MaskedGSPrecond,
+    MulticolorGSPrecond,
+    bicgstab,
+    bicgstabl,
+    cg,
+    cocg,
+    color_masks,
+    cs_minres,
+    gauss_seidel,
+    gauss_seidel_redblack,
+    greedy_color,
+    lsqr,
+    minres,
+    with_real_planes,
+)
+from .sparse import COO, CSC, CSR, DIA, ELL, csr_from_dense, csr_from_scipy
+from .utils.bounds import gershgorin_bounds
 
 __version__ = "0.1.0"
 
@@ -35,16 +67,27 @@ __all__ = [
     "CG",
     "CSMinRes",
     "MinRes",
+    "GaussSeidel",
     "bicgstab",
     "bicgstabl",
     "cg",
     "cocg",
     "cs_minres",
     "minres",
+    "lsqr",
+    "gauss_seidel",
+    "gauss_seidel_redblack",
+    "greedy_color",
+    "color_masks",
+    "ColoredELL",
+    "MaskedGSPrecond",
+    "MulticolorGSPrecond",
     "with_real_planes",
     "COO",
     "CSR",
+    "CSC",
     "DIA",
+    "ELL",
     "csr_from_dense",
     "csr_from_scipy",
     "LinearOperator",
@@ -53,6 +96,13 @@ __all__ = [
     "DiagPrecond",
     "ComplexDiagPrecond",
     "real_abs_jacobi",
+    "ChebyshevPrecond",
+    "estimate_spectral_bounds",
+    "BlockJacobiPrecond",
+    "ILU0Precond",
+    "IC0Precond",
+    "RelayedPrecond",
+    "gershgorin_bounds",
     "optimize",
     "PaddedDIA",
     "ComplexPaddedDIA",

@@ -14,12 +14,13 @@ runs on the CUDA device unless the caller passes ``device``, e.g.
 ``device="cpu"``; without CUDA and without a device they raise.  The
 functional solvers (``bicgstab(op, b)`` and the like) run where their
 tensors are.  Ported so far: ``method="bicgstab"``, ``"bicgstabl"``,
-``"cg"``, ``"minres"``, ``"cs_minres"``, ``"cocg"`` and ``"auto"``, with
-``M=None``, ``"jacobi"``, a :class:`~sprsolve_tpu_torch.precond.DiagPrecond`
-or a :class:`~sprsolve_tpu_torch.precond.ComplexDiagPrecond`, and the
-``BiCGStab``, ``MinRes``, ``CG`` and ``CSMinRes`` handles; other methods and
-preconditioners (and the route of ``"auto"`` to LSQR) raise
-NotImplementedError naming their ROADMAP.md item.
+``"cg"``, ``"minres"``, ``"cs_minres"``, ``"cocg"``, ``"lsqr"`` and
+``"auto"``; ``M=None``, ``"jacobi"``, ``"block_jacobi"``, ``"ilu0"``,
+``"ic0"`` or a preconditioner object (a flat one on a padded operator runs
+through :class:`~sprsolve_tpu_torch.precond.RelayedPrecond`); and the
+``BiCGStab``, ``MinRes``, ``CG``, ``CSMinRes`` and ``GaussSeidel`` handles.
+The other methods and ``M="amg"`` raise NotImplementedError naming their
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -31,20 +32,18 @@ import torch
 from .errors import IncompatibleMatrixFormat, InvalidPreconditioner
 from .ops.operator import as_operator
 from .ops.optimize import default_device
-from .solvers import bicgstab, bicgstabl, cg, cocg, cs_minres, minres
-from .sparse.containers import CSR
+from .solvers import bicgstab, bicgstabl, cg, cocg, cs_minres, gauss_seidel, lsqr, minres
+from .sparse.containers import CSC, CSR, ELL
 
 _SOLVERS = {"bicgstab": bicgstab, "bicgstabl": bicgstabl, "cg": cg, "cocg": cocg,
-            "cs_minres": cs_minres, "minres": minres}
+            "cs_minres": cs_minres, "lsqr": lsqr, "minres": minres}
 
 # the JAX package's other methods and preconditioner builders, by the
 # ROADMAP.md Queue 1 item that ports them
-_LATER_METHODS = {
-    "lsqr": 6,
-    **dict.fromkeys(("gmres", "fgmres", "idrs", "cgs", "tfqmr", "cg_single_sync",
-                     "ca_cg", "ca_bicgstab"), 10),
-}
-_LATER_M = {"ilu0": 8, "ic0": 8, "block_jacobi": 8, "amg": 10}
+_LATER_METHODS = dict.fromkeys(("gmres", "fgmres", "idrs", "cgs", "tfqmr",
+                                "cg_single_sync", "ca_cg", "ca_bicgstab"), 10)
+_LATER_M = {"amg": 10}
+_BUILT_M = ("jacobi", "block_jacobi", "ilu0", "ic0")
 
 
 def _auto_method(A, parity: str = "fast") -> str:
@@ -52,13 +51,16 @@ def _auto_method(A, parity: str = "fast") -> str:
     scipy (``sprsolve_tpu/api.py:65-105``): Hermitian, incl. real symmetric
     → ``minres``; complex symmetric → ``cocg``; rectangular → ``lsqr``;
     anything else (or an operator, which cannot be inspected) →
-    ``bicgstabl``, or plain ``bicgstab`` with ``parity="reference"``."""
+    ``bicgstabl``, or plain ``bicgstab`` with ``parity="reference"``. A CSC
+    is read as its CSR."""
     import numpy as np
     import scipy.sparse as sps
 
     from .sparse.containers import _host
 
     nonsym = "bicgstab" if parity == "reference" else "bicgstabl"
+    if isinstance(A, CSC):
+        A = A.to_csr()
     if not isinstance(A, CSR):
         return nonsym
     S = sps.csr_matrix((_host(A.data), _host(A.indices), _host(A.indptr)),
@@ -107,18 +109,48 @@ _CS_MINRES_M = (
 )
 
 
+def _build_M(M: str, src, device):
+    """The preconditioner a string names, built from the CSR on the host
+    (``sprsolve_tpu/api.py:261-274``); the device parts land on ``device``."""
+    from .precond import BlockJacobiPrecond, IC0Precond, ILU0Precond
+
+    if not isinstance(src, CSR):
+        raise InvalidPreconditioner(
+            f"M={M!r} builds from the matrix on the host and needs a CSR/CSC "
+            "input (got an operator); build the preconditioner object directly."
+        )
+    if M == "block_jacobi":
+        return BlockJacobiPrecond.from_csr(src, device=device)
+    return (ILU0Precond if M == "ilu0" else IC0Precond).from_csr(src, device=device)
+
+
 def _prepare_op_M(A, method: str, M, optimize_layout: bool, device):
     """Shared pipeline of :func:`solve` and :func:`prepare`: pick the
     execution layout for ``A`` and build or re-lay the preconditioner.
     Returns ``(op, M, padded)``; ``padded`` means the operator works in its
     own vector layout (``pad_vec``/``unpad_vec``).
 
-    ``method="cs_minres"`` takes only a real symmetric-positive M: the
-    string ``"jacobi"`` builds the real 1/|d| of
-    :func:`~sprsolve_tpu_torch.precond.real_abs_jacobi` in the operator's
-    layout, and a complex diagonal is refused (``sprsolve_tpu/api.py:251-306``)."""
+    - ``method="lsqr"`` stays on the CSR path (A and Aᴴ in one layout, any
+      shape) and takes no M.
+    - ``method="cs_minres"`` takes only a real symmetric-positive M: the
+      string ``"jacobi"`` builds the real 1/|d| of
+      :func:`~sprsolve_tpu_torch.precond.real_abs_jacobi` in the operator's
+      layout; a complex diagonal or block, ILU(0) and IC(0) are refused
+      (``sprsolve_tpu/api.py:251-306``).
+    - On a padded operator a diagonal is re-laid into its layout; a
+      preconditioner built on the operator itself (``M.A is op``, e.g. a
+      :class:`~sprsolve_tpu_torch.solvers.redblack.MaskedGSPrecond` with
+      padded masks) is used as it is; any other is wrapped in
+      :class:`~sprsolve_tpu_torch.precond.RelayedPrecond`."""
     from .ops.optimize import optimize
-    from .precond import ComplexDiagPrecond, DiagPrecond, real_abs_jacobi
+    from .precond import (BlockJacobiPrecond, ComplexDiagPrecond, DiagPrecond,
+                          IC0Precond, ILU0Precond, RelayedPrecond, real_abs_jacobi)
+
+    src = A.to_csr() if isinstance(A, CSC) else A
+    if method == "lsqr":
+        if M is not None:
+            raise InvalidPreconditioner("lsqr has no preconditioned form; pass M=None")
+        return (src.to(device) if isinstance(src, CSR) else src), None, False
 
     if isinstance(M, str) and M != "jacobi":
         if method == "cs_minres":
@@ -131,22 +163,26 @@ def _prepare_op_M(A, method: str, M, optimize_layout: bool, device):
             raise NotImplementedError(
                 f"M={M!r} is not ported yet: ROADMAP.md Queue 1 item {_LATER_M[M]}"
             )
-        raise ValueError(f"unknown preconditioner {M!r}")
+        if M not in _BUILT_M:
+            raise ValueError(f"unknown preconditioner {M!r}")
+        M = _build_M(M, src, device)
 
-    op = A
-    if isinstance(A, CSR):
-        op = optimize(A, device=device) if optimize_layout else A.to(device)
+    op = src
+    if isinstance(src, CSR):
+        op = optimize(src, device=device) if optimize_layout else src.to(device)
 
     padded = hasattr(op, "pad_vec")
     if method == "cs_minres" and M is not None:
         if isinstance(M, str):
             # real_abs_jacobi builds in the operator's own layout: no relay
             return op, real_abs_jacobi(op), padded
-        if isinstance(M, ComplexDiagPrecond) or (
-                isinstance(M, DiagPrecond) and M.diag_inv.is_complex()):
+        if isinstance(M, (ComplexDiagPrecond, ILU0Precond, IC0Precond)) or (
+                isinstance(M, DiagPrecond) and M.diag_inv.is_complex()) or (
+                isinstance(M, BlockJacobiPrecond) and M.inv_blocks.is_complex()):
             raise InvalidPreconditioner(
-                _CS_MINRES_M + "a complex diagonal is not one; use M='jacobi' "
-                "or a real symmetric-positive operator"
+                _CS_MINRES_M + "a complex diagonal or block, or a nonsymmetric "
+                "ILU0/IC0 sweep apply, is not one; use M='jacobi' or a real "
+                "symmetric-positive operator"
             )
     if padded:
         if isinstance(M, str):
@@ -156,13 +192,10 @@ def _prepare_op_M(A, method: str, M, optimize_layout: bool, device):
                 M = op.relay_diag_precond(M)
             except NotImplementedError as e:
                 raise InvalidPreconditioner(str(e)) from e
-        elif M is not None:
-            raise NotImplementedError(
-                "a general preconditioner on a padded operator (RelayedPrecond): "
-                "ROADMAP.md Queue 1 item 8"
-            )
+        elif M is not None and getattr(M, "A", None) is not op:
+            M = RelayedPrecond(inner=M, op=op)
     elif isinstance(M, str):
-        diag = op.diagonal() if hasattr(op, "diagonal") else A.diagonal()
+        diag = op.diagonal() if hasattr(op, "diagonal") else src.diagonal()
         M = DiagPrecond.new(diag, device=device)
     return op, M, padded
 
@@ -196,18 +229,13 @@ def solve(
 
     ``method="auto"`` picks the solver from the matrix structure (see
     :func:`_auto_method`; ``parity="reference"`` keeps plain BiCGStab for a
-    nonsymmetric matrix).
+    nonsymmetric matrix). ``method="lsqr"`` solves any m×n ``A`` in the
+    least-squares sense (``damp=``, ``AH=``; ``AH`` defaults to
+    ``A.adjoint()``). A CSC is converted to CSR first.
     """
-    method, solver = _resolve(method, A, solver_kwargs)
-    device = default_device(device)
-    n = getattr(A, "shape", (None,))[0]
-    # validate before padding: pad_vec would silently zero-extend a short b
-    b = _vec(b, n, device, "Input vec")
-    x0 = None if x0 is None else _vec(x0, n, device, "x0")
-    op, M, padded = _prepare_op_M(A, method, M, optimize_layout, device)
-    run = PreparedSolver(op, partial(solver, tol=tol, max_iter=max_iter, M=M,
-                                     **solver_kwargs), n)
-    return run(b, x0)
+    handle = prepare(A, method=method, M=M, tol=tol, max_iter=max_iter,
+                     optimize_layout=optimize_layout, device=device, **solver_kwargs)
+    return handle(b, x0)
 
 
 class PreparedSolver:
@@ -221,11 +249,12 @@ class PreparedSolver:
         x2, info2 = handle(b2, x0=x1)
     """
 
-    def __init__(self, op, run, n):
+    def __init__(self, op, run, shape, device=None):
         self._op = op
         self._run = run
         self._padded = hasattr(op, "pad_vec")
-        self._n = n
+        self._m, self._n = shape
+        self._device = getattr(op, "device", device)
 
     @property
     def operator(self):
@@ -233,8 +262,9 @@ class PreparedSolver:
         return self._op
 
     def __call__(self, b, x0=None):
-        device = getattr(self._op, "device", None)
-        b = _vec(b, self._n, device, "Input vec")
+        device = self._device
+        # validate before padding: pad_vec would silently zero-extend a short b
+        b = _vec(b, self._m, device, "Input vec")
         x0 = None if x0 is None else _vec(x0, self._n, device, "x0")
         if self._padded:
             b = self._op.pad_vec(b)
@@ -261,10 +291,18 @@ def prepare(
     method, solver = _resolve(method, A, solver_kwargs)
     device = default_device(device)
     op, M, _ = _prepare_op_M(A, method, M, optimize_layout, device)
-    return PreparedSolver(
-        op, partial(solver, tol=tol, max_iter=max_iter, M=M, **solver_kwargs),
-        A.shape[0],
-    )
+    if method == "lsqr" and "AH" not in solver_kwargs:
+        # the adjoint is a host build, made once (sprsolve_tpu/api.py:546-552)
+        if not hasattr(op, "adjoint"):
+            raise IncompatibleMatrixFormat(
+                "lsqr needs the adjoint operator: pass AH= (or use a CSR/CSC "
+                "container, whose adjoint is built automatically)"
+            )
+        solver_kwargs["AH"] = op.adjoint()
+    if M is not None:
+        solver_kwargs["M"] = M
+    return PreparedSolver(op, partial(solver, tol=tol, max_iter=max_iter, **solver_kwargs),
+                          A.shape, device)
 
 
 def _run(fn, A, b, x, max_iter, tol, M=None):
@@ -333,3 +371,31 @@ class CSMinRes(_Handle):
     :mod:`~sprsolve_tpu_torch.solvers.cs_minres`."""
 
     _fn = staticmethod(cs_minres)
+
+
+class GaussSeidel:
+    """Gauss-Seidel handle (reference ``src/gauss_seidel.rs:13-31``).
+
+    Takes a CSR, converted to ELL once here, or an ELL; raises on a
+    non-square matrix like the reference ``new``. The sweep runs on the host
+    by design (:mod:`~sprsolve_tpu_torch.solvers.gauss_seidel`); the slabs,
+    vectors and residuals live on ``device``, by default the CUDA device."""
+
+    def __init__(self, A, device=None):
+        device = default_device(device)
+        if isinstance(A, CSR):
+            A = A.to_ell()
+        if not isinstance(A, ELL):
+            raise IncompatibleMatrixFormat("Not in CSR format")
+        if A.shape[0] != A.shape[1]:
+            raise IncompatibleMatrixFormat("Not a square matrix")
+        self.A = A.to(device)
+
+    new = classmethod(lambda cls, A, device=None: cls(A, device))
+
+    def solve(self, rhs, x=None, max_iter: int = 1000, eps: float = 0.0):
+        b = torch.as_tensor(rhs, device=self.A.device)
+        x = torch.zeros_like(b) if x is None else torch.as_tensor(x, device=self.A.device)
+        xr, info = gauss_seidel(self.A, b, x, max_iter=max_iter, eps=eps)
+        info.raise_if_error()
+        return xr, (int(info.iterations), float(info.residual))

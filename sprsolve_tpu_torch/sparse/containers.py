@@ -1,15 +1,16 @@
 """Sparse containers as frozen dataclasses of tensors.
 
-PyTorch counterpart of ``sprsolve_tpu/sparse/containers.py``, the part the
-first slice needs: COO (build format), CSR and DIA.
+PyTorch counterpart of ``sprsolve_tpu/sparse/containers.py``: COO (build
+format), CSR and CSC (interchange), ELL and DIA (execution layouts).
 
 - Analysis and conversion (duplicate summing, band extraction) run on the
   host in NumPy, as in the JAX package.
 - The containers hold tensors, on the CPU unless a ``device`` is given;
   ``to(device)`` moves one.
 - ``CSR.matvec`` is a gather and a per-row segment sum, the counterpart of
-  the XLA gather + ``segment_sum``.  It is no hand kernel, as the JAX
-  package leaves it to XLA.
+  the XLA gather + ``segment_sum``; ``ELL.matvec`` a gather and a row sum
+  over the k slots.  Neither is a hand kernel, as the JAX package leaves
+  both to XLA.
 """
 
 from __future__ import annotations
@@ -131,6 +132,29 @@ class CSR:
     def to_dia(self, device=None) -> "DIA":
         return DIA.from_csr(self, device=device)
 
+    def to_ell(self, k: int | None = None, device=None) -> "ELL":
+        return ELL.from_csr(self, k=k, device=device)
+
+    def transpose(self, conj: bool = False) -> "CSR":
+        """Aᵀ (or Aᴴ with ``conj=True``) as a new CSR on the same device,
+        built on the host in NumPy; rectangular matrices too. Built once at
+        setup, the adjoint pairs with LSQR (no transposed gather per
+        iteration)."""
+        rows, cols = _host(self.row_ids), _host(self.indices)
+        dat = _host(self.data)
+        if conj:
+            dat = np.conj(dat)
+        order = np.lexsort((rows, cols))
+        m, n = self.shape
+        indptr = np.zeros(n + 1, dtype=np.int64)
+        indptr[1:] = np.cumsum(np.bincount(cols, minlength=n))
+        return CSR.from_arrays(dat[order], rows[order], indptr, (n, m),
+                               device=self.device)
+
+    def adjoint(self) -> "CSR":
+        """Aᴴ = conj(A)ᵀ (:meth:`transpose` for a real dtype)."""
+        return self.transpose(conj=True)
+
     def diagonal(self) -> torch.Tensor:
         """The main diagonal (host-side extraction, on the matrix's device)."""
         return torch.as_tensor(self.diagonal_host(), device=self.device)
@@ -139,6 +163,131 @@ class CSR:
         rows, cols, dat = _host(self.row_ids), _host(self.indices), _host(self.data)
         on_diag = rows == cols
         return _scatter_sum(rows[on_diag], dat[on_diag], self.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class ELL:
+    """ELLPACK: each row padded to ``k`` slots, pad slots (col 0, value 0).
+
+    Built once on the host from a CSR (``sprsolve_tpu/sparse/containers.py:234-304``);
+    the exact Gauss-Seidel sweep and the multicolor sweep read its slabs."""
+
+    data: torch.Tensor   # (n_rows, k)
+    cols: torch.Tensor   # (n_rows, k) int64
+    shape: Tuple[int, int]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @staticmethod
+    def arrays_from_csr(m: CSR, k: int | None = None):
+        """Host-side build: the (data, cols) slabs as NumPy arrays."""
+        indptr = _host(m.indptr).astype(np.int64)
+        counts = np.diff(indptr)
+        kmax = int(counts.max()) if len(counts) else 0
+        k = kmax if k is None else k
+        if k < kmax:
+            raise ValueError(f"k={k} < max row nnz {kmax}")
+        n = m.shape[0]
+        flat = _host(m.data)
+        data = np.zeros((n, k), dtype=flat.dtype)
+        cols = np.zeros((n, k), dtype=np.int64)
+        # each entry's slot within its row
+        slot = np.arange(len(flat)) - np.repeat(indptr[:-1], counts)
+        rows = np.repeat(np.arange(n), counts)
+        data[rows, slot] = flat
+        cols[rows, slot] = _host(m.indices)
+        return data, cols
+
+    @staticmethod
+    def from_csr(m: CSR, k: int | None = None, device=None) -> "ELL":
+        data, cols = ELL.arrays_from_csr(m, k)
+        dev = m.device if device is None else device
+        return ELL(data=torch.as_tensor(data, device=dev),
+                   cols=torch.as_tensor(cols, device=dev), shape=m.shape)
+
+    def to(self, device) -> "ELL":
+        return dataclasses.replace(self, data=self.data.to(device),
+                                   cols=self.cols.to(device))
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        from ..ops.spmv import spmv_ell
+
+        return spmv_ell(self, x)
+
+    def matvec_dot(self, x: torch.Tensor):
+        from ..vecalg import conj_dot
+
+        y = self.matvec(x)
+        return y, conj_dot(x, y)
+
+    def diagonal(self) -> torch.Tensor:
+        rows = torch.arange(self.shape[0], device=self.device)[:, None]
+        return torch.sum(torch.where(self.cols == rows, self.data,
+                                     torch.zeros((), dtype=self.dtype,
+                                                 device=self.device)), dim=1)
+
+
+@dataclasses.dataclass(frozen=True)
+class CSC:
+    """Compressed sparse column, an interchange format
+    (``sprsolve_tpu/sparse/containers.py:377-446``): solves convert it to
+    CSR. Its own SpMV is a gather and a scatter-add over rows (the
+    reference's per-column accumulation, ``src/mat.rs:130-142``)."""
+
+    data: torch.Tensor     # (nnz,)
+    indices: torch.Tensor  # (nnz,) int64 row index per entry
+    indptr: torch.Tensor   # (n_cols + 1,) int64
+    col_ids: torch.Tensor  # (nnz,) int64 column index per entry
+    shape: Tuple[int, int]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def nnz(self) -> int:
+        return self.data.shape[0]
+
+    @staticmethod
+    def from_arrays(data, indices, indptr, shape, device=None) -> "CSC":
+        indptr_np = _host(indptr).astype(np.int64)
+        col_ids = np.repeat(np.arange(shape[1], dtype=np.int64), np.diff(indptr_np))
+        as_t = lambda a: torch.as_tensor(a, device=device)
+        return CSC(
+            data=as_t(np.ascontiguousarray(_host(data))),
+            indices=as_t(_host(indices).astype(np.int64)),
+            indptr=as_t(indptr_np),
+            col_ids=as_t(col_ids),
+            shape=(int(shape[0]), int(shape[1])),
+        )
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        # index_add_ sums with float atomics on a GPU: the order, and so the
+        # last bits, may change from call to call there
+        contrib = self.data * x[self.col_ids]
+        y = torch.zeros(self.shape[0], dtype=contrib.dtype, device=contrib.device)
+        return y.index_add_(0, self.indices, contrib)
+
+    def matvec_dot(self, x: torch.Tensor):
+        from ..vecalg import conj_dot
+
+        y = self.matvec(x)
+        return y, conj_dot(x, y)
+
+    def to_csr(self) -> CSR:
+        coo = COO(data=_host(self.data), row=_host(self.indices),
+                  col=_host(self.col_ids), shape=self.shape)
+        return CSR.from_coo(coo, device=self.device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,6 @@
-"""Utilities: the problem generators."""
+"""Utilities: the problem generators and the Gershgorin bounds."""
 
+from .bounds import gershgorin_bounds
 from .problems import (
     convection_diffusion3d,
     grid_laplacian_dirichlet,
@@ -11,6 +12,7 @@ from .problems import (
 
 __all__ = [
     "convection_diffusion3d",
+    "gershgorin_bounds",
     "grid_laplacian_dirichlet",
     "poisson3d",
     "set_boundary_condition",

@@ -112,8 +112,21 @@ def test_solve_dimension_checks():
 def test_unported_methods_name_their_roadmap_item(method, item):
     """Each method still to port names its ROADMAP.md item. Item 7's methods
     (CS-MINRES and COCG) are ported: the same calls now solve; on a real SPD
-    system they are MINRES and CG."""
-    tA, _, b = _poisson_f32(4)
+    system they are MINRES and CG. Item 6's LSQR is ported too: it solves
+    the square system on the CSR path, as the JAX package's does."""
+    tA, jA, b = _poisson_f32(4)
+    if item == 6:
+        kw = dict(method=method, tol=1e-5, max_iter=200)
+        x, info = tsp.solve(tA, b, device="cpu", **kw)
+        xj, info_j = jsp.solve(jA, b, **kw)
+        assert info.converged and bool(info_j.converged)
+        assert abs(info.iterations - int(info_j.iterations)) <= _band(int(info_j.iterations))
+        assert _true_res(tA, x, b) < 1e-4
+        np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=1e-3, atol=1e-4)
+        x2, info2 = tsp.prepare(tA, device="cpu", **kw)(b)
+        assert torch.equal(x, x2) and isinstance(tsp.prepare(tA, device="cpu", **kw).operator,
+                                                 tsp.CSR)
+        return
     if item == 7:
         x, info = tsp.solve(tA, b, method=method, tol=1e-5, max_iter=200, device="cpu")
         assert info.converged and _true_res(tA, x, b) < 1e-4
@@ -129,7 +142,21 @@ def test_unported_methods_name_their_roadmap_item(method, item):
 
 @pytest.mark.parametrize("M,item", [("ilu0", 8), ("block_jacobi", 8), ("amg", 10)])
 def test_unported_preconditioners_name_their_roadmap_item(M, item):
-    tA, _, b = _poisson_f32(4)
+    """Item 10's AMG still names its ROADMAP.md item. Item 8's builders are
+    ported: BiCGStab solves with them, relayed onto the padded operator, in
+    as many iterations as JAX's within the band."""
+    tA, jA, b = _poisson_f32(4)
+    if item == 8:
+        kw = dict(M=M, tol=1e-5, max_iter=200)
+        x, info = tsp.solve(tA, b, device="cpu", **kw)
+        xj, info_j = jsp.solve(jA, b, **kw)
+        assert info.converged and bool(info_j.converged) and _true_res(tA, x, b) < 1e-4
+        assert abs(info.iterations - int(info_j.iterations)) <= _band(int(info_j.iterations))
+        xj = torch.from_numpy(np.array(xj))
+        assert float(torch.linalg.norm(x - xj) / torch.linalg.norm(xj)) < 1e-3
+        assert isinstance(tsp.prepare(tA, device="cpu", **kw)._run.keywords["M"],
+                          tsp.RelayedPrecond)
+        return
     with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
         tsp.solve(tA, b, M=M, device="cpu")
 
@@ -204,8 +231,23 @@ def test_auto_method_routes_as_jax(name, parity):
 def test_auto_routes_to_unported_methods_name_their_roadmap_item(name, item):
     """auto's route to a method still to port names its ROADMAP.md item.
     Item 7 is ported: auto on a complex-symmetric matrix runs COCG with the
-    complex Jacobi of the layout, bitwise the same solve as method="cocg"."""
-    tA, _ = _auto_fixtures()[name]
+    complex Jacobi of the layout, bitwise the same solve as method="cocg".
+    Item 6 is ported: auto on the rectangular matrix runs LSQR, bitwise the
+    same solve as method="lsqr", and agrees with JAX's."""
+    tA, jA = _auto_fixtures()[name]
+    if item == 6:
+        b = np.random.default_rng(7).standard_normal(tA.shape[0])
+        kw = dict(tol=1e-10, max_iter=200, device="cpu")
+        x, info = tsp.solve(tA, b, method="auto", **kw)
+        x2, info2 = tsp.solve(tA, b, method="lsqr", **kw)
+        assert info.converged and torch.equal(x, x2) and x.shape == (tA.shape[1],)
+        assert info.iterations == info2.iterations
+        x3, info3 = tsp.prepare(tA, method="auto", **kw)(b)
+        assert torch.equal(x, x3) and info3.iterations == info.iterations
+        xj, info_j = jsp.solve(jA, b, method="auto", tol=1e-10, max_iter=200)
+        assert abs(info.iterations - int(info_j.iterations)) <= _band(int(info_j.iterations))
+        np.testing.assert_allclose(x.numpy(), np.asarray(xj), atol=1e-8)
+        return
     if item == 7:
         b = np.ones(tA.shape[0], dtype=np.complex128)
         kw = dict(M="jacobi", tol=1e-10, max_iter=200, device="cpu")
@@ -230,7 +272,10 @@ def test_entry_points_without_a_device_and_without_cuda_raise(monkeypatch):
     tA, _, b = _poisson_f32(4)
     calls = (lambda: tsp.solve(tA, b), lambda: tsp.prepare(tA),
              lambda: tsp.optimize(tA), lambda: tsp.BiCGStab.new(tA, 64),
-             lambda: tsp.CSMinRes.new(tA, 64))
+             lambda: tsp.CSMinRes.new(tA, 64), lambda: tsp.GaussSeidel.new(tA),
+             lambda: tsp.solve(tA, b, method="lsqr"), lambda: tsp.prepare(tA, M="ilu0"),
+             lambda: tsp.solve(tA, b, M="block_jacobi"),
+             lambda: tsp.solve(tA, b, method="minres", M="ic0"))
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
@@ -314,6 +359,9 @@ def test_import_leaves_jax_out():
         "import sprsolve_tpu_torch.solvers.cs_minres, sprsolve_tpu_torch.solvers.cocg\n"
         "import sprsolve_tpu_torch.solvers.planes, sprsolve_tpu_torch.precond\n"
         "import sprsolve_tpu_torch.ops.padded_dia, sprsolve_tpu_torch.ops.fused\n"
+        "import sprsolve_tpu_torch.native, sprsolve_tpu_torch.utils.bounds\n"
+        "import sprsolve_tpu_torch.solvers.gauss_seidel, sprsolve_tpu_torch.solvers.lsqr\n"
+        "import sprsolve_tpu_torch.solvers.redblack, sprsolve_tpu_torch.ops.spmv\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'sprsolve_tpu'))\n"
         "assert not bad, bad\n"

@@ -649,3 +649,103 @@ def test_cuda_k6_k7_walk_many_tiles_on_a_small_grid(monkeypatch, cuda):
         if u is not None:
             assert torch.equal(got[0], pd.dia_complex_spmv(*p, u, op.offsets, op.h)), name
         assert all(torch.equal(a, b) for a, b in zip(got, full[name])), name
+
+
+# --- the preconditioners on the kernels --------------------------------------
+class _PlainK1:
+    """``op``'s SpMV through K1's plain version on the same CUDA tensors: the
+    yardstick of a preconditioner built on the kernel operator."""
+
+    def __init__(self, op):
+        self.op, self.shape = op, op.shape
+
+    def matvec(self, x2):
+        return pd.dia_spmv_plain(self.op.bands, x2, self.op.offsets, self.op.h)
+
+
+def _gs_setup(cuda, k=10):
+    A = problems.poisson3d(k, k, k)
+    op = pd.PaddedDIA.from_dia(A.to_dia(), device=cuda)
+    colors = tsp.greedy_color(A)
+    assert colors.max() + 1 == 2
+    masks = tuple(op.pad_vec(m.to(torch.float32)) > 0
+                  for m in tsp.color_masks(colors, device=cuda))
+    return A, op, masks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gs", "ssor", "chebyshev"])
+def test_cuda_preconditioners_on_k1_match_plain(kind, cuda):
+    """Forward masked GS, multicolor SSOR and Chebyshev of degree 4 on a
+    CUDA PaddedDIA: one apply launches K1 once, twice and four times, keeps
+    the halo zero, and agrees with the same preconditioner on K1's plain
+    version: within 8·eps·|A|·|z| per SpMV (|A|'s row sums are at most 12),
+    times 8 for up to four SpMVs and the apply's scalings between them."""
+    A, op, masks = _gs_setup(cuda)
+    diag = op.diagonal_padded()
+
+    def build(oper):
+        if kind == "chebyshev":
+            return tsp.ChebyshevPrecond(A=oper, lmin=0.05, lmax=12.0, degree=4)
+        return tsp.MaskedGSPrecond(A=oper, diag=diag, masks=masks, omega=1.5 if kind == "ssor"
+                                   else 1.0, symmetric=kind == "ssor")
+
+    r = op.pad_vec(torch.as_tensor(np.random.default_rng(3).standard_normal(op.n),
+                                   dtype=torch.float32, device=cuda))
+    pd.reset_launch_counts()
+    _dirty(r)
+    z = build(op).matvec(r)
+    torch.cuda.synchronize()
+    assert pd.dia_spmv.launches == {"gs": 1, "ssor": 2, "chebyshev": 4}[kind]
+    assert pd.dia_wdot.launches == pd.dia_dot.launches == 0
+    assert _zero_halo(op, z) and bool(torch.isfinite(z).all())
+    z_plain = build(_PlainK1(op)).matvec(r)
+    scale = float(z_plain.abs().max() + r.abs().max())
+    assert float((z - z_plain).abs().max()) <= 64 * EPS[torch.float32] * 12 * scale
+
+
+@pytest.mark.cuda
+def test_cuda_config4_counts_per_iteration(cuda):
+    """BiCGStab with the 2-color masked GS on the kernels: K1 once plus once
+    per apply (two applies an iteration), K2 twice an iteration; the
+    solution agrees with the same solve on the CPU."""
+    A, op, masks = _gs_setup(cuda, 12)
+    M = tsp.MaskedGSPrecond(A=op, diag=op.diagonal_padded(), masks=masks)
+    b = np.random.default_rng(0).standard_normal(A.shape[0]).astype(np.float32)
+    pd.reset_launch_counts()
+    x2, info = tsp.bicgstab(op, op.pad_vec(torch.as_tensor(b, device=cuda)), M=M, tol=1e-5,
+                            max_iter=400)
+    torch.cuda.synchronize()
+    n = info.iterations
+    assert info.converged and _zero_halo(op, x2)
+    assert pd.dia_spmv.launches == 1 + 2 * n and pd.dia_wdot.launches == 2 * n
+    assert pd.dia_dot.launches == fused.orth_norm.launches == 0
+    x, info_h = tsp.prepare(op, M=M, tol=1e-5, max_iter=400, device=cuda)(b)
+    assert info_h.iterations == n and torch.equal(x, op.unpad_vec(x2))
+    opc = pd.PaddedDIA.from_dia(A.to_dia(), device="cpu")
+    Mc = tsp.MaskedGSPrecond(A=opc, diag=opc.diagonal_padded(),
+                             masks=tuple(m.cpu() for m in masks))
+    xc, info_c = tsp.prepare(opc, M=Mc, tol=1e-5, max_iter=400, device="cpu")(b)
+    assert abs(n - info_c.iterations) <= 3
+    assert float(torch.linalg.norm(x.cpu() - xc) / torch.linalg.norm(xc)) < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_gauss_seidel_golden_and_relayed_preconditioners(cuda):
+    """The exact sweep's golden with the vectors on the card (296 sweeps,
+    residual exactly 0), and ILU(0) relayed onto the kernel operator under
+    BiCGStab (K1 once, K2 twice an iteration)."""
+    G = problems.grid_laplacian_dirichlet((10, 10))
+    rhs = np.zeros(100)
+    problems.set_boundary_condition(rhs, (10, 10), lambda r, c: float(r + c))
+    x, (its, res) = tsp.GaussSeidel.new(G, device=cuda).solve(rhs, max_iter=300, eps=0.0)
+    assert x.is_cuda and its == 296 and res == 0.0
+    A = problems.poisson3d(10, 10, 10)
+    b = np.random.default_rng(5).standard_normal(A.shape[0]).astype(np.float32)
+    h = tsp.prepare(A, M="ilu0", tol=1e-5, max_iter=400, device=cuda)
+    assert isinstance(h._run.keywords["M"], tsp.RelayedPrecond)
+    pd.reset_launch_counts()
+    x, info = h(b)
+    torch.cuda.synchronize()
+    assert info.converged and x.is_cuda
+    assert pd.dia_spmv.launches == 1 and pd.dia_wdot.launches == 2 * info.iterations

@@ -88,6 +88,30 @@ Phases, each printing lines of its own:
    sweep count as its CPU run; ``solve(method="auto")`` on the stacked
    2M×1M ``[A; I]`` routes to LSQR, converges, and agrees to 1e-3 with
    ``lsqr(A, b, damp=1)`` and with scipy's f64 LSQR.
+12. layouts — every layout of ``optimize()`` at 1M rows, f32 (c64 in d),
+   tol 1e-4, the launch counters reset before each solve, each solve
+   converged below a true residual of 1e-3: (a) the 100³ Poisson behind a
+   random symmetric permutation → ``Reordered(BSR)`` (RCM, symmetrize and
+   BSR-build seconds, block count); ``solve(method="auto")`` → MINRES with
+   no hand kernel, x unscrambled within 1e-3 of the unscrambled MINRES's
+   and the count within max(3, ⌈its/4⌉) of it; 3 timed ``prepare()``
+   solves; the BSR SpMV warm and cold against its bytes bound and
+   ``torch.mv`` on the sparse CSR. (b) The Poisson plus 60 symmetric
+   long-range couplings → ``HybridDIA`` with a ``FlatViewOperator(PaddedDIA)``
+   core: BiCGStab + Jacobi launches K1 1 + 2·its times and K2 never,
+   ``auto`` → MINRES K1 its + 2 times; the cost model's scores, the
+   sidecar's time and a 2²⁰-element sidecar's rate, the wide torch DIA
+   SpMV. (c) A 2²⁰-row [-3, 0, 3] chain and its symmetric twin, scrambled →
+   ``Reordered(PaddedDIA)``: MINRES K1 once, K3 its + 1, K4 never;
+   BiCGStab + Jacobi K1 1 + 2·its, K2 never; K1 timed. (d) The damped c64
+   Poisson, scrambled → ``Reordered(ComplexBSR)``, ``auto`` + Jacobi → COCG.
+   (e) The compiled host toolkit: ``greedy_color`` at 1M rows (2 colors,
+   the plain version's on 32³), ILU(0)-BiCGStab (K1 once, K2 2·its) and
+   IC(0)-MINRES (K1 once, K3 its + 1) at 1M rows with their set-up
+   seconds. (f) ``optimize(measure=True)`` on (a)'s matrix with the cache
+   in a temporary directory; a second call reads it and times nothing. (g)
+   Every route off: a uniform random pattern → ELL with a RuntimeWarning.
+   Last, the cost model's H100 constants measured in (a)-(c).
 
 The line before the last is a JSON object with one entry per kernel (K1-K7,
 each with its warm ``ms`` and its ``cold_ms``);
@@ -97,20 +121,32 @@ the script exits non-zero.  It imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
 import sprsolve_tpu_torch as spt
+from sprsolve_tpu_torch import native
+from sprsolve_tpu_torch.api import _auto_method
+from sprsolve_tpu_torch.multigrid import FlatViewOperator
 from sprsolve_tpu_torch.ops import _cuda_build, fused
 from sprsolve_tpu_torch.ops import padded_dia as pd
-from sprsolve_tpu_torch.sparse.containers import CSR, DIA
-from sprsolve_tpu_torch.utils import problems
+from sprsolve_tpu_torch.ops.reordered import Reordered
+from sprsolve_tpu_torch.ops.spmv import spmv_dia
+from sprsolve_tpu_torch.sparse.containers import COO, CSR, DIA
+from sprsolve_tpu_torch.utils import problems, tuning
+
+topt = importlib.import_module("sprsolve_tpu_torch.ops.optimize")
 
 SEED = 0
 GRID = 100          # the 100³ Poisson: 1,000,000 rows, 6,940,000 nnz
@@ -220,11 +256,17 @@ def kernel_events(fn) -> list:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    # a trace can come back with no device event at all (seen once in ~20
+    # profiled calls on the card): take it again, up to three times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    return events
 
 
 def bound_ms(moved: int, flops: float, rdt) -> tuple:
@@ -1366,6 +1408,430 @@ def phase_exact_and_lsqr(dev):
         damped_iterations=int(info_d.iterations), rel_diff_vs_damped=e_damp,
         rel_diff_vs_scipy_f64=e_ref, wall_s_with_setup=f"{wall:.4f}")
 
+# --- phase 12: the layouts ---------------------------------------------------
+CHAIN_ROWS = 1 << 20   # the scrambled 1-D chain of phase 12 (c)
+SPIKES = 60            # long-range couplings of the spiked Poisson of (b)
+
+
+def parity_band(its: int) -> int:
+    """The count band of tests/test_serial_parity.py:183, max(3, ⌈its/4⌉)."""
+    return max(3, -(-its // 4))
+
+
+def scramble(A: CSR, perm: np.ndarray) -> CSR:
+    """B = A[perm, perm] (B[i, j] = A[perm[i], perm[j]]), built on the host;
+    B·x[perm] = (A·x)[perm]."""
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(len(perm))
+    return CSR.from_coo(COO(data=A.data.numpy(), row=inv[A.row_ids.numpy()],
+                            col=inv[A.indices.numpy()], shape=A.shape))
+
+
+def unscramble(x: torch.Tensor, perm: np.ndarray) -> torch.Tensor:
+    out = torch.empty_like(x)
+    out[torch.as_tensor(perm, device=x.device)] = x
+    return out
+
+
+def layout_name(op) -> str:
+    if isinstance(op, Reordered):
+        return f"Reordered({layout_name(op.inner)})"
+    if isinstance(op, spt.HybridDIA):
+        return f"HybridDIA({layout_name(op.core)}+{op.n_outliers}_outliers)"
+    if isinstance(op, FlatViewOperator):
+        return f"FlatViewOperator({layout_name(op.op)})"
+    if isinstance(op, (spt.BSR, spt.ComplexBSR)):
+        return f"{type(op).__name__}(bs={op.bs},blocks={op.nblk})"
+    if isinstance(op, spt.PaddedDIA):
+        return f"PaddedDIA({len(op.offsets)}_diagonals,{str(op.bands.dtype)[6:]})"
+    return type(op).__name__
+
+
+def log_candidates(tag: str, m: CSR) -> None:
+    """The cost model's candidates on ``m``'s own pattern under the port's
+    table, with their scores (predicted bytes per nnz at the HBM rate)."""
+    cands = topt.candidates_of(
+        m, None, topt.count_diagonals(m), "", max_diags=32, prefer_kernels=True,
+        allow_bsr=True, allow_hybrid=True, wide_diags=192, mem_limit_bytes=4 << 30,
+        device="cpu")
+    log("layouts", matrix=tag, candidates=",".join(
+        f"{label}:{score:.4f}" for score, label, _ in sorted(cands, key=lambda c: c[0])))
+
+
+def layout_spmv_times(tag, path, call, operands, model_bytes: int, out_bytes: int) -> float:
+    """Warm and cold graph-replayed ms of a layout's SpMV, its bytes bound
+    (operands read once, the output written once) and the share of 3.35
+    TB/s it reaches on the bytes the cost model counts (cold). Returns that
+    share."""
+    warm = device_ms(lambda: call(*operands))
+    cold = cold_device_ms(call, operands)
+    least = (nbytes(*operands) + out_bytes) / HBM_BYTES_PER_S * 1e3
+    eff = model_bytes / (cold * 1e-3 * HBM_BYTES_PER_S)
+    log("layouts", spmv=tag, path=path, ms=f"{warm:.5f}", cold_ms=f"{cold:.5f}", bound_ms=f"{least:.5f}",
+        bound_by="bytes", share_of_bound_cold=f"{least / cold:.4f}",
+        model_bytes=model_bytes, eff_on_model_bytes=f"{eff:.4f}")
+    return eff
+
+
+def checked(tag, run, A, b, dev):
+    """``run(b)`` (a solve() or a prepared handle) on the card with the
+    launch counters reset just before: (x, iterations, counts), required to
+    converge to a true residual below 1e-3."""
+    bd = torch.as_tensor(b, device=dev)
+    pd.reset_launch_counts()
+    t0 = time.perf_counter()
+    x, info = run(bd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c, n = launch_counts(), int(info.iterations)
+    res = (complex_true_residual((A.data.numpy(), A.indices.numpy(), A.indptr.numpy()),
+                                 A.shape, x, b) if A.dtype.is_complex
+           else true_residual(A, x, b))
+    if not (info.converged and res < 1e-3 and bool(torch.isfinite(x).all())
+            and x.shape == (A.shape[0],)):
+        raise AssertionError(f"{tag}: {info}, true residual {res:.3e}")
+    log("layouts", entry=tag, iterations=n, recurrence_residual=float(info.residual),
+        true_residual=res, wall_s=f"{wall:.4f}",
+        **{f"{k}_launches": v for k, v in c.items() if v})
+    return x, n, c
+
+
+def solve_kw(**kw):
+    return dict(tol=1e-4, max_iter=1000, **kw)
+
+
+def phase_layouts_scrambled(dev):
+    """Phase 12 (a): the scrambled 100³ Poisson → Reordered(BSR); auto →
+    MINRES against the unscrambled solve; the BSR SpMV against torch.mv.
+    Returns (the scrambled CSR, the BSR's share on its model bytes)."""
+    A = problems.poisson3d(GRID, GRID, GRID)
+    n = A.shape[0]
+    perm = np.random.default_rng(SEED + 8).permutation(n)
+    B = scramble(A, perm)
+    b = poisson_rhs(A)
+    bp = b[perm]
+    ip, ind = B.indptr.numpy(), B.indices.numpy()
+    t0 = time.perf_counter()
+    sym = native.symmetrize_pattern(n, ip, ind)
+    t_sym = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.rcm_order(n, *sym)
+    t_rcm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    Bp, _ = spt.reorder_rcm(B)
+    t_reorder = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = spt.optimize(B, device=dev)
+    torch.cuda.synchronize()
+    t_opt = time.perf_counter() - t0
+    if not (isinstance(op, Reordered) and isinstance(op.inner, spt.BSR)):
+        raise AssertionError(f"scrambled Poisson: optimize gave {layout_name(op)}")
+    inner = op.inner
+    t0 = time.perf_counter()
+    spt.BSR.from_csr(Bp, bs=inner.bs, device=dev)
+    torch.cuda.synchronize()
+    t_bsr = time.perf_counter() - t0
+    log("layouts", matrix="scrambled_poisson100", layout=layout_name(op),
+        diagonals=topt.count_diagonals(B), diagonals_after_rcm=topt.count_diagonals(Bp),
+        optimize_s=f"{t_opt:.4f}", symmetrize_s=f"{t_sym:.4f}", rcm_order_s=f"{t_rcm:.4f}",
+        reorder_rcm_s=f"{t_reorder:.4f}", bsr_build_s=f"{t_bsr:.4f}",
+        bsr_blocks=inner.nblk, bsr_mbytes=f"{nbytes(inner.blocks) / 1e6:.1f}",
+        fill_ratio=f"{inner.fill_ratio:.4f}")
+
+    x_ref, its_ref, _ = checked(
+        "solve(poisson100, 'minres')",
+        lambda v: spt.solve(A, v, device=dev, **solve_kw(method="minres")), A, b, dev)
+    if _auto_method(B) != "minres":
+        raise AssertionError("auto does not route the scrambled Poisson to MINRES")
+    x, its, c = checked(
+        "solve(scrambled, 'auto') -> minres, Reordered(BSR)",
+        lambda v: spt.solve(B, v, device=dev, **solve_kw(method="auto")), B, bp, dev)
+    expect_counts("auto on Reordered(BSR)", c)   # BSR is torch ops: no hand kernel
+    rel = float(torch.linalg.vector_norm(unscramble(x, perm) - x_ref)
+                / torch.linalg.vector_norm(x_ref))
+    if not (rel < 1e-3 and abs(its - its_ref) <= parity_band(its_ref)):
+        raise AssertionError(f"scrambled MINRES: {its} its (unscrambled {its_ref}), "
+                             f"x differs by {rel:.3e}")
+    log("layouts", check="scrambled x against unscrambled", iterations=its,
+        unscrambled_iterations=its_ref, rel_diff=f"{rel:.3e}")
+    handle = spt.prepare(op, device=dev, **solve_kw(method="minres"))
+    wall, walls, _, _ = timed_solves(handle, torch.as_tensor(bp, device=dev), its,
+                                     "prepare(scrambled)")
+    log("layouts", entry="prepare(Reordered(BSR), 'minres')", wall_s_median=f"{wall:.4f}",
+        walls_s=",".join(f"{w:.4f}" for w in walls),
+        per_iteration_ms=f"{wall / its * 1e3:.4f}")
+
+    xf = torch.as_tensor(np.random.default_rng(SEED + 9).standard_normal(n),
+                         dtype=torch.float32, device=dev)
+    call = lambda blocks, v: dataclasses.replace(inner, blocks=blocks).matvec(v)
+    bs = inner.bs
+    eff = layout_spmv_times(
+        f"BSR(bs={bs}) scrambled_poisson100", "torch ops", call, (inner.blocks, xf),
+        inner.nblk * (bs * bs + 2 * bs) * 4, 4 * n)
+    library_ms("bsr_scrambled_poisson100", Bp, xf, inner.matvec(xf))
+    return B, eff
+
+
+def spiked_poisson() -> CSR:
+    """The 100³ Poisson plus SPIKES symmetric long-range couplings (the
+    fixture of tests/test_hybrid.py:74-91 at nx = 100)."""
+    A = problems.poisson3d(GRID, GRID, GRID)
+    n = A.shape[0]
+    rng = np.random.default_rng(SEED)
+    r, c = rng.integers(0, n, SPIKES), rng.integers(0, n, SPIKES)
+    v = rng.standard_normal(SPIKES).astype(np.float32) * 0.01
+    return CSR.from_coo(COO(data=np.concatenate([A.data.numpy(), v, v]),
+                            row=np.concatenate([A.row_ids.numpy(), r, c]),
+                            col=np.concatenate([A.indices.numpy(), c, r]), shape=A.shape))
+
+
+def phase_layouts_spiked(dev):
+    """Phase 12 (b): the spiked Poisson → HybridDIA with a K1 core;
+    BiCGStab + Jacobi (K1 once per SpMV, K2 never) and auto → MINRES; the
+    wide torch DIA path and the sidecar timed. Returns (the wide DIA's
+    share, the sidecar's elements per second)."""
+    S = spiked_poisson()
+    n = S.shape[0]
+    log_candidates("spiked_poisson100", S)
+    t0 = time.perf_counter()
+    op = spt.optimize(S, device=dev)
+    torch.cuda.synchronize()
+    t_opt = time.perf_counter() - t0
+    if not (isinstance(op, spt.HybridDIA) and isinstance(op.core, FlatViewOperator)
+            and isinstance(op.core.op, spt.PaddedDIA)):
+        raise AssertionError(f"spiked Poisson: optimize gave {layout_name(op)}")
+    log("layouts", matrix="spiked_poisson100", layout=layout_name(op),
+        diagonals=topt.count_diagonals(S), optimize_s=f"{t_opt:.4f}")
+    b = poisson_rhs(S)
+    handle = spt.prepare(op, device=dev, **solve_kw(method="bicgstab", M="jacobi"))
+    _, its, c = checked("prepare(HybridDIA, 'bicgstab', M='jacobi')", handle, S, b, dev)
+    expect_counts("bicgstab on HybridDIA", c, dia_spmv=1 + 2 * its)
+    if _auto_method(S) != "minres":
+        raise AssertionError("auto does not route the spiked Poisson to MINRES")
+    _, its, c = checked(
+        "solve(spiked, 'auto') -> minres, HybridDIA",
+        lambda v: spt.solve(S, v, device=dev, **solve_kw(method="auto")), S, b, dev)
+    expect_counts("minres on HybridDIA", c, dia_spmv=its + 2)
+
+    # the sidecar: this matrix's outliers (warm), and the per-element rate of
+    # a 1M-element gather, multiply and index_add_ on sorted rows (cold)
+    xf = torch.as_tensor(np.random.default_rng(SEED + 9).standard_normal(n),
+                         dtype=torch.float32, device=dev)
+    y = torch.zeros(n, device=dev)
+    side_ms = device_ms(lambda: y.index_add_(0, op.out_rows, op.out_vals * xf[op.out_cols]))
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    m = 1 << 20
+    rows = torch.sort(torch.randint(0, n, (m,), device=dev, generator=g)).values
+    cols = torch.randint(0, n, (m,), device=dev, generator=g)
+    vals = torch.randn(m, device=dev, generator=g)
+    cold = cold_device_ms(lambda yy, r, cc, v, xx: yy.index_add_(0, r, v * xx[cc]),
+                          (torch.zeros(n, device=dev), rows, cols, vals, xf))
+    rate = m / (cold * 1e-3)
+    log("layouts", sidecar="spiked_poisson100", outliers=op.n_outliers, ms=f"{side_ms:.5f}",
+        synthetic_elements=m, synthetic_cold_ms=f"{cold:.5f}",
+        elements_per_s=f"{rate:.6e}")
+
+    # the wide DIA candidate on the torch path
+    nd = topt.count_diagonals(S)
+    dia = DIA.from_csr(S, max_diags=nd, device=dev)
+    eff_dia = layout_spmv_times(
+        f"DIA({nd} diagonals) spiked_poisson100", "torch ops", lambda bands, v: spmv_dia(
+            DIA(bands=bands, offsets=dia.offsets, shape=dia.shape), v),
+        (dia.bands, xf), (nd + 2) * n * 4, 4 * n)
+    del dia
+    return eff_dia, rate
+
+
+def chain(n: int, symmetric: bool, rng) -> CSR:
+    """The [-3, 0, 3] band of tests/test_optimize.py:46-70 at n rows, 8 on
+    the diagonal (``symmetric``: the same values at ±3)."""
+    lo = rng.standard_normal(n - 3).astype(np.float32)
+    hi = lo if symmetric else rng.standard_normal(n - 3).astype(np.float32)
+    i = np.arange(n)
+    return CSR.from_coo(COO(data=np.concatenate([np.full(n, 8.0, np.float32), lo, hi]),
+                            row=np.concatenate([i, i[3:], i[:-3]]),
+                            col=np.concatenate([i, i[:-3], i[3:]]), shape=(n, n)))
+
+
+def phase_layouts_chain(dev):
+    """Phase 12 (c): the scrambled chain and its symmetric twin →
+    Reordered(PaddedDIA): MINRES on K3 (its + 1) without K4, BiCGStab +
+    Jacobi on K1 (1 + 2·its) without K2; K1 timed. Returns K1's share."""
+    n = CHAIN_ROWS
+    rng = np.random.default_rng(SEED + 10)
+    perm = rng.permutation(n)
+    runs = {}
+    for name, symmetric in (("chain", False), ("chain_twin", True)):
+        B = scramble(chain(n, symmetric, rng), perm)
+        t0 = time.perf_counter()
+        op = spt.optimize(B, device=dev)
+        torch.cuda.synchronize()
+        if not (isinstance(op, Reordered) and isinstance(op.inner, spt.PaddedDIA)):
+            raise AssertionError(f"{name}: optimize gave {layout_name(op)}")
+        log("layouts", matrix=f"scrambled_{name}", rows=n, layout=layout_name(op),
+            diagonals=topt.count_diagonals(B), optimize_s=f"{time.perf_counter() - t0:.4f}")
+        runs[name] = (B, op)
+    b = np.random.default_rng(SEED + 11).standard_normal(n).astype(np.float32)
+    B, op = runs["chain_twin"]
+    handle = spt.prepare(op, device=dev, **solve_kw(method="minres"))
+    _, its, c = checked("prepare(scrambled twin, 'minres')", handle, B, b, dev)
+    expect_counts("minres on Reordered(PaddedDIA)", c, dia_spmv=1, dia_dot=its + 1)
+    B, op = runs["chain"]
+    handle = spt.prepare(op, device=dev, **solve_kw(method="bicgstab", M="jacobi"))
+    _, its, c = checked("prepare(scrambled chain, 'bicgstab', M='jacobi')", handle, B, b, dev)
+    expect_counts("bicgstab on Reordered(PaddedDIA)", c, dia_spmv=1 + 2 * its)
+    inner = op.inner
+    x2 = inner.pad_vec(torch.as_tensor(b, device=dev))
+    return layout_spmv_times(
+        f"PaddedDIA({len(inner.offsets)} diagonals) scrambled_chain", "kernel K1",
+        lambda bands, v: pd.dia_spmv(bands, v, inner.offsets, inner.h),
+        (inner.bands, x2), (len(inner.offsets) + 2) * n * 4, 4 * inner.padded_len)
+
+
+def phase_layouts_complex(dev):
+    """Phase 12 (d): the scrambled damped c64 Poisson → Reordered(ComplexBSR);
+    auto with Jacobi → COCG."""
+    arrays = damped_csr_arrays()
+    A = CSR.from_arrays(*arrays, shape=(GRID ** 3,) * 2)
+    perm = np.random.default_rng(SEED + 12).permutation(A.shape[0])
+    B = scramble(A, perm)
+    t0 = time.perf_counter()
+    handle = spt.prepare(B, device=dev, **solve_kw(method="auto", M="jacobi"))
+    torch.cuda.synchronize()
+    op = handle.operator
+    if not (isinstance(op, Reordered) and isinstance(op.inner, spt.ComplexBSR)
+            and handle._run.func is spt.cocg):
+        raise AssertionError(f"scrambled c64 Poisson: {layout_name(op)} with "
+                             f"{handle._run.func.__name__}")
+    log("layouts", matrix="scrambled_damped_c64_poisson100", layout=layout_name(op),
+        route="cocg", prepare_s=f"{time.perf_counter() - t0:.4f}")
+    r = np.random.default_rng(SEED + 6).standard_normal(A.shape[0]).astype(np.float32)
+    b = (r + 0.25j * r).astype(np.complex64)[perm]
+    _, _, c = checked("prepare(scrambled c64, 'auto', M='jacobi') -> cocg", handle, B, b, dev)
+    expect_counts("cocg on Reordered(ComplexBSR)", c)
+
+
+def phase_layouts_hostkit(dev):
+    """Phase 12 (e): the compiled host toolkit at 1M rows: greedy_color, and
+    ILU(0)-BiCGStab and IC(0)-MINRES on the 100³ Poisson."""
+    A = problems.poisson3d(GRID, GRID, GRID)
+    t0 = time.perf_counter()
+    colors = spt.greedy_color(A)
+    t_color = time.perf_counter() - t0
+    small = problems.poisson3d(32, 32, 32)
+    sym = native.symmetrize_pattern(small.shape[0], small.indptr.numpy(), small.indices.numpy())
+    if not (int(colors.max()) + 1 == 2 and np.array_equal(
+            spt.greedy_color(small), native.greedy_color_plain(small.shape[0], *sym))):
+        raise AssertionError("greedy_color: not 2 colors, or not the plain version's on 32^3")
+    log("layouts", hostkit="greedy_color", rows=A.shape[0], colors=2, seconds=f"{t_color:.4f}")
+    b = poisson_rhs(A)
+    bd = torch.as_tensor(b, device=dev)
+    for method, M in (("bicgstab", "ilu0"), ("minres", "ic0")):
+        t0 = time.perf_counter()
+        handle = spt.prepare(A, method=method, M=M, tol=1e-4, max_iter=1000, device=dev)
+        torch.cuda.synchronize()
+        setup = time.perf_counter() - t0
+        pd.reset_launch_counts()
+        x, info = handle(bd)
+        torch.cuda.synchronize()
+        c, its = launch_counts(), int(info.iterations)
+        res = true_residual(A, x, b)
+        if not (info.converged and res < 1e-3):
+            raise AssertionError(f"{method} + {M} at 1M rows: {info}, true residual {res:.3e}")
+        if method == "bicgstab":
+            expect_counts(f"{method} + {M}", c, dia_spmv=1, dia_wdot=2 * its)
+        else:
+            expect_counts(f"{method} + {M}", c, dia_spmv=1, dia_dot=its + 1)
+        log("layouts", entry=f"prepare(poisson100, {method!r}, M={M!r})", setup_s=f"{setup:.4f}",
+            iterations=its, true_residual=res, **{f"{k}_launches": v for k, v in c.items() if v})
+
+
+def phase_layouts_measure(dev, B):
+    """Phase 12 (f): optimize(measure=True) on the scrambled Poisson with the
+    layout cache in a temporary directory; a second call reads the cache and
+    times nothing."""
+    prev = os.environ.get("SPRSOLVE_TUNE_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "autotune.json")
+        os.environ["SPRSOLVE_TUNE_CACHE"] = path
+        time_step = tuning._time_step
+        try:
+            t0 = time.perf_counter()
+            op = spt.optimize(B, measure=True, device=dev)
+            torch.cuda.synchronize()
+            t_measure = time.perf_counter() - t0
+            with open(path) as f:
+                saved = json.load(f)
+            (key, ent), = saved.items()
+
+            def no_timing(*args):
+                raise AssertionError("a cached layout was timed again")
+
+            tuning._time_step = no_timing
+            t0 = time.perf_counter()
+            op2 = spt.optimize(B, measure=True, device=dev)
+            t_cached = time.perf_counter() - t0
+            with open(path) as f:
+                if json.load(f) != saved or layout_name(op2) != layout_name(op):
+                    raise AssertionError("the second measure=True call did not use the cache")
+        finally:
+            tuning._time_step = time_step
+            if prev is None:
+                os.environ.pop("SPRSOLVE_TUNE_CACHE", None)
+            else:
+                os.environ["SPRSOLVE_TUNE_CACHE"] = prev
+    log("layouts", entry="optimize(scrambled, measure=True)", winner=ent["label"],
+        layout=layout_name(op), gnnz_s=ent["gnnz_s"], seconds=f"{t_measure:.4f}",
+        cached_seconds=f"{t_cached:.4f}", key=key)
+
+
+def phase_layouts_ell(dev):
+    """Phase 12 (g): every route off, a uniform random pattern → ELL with a
+    RuntimeWarning."""
+    import scipy.sparse as sps
+
+    n, k = 100_000, 8
+    rng = np.random.default_rng(SEED + 13)
+    rows = np.repeat(np.arange(n), k)
+    cols = rng.integers(0, n, n * k)
+    m = CSR.from_coo(COO(data=rng.standard_normal(n * k).astype(np.float32), row=rows,
+                         col=cols, shape=(n, n)))
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        op = spt.optimize(m, allow_reorder=False, wide_diags=0, allow_bsr=False,
+                          allow_hybrid=False, device=dev)
+    if not (isinstance(op, spt.ELL) and any(issubclass(w.category, RuntimeWarning)
+                                            for w in rec)):
+        raise AssertionError(f"ELL fallback: {layout_name(op)}, warnings {rec}")
+    x = rng.standard_normal(n).astype(np.float32)
+    S = sps.csr_matrix((m.data.numpy().astype(np.float64), m.indices.numpy(),
+                        m.indptr.numpy()), shape=m.shape)
+    want = S @ x.astype(np.float64)
+    err = float(np.abs(op.matvec(torch.as_tensor(x, device=dev)).cpu().numpy() - want).max())
+    if not err <= 1e-5 * float(np.abs(want).max()):
+        raise AssertionError(f"ELL matvec off by {err:.3e}")
+    log("layouts", matrix="uniform_random_100k", layout="ELL", warned=True,
+        max_abs_err=f"{err:.3e}")
+
+
+def phase_layouts(dev):
+    """Phase 12: every layout of optimize() at 1M rows, and the H100
+    constants of its cost model."""
+    t0 = time.perf_counter()
+    B, eff_bsr = phase_layouts_scrambled(dev)
+    eff_dia, rate = phase_layouts_spiked(dev)
+    eff_padded = phase_layouts_chain(dev)
+    phase_layouts_complex(dev)
+    phase_layouts_hostkit(dev)
+    phase_layouts_measure(dev, B)
+    phase_layouts_ell(dev)
+    log("layouts", constants=json.dumps({
+        "eff_dia": round(eff_dia, 4), "eff_bsr": round(eff_bsr, 4),
+        "eff_padded_dia": round(eff_padded, 4),
+        "scatter_bytes_eq": round(HBM_BYTES_PER_S / rate, 2)}),
+        sidecar_elements_per_s=f"{rate:.6e}", table_in_code=json.dumps(topt.COSTS),
+        seconds=f"{time.perf_counter() - t0:.2f}")
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1409,6 +1875,7 @@ def main() -> int:
     phase_config4(dev, launches["dia_wdot"] // 2)
     phase_relayed(dev)
     phase_exact_and_lsqr(dev)
+    phase_layouts(dev)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

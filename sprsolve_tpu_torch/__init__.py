@@ -12,7 +12,10 @@ path on the two-plane kernels K5-K7 (COCG, CS-MINRES, complex BiCGStab and
 MINRES), LSQR (``auto``'s rectangular route, on the CSR path), the exact
 Gauss-Seidel sweep (on the host by design) and the multicolor one, and the
 preconditioners: Jacobi, multicolor GS/SOR/SSOR, Chebyshev, block-Jacobi,
-ILU(0) and IC(0), a flat one relayed onto a padded operator.
+ILU(0) and IC(0), a flat one relayed onto a padded operator; and every
+layout of ``optimize()``: padded DIA, RCM-reordered DIA (``Reordered``),
+BSR and ComplexBSR, the band+outlier ``HybridDIA`` and the warned ELL, on
+a compiled host toolkit (``native``, ``csrc/hostkit.cpp``).
 ``solve(A, b, method="bicgstab" | "minres" | "cg" | "bicgstabl" |
 "cs_minres" | "cocg" | "lsqr" | "auto", M="jacobi" | "block_jacobi" |
 "ilu0" | "ic0" | object)``, ``prepare`` and the ``BiCGStab``, ``MinRes``,
@@ -24,6 +27,7 @@ from . import errors, precond, vecalg
 from .api import CG, BiCGStab, CSMinRes, GaussSeidel, MinRes, PreparedSolver, prepare, solve
 from .errors import SolveInfo, SolverError, Status
 from .ops.operator import DiagonalOperator, IdentityOperator, LinearOperator
+from .ops.hybrid import HybridDIA
 from .ops.optimize import optimize
 from .ops.padded_dia import ComplexPaddedDIA, PaddedDIA
 from .precond import (
@@ -54,7 +58,18 @@ from .solvers import (
     minres,
     with_real_planes,
 )
-from .sparse import COO, CSC, CSR, DIA, ELL, csr_from_dense, csr_from_scipy
+from .sparse import (
+    BSR,
+    COO,
+    CSC,
+    CSR,
+    DIA,
+    ELL,
+    ComplexBSR,
+    csr_from_dense,
+    csr_from_scipy,
+    reorder_rcm,
+)
 from .utils.bounds import gershgorin_bounds
 
 __version__ = "0.1.0"
@@ -88,8 +103,11 @@ __all__ = [
     "CSC",
     "DIA",
     "ELL",
+    "BSR",
+    "ComplexBSR",
     "csr_from_dense",
     "csr_from_scipy",
+    "reorder_rcm",
     "LinearOperator",
     "IdentityOperator",
     "DiagonalOperator",
@@ -104,6 +122,7 @@ __all__ = [
     "RelayedPrecond",
     "gershgorin_bounds",
     "optimize",
+    "HybridDIA",
     "PaddedDIA",
     "ComplexPaddedDIA",
     "SolveInfo",

@@ -19,8 +19,10 @@ tensors are.  Ported so far: ``method="bicgstab"``, ``"bicgstabl"``,
 ``"ic0"`` or a preconditioner object (a flat one on a padded operator runs
 through :class:`~sprsolve_tpu_torch.precond.RelayedPrecond`); and the
 ``BiCGStab``, ``MinRes``, ``CG``, ``CSMinRes`` and ``GaussSeidel`` handles.
-The other methods and ``M="amg"`` raise NotImplementedError naming their
-ROADMAP.md item.
+``solve`` and ``prepare`` lay out any square CSR through
+:func:`~sprsolve_tpu_torch.optimize` (padded DIA, RCM-reordered DIA, BSR,
+the band+outlier hybrid, or ELL with a warning).  The other methods and
+``M="amg"`` raise NotImplementedError naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -137,8 +139,12 @@ def _prepare_op_M(A, method: str, M, optimize_layout: bool, device):
       :func:`~sprsolve_tpu_torch.precond.real_abs_jacobi` in the operator's
       layout; a complex diagonal or block, ILU(0) and IC(0) are refused
       (``sprsolve_tpu/api.py:251-306``).
-    - On a padded operator a diagonal is re-laid into its layout; a
-      preconditioner built on the operator itself (``M.A is op``, e.g. a
+    - ``optimize`` lays out any square CSR (banded, ``Reordered``, BSR,
+      ``HybridDIA`` or ELL); ``M="jacobi"`` on a flat layout takes its
+      ``jacobi_precond()`` where it has one, else the diagonal.
+    - On a padded operator (``Reordered`` included) a diagonal is re-laid
+      into its layout; a preconditioner built on the operator itself
+      (``M.A is op``, e.g. a
       :class:`~sprsolve_tpu_torch.solvers.redblack.MaskedGSPrecond` with
       padded masks) is used as it is; any other is wrapped in
       :class:`~sprsolve_tpu_torch.precond.RelayedPrecond`."""
@@ -195,8 +201,13 @@ def _prepare_op_M(A, method: str, M, optimize_layout: bool, device):
         elif M is not None and getattr(M, "A", None) is not op:
             M = RelayedPrecond(inner=M, op=op)
     elif isinstance(M, str):
-        diag = op.diagonal() if hasattr(op, "diagonal") else src.diagonal()
-        M = DiagPrecond.new(diag, device=device)
+        # a flat layout: its own Jacobi where it has one (BSR → DiagPrecond,
+        # ComplexBSR → ComplexDiagPrecond), else one from its diagonal
+        if hasattr(op, "jacobi_precond"):
+            M = op.jacobi_precond()
+        else:
+            diag = op.diagonal() if hasattr(op, "diagonal") else src.diagonal()
+            M = DiagPrecond.new(diag, device=device)
     return op, M, padded
 
 
@@ -223,8 +234,10 @@ def solve(
     """One-call solve: pick the execution layout, run, return ``(x, info)``.
 
     ``A`` is a CSR container (laid out by :func:`~sprsolve_tpu_torch.optimize`:
-    the padded-DIA kernels for a banded float32 or complex64 matrix, with the
-    padding handled here) or any operator, used as it is. The solve runs on
+    the padded-DIA kernels for a banded float32 or complex64 matrix, the
+    same behind an RCM permutation for one banded after reordering, else BSR,
+    the band+outlier hybrid or ELL; the padding and the permutation are
+    handled here) or any operator, used as it is. The solve runs on
     ``device``, by default the CUDA device; ``x`` comes back flat, there.
 
     ``method="auto"`` picks the solver from the matrix structure (see

@@ -11,8 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .ops.hybrid import HybridDIA
 from .ops.padded_dia import ComplexPaddedDIA, PaddedDIA, layout
+from .ops.reordered import Reordered
 from .precond import ComplexDiagPrecond
+from .sparse.bsr import BSR, ComplexBSR
 from .sparse.containers import CSR
 
 
@@ -81,3 +84,39 @@ def vec_from_reference(x2, n: int, hr: int, device=None) -> torch.Tensor:
     x2 = np.asarray(x2)
     flat = x2[hr: x2.shape[0] - hr].reshape(-1)[:n]
     return torch.as_tensor(np.array(flat), device=device)
+
+
+def _index(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a).astype(np.int64), device=device)
+
+
+def bsr_from_reference(blocks, blk_row, blk_col, padded_dim: int, n: int,
+                       device=None) -> BSR:
+    """The port's ``BSR`` from the reference BSR's arrays."""
+    return BSR(blocks=torch.as_tensor(np.array(blocks), device=device),
+               blk_row=_index(blk_row, device), blk_col=_index(blk_col, device),
+               padded_dim=int(padded_dim), n=int(n))
+
+
+def complex_bsr_from_reference(blocks_re, blocks_im, blk_row, blk_col, padded_dim: int,
+                               n: int, device=None) -> ComplexBSR:
+    """The port's ``ComplexBSR`` from the reference's two block planes."""
+    return ComplexBSR(blocks_re=torch.as_tensor(np.array(blocks_re), device=device),
+                      blocks_im=torch.as_tensor(np.array(blocks_im), device=device),
+                      blk_row=_index(blk_row, device), blk_col=_index(blk_col, device),
+                      padded_dim=int(padded_dim), n=int(n))
+
+
+def reordered_from_reference(inner, perm) -> Reordered:
+    """A ``Reordered`` around the port's ``inner`` operator with the
+    reference's permutation."""
+    return Reordered.wrap(inner, np.asarray(perm))
+
+
+def hybrid_from_reference(core, out_rows, out_cols, out_vals, shape) -> HybridDIA:
+    """A ``HybridDIA`` around the port's ``core`` operator with the
+    reference's sidecar arrays, on the core's device."""
+    dev = getattr(core, "device", None)
+    return HybridDIA(core=core, out_rows=_index(out_rows, dev), out_cols=_index(out_cols, dev),
+                     out_vals=torch.as_tensor(np.array(out_vals), device=dev),
+                     shape=tuple(int(s) for s in shape))

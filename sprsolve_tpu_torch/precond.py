@@ -15,7 +15,7 @@ all but ``InnerSolvePrecond``:
 - :class:`ILU0Precond` and :class:`IC0Precond`: factored on the host
   (:mod:`.native`), applied by truncated triangular sweeps, each one SpMV
   with a strict triangular factor laid out by ``optimize(...,
-  prefer_kernels=False)``;
+  prefer_kernels=False, allow_reorder=False)``;
 - :class:`RelayedPrecond`, which applies a flat-layout preconditioner to
   the vectors of a padded operator.
 """
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .errors import InvalidPreconditioner, ZeroDiagonalElem
+from .sparse.bsr import full_precision_bmm
 from .sparse.containers import CSR, _host
 from .vecalg import conj_dot, real_dtype
 
@@ -98,8 +99,15 @@ def real_abs_jacobi(op) -> DiagPrecond:
 
     A two-plane padded operator builds |d| from its plane diagonals, a real
     padded operator from its padded diagonal, anything else from
-    ``diagonal()`` on the host. Zero diagonals (and the padded layout's pad
-    slots) are forced to 1, which keeps them inert."""
+    ``diagonal()`` on the host. A :class:`~sprsolve_tpu_torch.ops.reordered.Reordered`
+    operator builds from its inner operator, so the diagonal lands in the
+    permuted order the solve runs in (``sprsolve_tpu/precond.py:594-595``).
+    Zero diagonals (and the padded layout's pad slots) are forced to 1,
+    which keeps them inert."""
+    from .ops.reordered import Reordered
+
+    if isinstance(op, Reordered):
+        return real_abs_jacobi(op.inner)
     if hasattr(op, "diagonal_padded"):
         if hasattr(op, "re"):
             dr, di = op.re.diagonal_padded(), op.im.diagonal_padded()
@@ -235,17 +243,6 @@ def estimate_spectral_bounds(A, x_example=None, *, m: int = 30, seed: int = 0,
     return lmin, lmax
 
 
-def _full_precision_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.bmm`` with TF32 off for the call: a float32 product on the
-    card then rounds like the float32 reference, not to a 10-bit mantissa."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return torch.bmm(a, b)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 @dataclasses.dataclass(frozen=True)
 class BlockJacobiPrecond:
     """Block-Jacobi preconditioner: M⁻¹ = blockdiag(A₁₁⁻¹, …, A_kk⁻¹).
@@ -290,7 +287,7 @@ class BlockJacobiPrecond:
     def matvec(self, r: torch.Tensor) -> torch.Tensor:
         nb, bs, _ = self.inv_blocks.shape
         rp = torch.nn.functional.pad(r, (0, nb * bs - self.n)).reshape(nb, bs, 1)
-        z = _full_precision_bmm(self.inv_blocks, rp.to(self.inv_blocks.dtype))
+        z = full_precision_bmm(self.inv_blocks, rp.to(self.inv_blocks.dtype))
         return z.reshape(-1)[: self.n]
 
     def matvec_dot(self, x: torch.Tensor):
@@ -318,19 +315,18 @@ def _split_factored(n, indptr, indices, factored):
 
 def _operator_of(n, trip, dtype, device, layout_kwargs):
     """The operator of one triangular part on ``device``, or None if empty:
-    :func:`~sprsolve_tpu_torch.optimize`'s layout where it has one (a banded
-    part), else the CSR's gather SpMV (the other layouts are ``ROADMAP.md``
-    Queue 1 item 9)."""
+    :func:`~sprsolve_tpu_torch.optimize`'s flat layout of it. The sweeps
+    apply it to vectors in the original order, so ``allow_reorder`` is
+    False: a ``Reordered`` factor would run in its permuted order there
+    (the JAX package's ``_operator_of``, ``precond.py:349-365``, leaves it
+    on, and its apply is wrong wherever RCM bands a factor)."""
     from .ops.optimize import optimize
 
     ip, ind, val = trip
     if len(val) == 0:
         return None
     csr = CSR.from_arrays(val.astype(dtype, copy=False), ind, ip, (n, n))
-    try:
-        return optimize(csr, device=device, **layout_kwargs)
-    except NotImplementedError:
-        return csr.to(device)
+    return optimize(csr, device=device, **{**layout_kwargs, "allow_reorder": False})
 
 
 def _sweep_lower(L_s, r, y0, sweeps):
@@ -387,7 +383,8 @@ class ILU0Precond:
         """Factor the CSR on the host and lay out the triangular parts with
         :func:`~sprsolve_tpu_torch.optimize` on ``device`` (by default the
         CSR's). ``prefer_kernels`` defaults to False: a padded operator's
-        layout does not compose inside this flat apply."""
+        layout does not compose inside this flat apply; ``allow_reorder``
+        is always False, for the same reason."""
         from . import native
 
         n, indptr, indices, values, dev = _factor_inputs(A, device)

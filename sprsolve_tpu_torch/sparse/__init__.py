@@ -1,7 +1,9 @@
 """Sparse containers and host-side builders (counterpart of
-``sprsolve_tpu/sparse``): COO, CSR and CSC build formats, ELL and DIA
-execution layouts."""
+``sprsolve_tpu/sparse``): COO, CSR and CSC build formats, ELL, DIA, BSR and
+ComplexBSR execution layouts, and the RCM reordering."""
 
-from .containers import COO, CSC, CSR, DIA, ELL, csr_from_dense, csr_from_scipy
+from .bsr import BSR, ComplexBSR
+from .containers import COO, CSC, CSR, DIA, ELL, csr_from_dense, csr_from_scipy, reorder_rcm
 
-__all__ = ["COO", "CSC", "CSR", "DIA", "ELL", "csr_from_dense", "csr_from_scipy"]
+__all__ = ["BSR", "COO", "CSC", "CSR", "ComplexBSR", "DIA", "ELL", "csr_from_dense",
+           "csr_from_scipy", "reorder_rcm"]

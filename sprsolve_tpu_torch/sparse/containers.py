@@ -352,6 +352,23 @@ class DIA:
         return torch.zeros(self.shape[0], dtype=self.dtype, device=self.device)
 
 
+def reorder_rcm(m: CSR):
+    """Symmetric RCM reordering (``sprsolve_tpu/sparse/containers.py:449-472``):
+    returns (permuted CSR, perm) with A'[i, j] = A[perm[i], perm[j]], on
+    the host and then on ``m``'s device. Solve with A' and b[perm], then
+    undo with x[inv_perm]."""
+    from ..native import rcm_order, symmetrize_pattern
+
+    n = m.shape[0]
+    sym_indptr, sym_indices = symmetrize_pattern(n, _host(m.indptr), _host(m.indices))
+    perm = rcm_order(n, sym_indptr, sym_indices)
+    inv = np.empty(n, dtype=np.int64)
+    inv[perm] = np.arange(n)
+    coo = COO(data=_host(m.data), row=inv[_host(m.row_ids)], col=inv[_host(m.indices)],
+              shape=m.shape)
+    return CSR.from_coo(coo, device=m.device), perm
+
+
 def csr_from_scipy(m, device=None) -> CSR:
     """Build from a scipy.sparse matrix (any format)."""
     m = m.tocsr()

@@ -362,6 +362,9 @@ def test_import_leaves_jax_out():
         "import sprsolve_tpu_torch.native, sprsolve_tpu_torch.utils.bounds\n"
         "import sprsolve_tpu_torch.solvers.gauss_seidel, sprsolve_tpu_torch.solvers.lsqr\n"
         "import sprsolve_tpu_torch.solvers.redblack, sprsolve_tpu_torch.ops.spmv\n"
+        "import sprsolve_tpu_torch.sparse.bsr, sprsolve_tpu_torch.ops.reordered\n"
+        "import sprsolve_tpu_torch.ops.hybrid, sprsolve_tpu_torch.multigrid\n"
+        "import sprsolve_tpu_torch.utils.tuning\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'sprsolve_tpu'))\n"
         "assert not bad, bad\n"

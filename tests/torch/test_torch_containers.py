@@ -143,9 +143,17 @@ def test_optimize_routes_banded_like_jax():
 
 
 def test_optimize_non_banded_names_roadmap_item():
-    S = sps.random(200, 200, density=0.05, random_state=0, format="csr") + sps.eye(200)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tsp.optimize(tsp.csr_from_scipy(S.astype(np.float32)), device="cpu")
+    """The non-banded layouts are ported: a random pattern, which used to
+    raise naming ROADMAP item 9, gets a structured layout that computes A·x
+    (the routing itself is held against JAX's in test_torch_optimize.py)."""
+    S = (sps.random(200, 200, density=0.05, random_state=0, format="csr")
+         + sps.eye(200)).astype(np.float32)
+    op = tsp.optimize(tsp.csr_from_scipy(S), device="cpu")
+    assert not isinstance(op, tsp.ELL)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(200).astype(np.float32))
+    y = op.unpad_vec(op.matvec(op.pad_vec(x))) if hasattr(op, "pad_vec") else op.matvec(x)
+    np.testing.assert_allclose(y.numpy(), S.astype(np.float64) @ x.numpy().astype(np.float64),
+                               rtol=1e-5, atol=1e-5)
 
 
 def test_dia_max_diags_guard():

@@ -749,3 +749,111 @@ def test_cuda_gauss_seidel_golden_and_relayed_preconditioners(cuda):
     torch.cuda.synchronize()
     assert info.converged and x.is_cuda
     assert pd.dia_spmv.launches == 1 and pd.dia_wdot.launches == 2 * info.iterations
+
+
+def _scrambled_band_csr(n=3000, seed=0, symmetric=False):
+    """The [-3, 0, 3] band behind a random symmetric permutation, f32."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(seed)
+    lo = rng.standard_normal(n - 3)
+    hi = lo if symmetric else rng.standard_normal(n - 3)
+    base = sps.diags([lo, np.full(n, 8.0), hi], [-3, 0, 3], format="csr")
+    P = sps.eye(n, format="csr")[rng.permutation(n)]
+    S = (P @ base @ P.T).tocsr().astype(np.float32)
+    S.sort_indices()
+    return S
+
+
+@pytest.mark.cuda
+def test_cuda_flat_view_and_reordered_run_the_kernels(cuda):
+    """A HybridDIA's FlatViewOperator core launches K1 once per matvec; a
+    Reordered(PaddedDIA) launches K1 per matvec and K3 per matvec_dot, never
+    K2 or K4; both agree with the same operators on the CPU."""
+    import scipy.sparse as sps
+
+    A = problems.poisson3d(12, 12, 12)
+    n = A.shape[0]
+    S = sps.csr_matrix((A.data.numpy(), A.indices.numpy(), A.indptr.numpy()), shape=A.shape)
+    rng = np.random.default_rng(1)
+    r, c = rng.integers(0, n, 20), rng.integers(0, n, 20)
+    O = sps.coo_matrix((np.full(40, 0.01, np.float32), (np.r_[r, c], np.r_[c, r])),
+                       shape=(n, n))
+    csr = tsp.csr_from_scipy((S + O).tocsr().astype(np.float32))
+    H = tsp.HybridDIA.from_csr(csr, device=cuda)
+    Hc = tsp.HybridDIA.from_csr(csr, device="cpu")
+    x = torch.as_tensor(rng.standard_normal(n), dtype=torch.float32)
+    pd.reset_launch_counts()
+    y = H.matvec(x.to(cuda))
+    torch.cuda.synchronize()
+    assert pd.dia_spmv.launches == 1 and H.n_outliers > 0
+    torch.testing.assert_close(y.cpu(), Hc.matvec(x), rtol=1e-5, atol=1e-5)
+
+    Sb = _scrambled_band_csr(symmetric=True)
+    op = tsp.optimize(tsp.csr_from_scipy(Sb), device=cuda)
+    assert type(op).__name__ == "Reordered" and isinstance(op.inner, pd.PaddedDIA)
+    xb = torch.as_tensor(np.random.default_rng(2).standard_normal(3000), dtype=torch.float32)
+    x2 = op.pad_vec(xb.to(cuda))
+    pd.reset_launch_counts()
+    y2 = op.matvec(x2)
+    y3, d = op.matvec_dot(x2)
+    torch.cuda.synchronize()
+    assert (pd.dia_spmv.launches, pd.dia_dot.launches) == (1, 1)
+    assert pd.dia_wdot.launches == fused.orth_norm.launches == 0
+    want = Sb.astype(np.float64) @ xb.numpy().astype(np.float64)
+    np.testing.assert_allclose(op.unpad_vec(y2).cpu().numpy(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(y2, y3)
+
+
+@pytest.mark.cuda
+def test_cuda_non_banded_solves_count_their_launches(cuda):
+    """solve() on a scrambled band: BiCGStab + Jacobi launches K1 1 + 2·its
+    times and K2 never; MINRES on the symmetric twin K3 its + 1 times and K4
+    never; both converge."""
+    for symmetric, method, M in ((False, "bicgstab", "jacobi"), (True, "minres", None)):
+        S = _scrambled_band_csr(symmetric=symmetric)
+        b = np.random.default_rng(3).standard_normal(3000).astype(np.float32)
+        pd.reset_launch_counts()
+        x, info = tsp.solve(tsp.csr_from_scipy(S), b, method=method, M=M, tol=1e-5,
+                            max_iter=500, device=cuda)
+        torch.cuda.synchronize()
+        n = info.iterations
+        assert info.converged and x.is_cuda
+        res = np.linalg.norm(S.astype(np.float64) @ x.cpu().numpy() - b) / np.linalg.norm(b)
+        assert res < 1e-4
+        if method == "bicgstab":
+            assert pd.dia_spmv.launches == 1 + 2 * n and pd.dia_wdot.launches == 0
+        else:
+            assert pd.dia_spmv.launches == 1 and pd.dia_dot.launches == n + 1
+            assert fused.orth_norm.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64, np.complex128])
+def test_cuda_bsr_matches_scipy_with_tf32_allowed(dtype, cuda):
+    """BSR and ComplexBSR on the card against scipy's f64/c128 product, with
+    TF32 allowed globally: the apply turns it off, so f32/c64 stay within
+    1e-5 and f64/c128 within 1e-12."""
+    import scipy.sparse as sps
+
+    rng = np.random.default_rng(4)
+    S = (sps.random(700, 700, density=0.02, random_state=5, format="csr")
+         + sps.eye(700) * 6.0).tocsr()
+    if np.dtype(dtype).kind == "c":
+        S = sps.csr_matrix((S.data * (1 + 0.5j * rng.standard_normal(S.nnz)), S.indices,
+                            S.indptr), shape=S.shape)
+    S = S.astype(dtype)
+    cls = tsp.ComplexBSR if np.dtype(dtype).kind == "c" else tsp.BSR
+    op = cls.from_csr(tsp.csr_from_scipy(S), bs=16, device=cuda)
+    x = rng.standard_normal(700) + (1j * rng.standard_normal(700)
+                                    if np.dtype(dtype).kind == "c" else 0)
+    x = x.astype(dtype)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y = op.matvec(torch.as_tensor(x, device=cuda)).cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    want = S.astype(np.complex128) @ x.astype(np.complex128)
+    tol = 1e-12 if dtype in (np.float64, np.complex128) else 1e-5
+    np.testing.assert_allclose(y, want, rtol=tol, atol=tol * np.abs(want).max())

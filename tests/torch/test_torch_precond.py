@@ -286,16 +286,24 @@ def test_ilu0_apply_matches_jax_and_is_exact_with_enough_sweeps():
                                atol=1e-12)
 
 
-def test_ilu0_on_an_unbanded_pattern_matches_jax():
-    """A random pattern has more diagonals than ``optimize`` lays out, so
-    the triangular parts run the CSR gather SpMV; the apply and a BiCGStab
-    solve agree with JAX's."""
+def test_ilu0_on_an_unbanded_pattern_matches_jax(monkeypatch):
+    """A random pattern has more diagonals than the banded layouts take, so
+    the triangular parts get the cost model's layout: under the JAX
+    package's cost constants, BSR as there; the apply and a BiCGStab solve
+    agree with JAX's."""
+    import importlib
+
+    jopt = importlib.import_module("sprsolve_tpu.ops.optimize")
+    monkeypatch.setattr(importlib.import_module("sprsolve_tpu_torch.ops.optimize"), "COSTS", {
+        "eff_dia": jopt._EFF_XLA_DIA, "eff_bsr": jopt._EFF_BSR,
+        "eff_padded_dia": jopt._EFF_PALLAS_DIA, "scatter_bytes_eq": jopt._SCATTER_BYTES_EQ})
     rng = np.random.default_rng(9)
     n = 60
     dense = rng.standard_normal((n, n)) * (rng.random((n, n)) < 0.1) + np.eye(n) * 6.0
     A, jA = tsp.csr_from_dense(dense), jsp.csr_from_dense(dense)
     M, Mj = tsp.ILU0Precond.from_csr(A), jsp.ILU0Precond.from_csr(jA)
-    assert isinstance(M.L_s, tsp.CSR) and isinstance(M.U_s, tsp.CSR)
+    assert isinstance(M.L_s, tsp.BSR) and isinstance(M.U_s, tsp.BSR)
+    assert type(Mj.L_s).__name__ == type(Mj.U_s).__name__ == "BSR"
     r = _rhs(n, 1)
     np.testing.assert_allclose(M.matvec(torch.as_tensor(r)).numpy(),
                                np.asarray(Mj.matvec(jnp.asarray(r))), rtol=1e-12, atol=1e-14)

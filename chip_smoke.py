@@ -112,6 +112,29 @@ Phases, each printing lines of its own:
    in a temporary directory; a second call reads it and times nothing. (g)
    Every route off: a uniform random pattern → ELL with a RuntimeWarning.
    Last, the cost model's H100 constants measured in (a)-(c).
+13. krylov — the rest of the Krylov family at 1M rows, f32 (c64 in f;
+   f64 and c128 in g), tol 1e-4, the launch counters reset before each
+   solve and its counts required exactly, each converged below a true
+   residual of 1e-3, each timed through three prepared solves: (a) phase
+   8's convection-diffusion system with Jacobi: GMRES(32) through
+   ``solve`` and the ``GMRES`` handle (K1 its + cycles + 1), IDR(4) (K1
+   its), CGS (1 + 2·its), TFQMR (3 + 2·its) and the s-step BiCGStab on
+   the unpadded DIA (no kernel), GMRES and IDR(4) profiled; (b) phase 4's
+   Poisson: single-sync CG (K1 its + 2, K3 never), the s-step CG with the
+   Jacobi fold (no kernel), block CG on 8 columns (K1 8·(its + 1)) and
+   batched BiCGStab + Jacobi on 4 of them (each column its single solve);
+   (c) CG with the geometric V-cycle relayed onto the PaddedDIA (K1 once,
+   K3 its) and with ``M="amg"`` (RCM, a 1-D hierarchy; the reordered
+   Poisson lands on BSR, no kernel), their set-up seconds; (d) FGMRES with
+   an inner CG of 8 steps through ``prepare`` (K1 2·its + cycles + 1, K3
+   8·its), (e) plain GMRES with that M, printed only; (f) GMRES with the
+   complex Jacobi on phase 9's damped c64 Poisson (K5); (g) refinement on
+   the f64 Poisson with BiCGStab + Jacobi (K1 and 2·its K2 per inner
+   solve) and MINRES (K1, K3 and K4), and on the c128 damped Poisson with
+   CS-MINRES (K5, K6) and BiCGStab (K5, K7), each below a true residual of
+   1e-11 (1e-10 complex) and equal to ``refine_solve``'s x.  The counts
+   within max(3, ⌈its/4⌉) of the JAX package's 1M-row counts (IDR(s)
+   excepted: another shadow draw).
 
 The line before the last is a JSON object with one entry per kernel (K1-K7,
 each with its warm ``ms`` and its ``cold_ms``);
@@ -1833,6 +1856,421 @@ def phase_layouts(dev):
         seconds=f"{time.perf_counter() - t0:.2f}")
 
 
+# --- phase 13: the rest of the Krylov family ---------------------------------
+# the JAX package's counts at 1M rows (f32, tol 1e-4, CPU), which the port's
+# counts must lie within parity_band of (IDR(s) excepted: its shadow space is
+# another draw)
+KRYLOV_JAX_COUNTS = {"gmres": 161, "cgs": 106, "tfqmr": 111, "ca_bicgstab": 98,
+                     "cg_single_sync": 193, "ca_cg": 194, "cg_mg": 11, "cg_amg": 195,
+                     "fgmres_inner": 24}
+RESTART = 32
+# the full run holds every phase 13 solve to convergence below its residual
+# bound; the card's tests at 32³, where the f32 CGS and TFQMR recurrences
+# drift from the true residual in the JAX package too (6.4e-3 at tol 1e-4),
+# check the launch counts alone
+STRICT = True
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def gmres_k1(its: int) -> int:
+    """K1 (or K5) of restarted GMRES: one SpMV per step, one per cycle for
+    its true residual, one for r₀; a cycle runs ``RESTART`` steps unless
+    the solve ends in it."""
+    return its + -(-its // RESTART) + 1
+
+
+def cg_counts(op, its: int) -> dict:
+    """CG's launches on ``op``: on a PaddedDIA K1 once (r₀) and K3 per
+    iteration; on a HybridDIA (a PaddedDIA core behind FlatViewOperator) K1
+    once per SpMV, r₀'s included; none on a layout of torch ops (BSR)."""
+    if isinstance(op, spt.PaddedDIA):
+        return {"dia_spmv": 1, "dia_dot": its}
+    if isinstance(op, spt.HybridDIA) and isinstance(op.core, FlatViewOperator):
+        return {"dia_spmv": its + 1}
+    return {}
+
+
+def run_counted(run, dev):
+    """``run()`` with the launch counters reset just before: (result, the
+    counts, wall seconds)."""
+    pd.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run()
+    _sync(dev)
+    return out, launch_counts(), time.perf_counter() - t0
+
+
+def krylov_check(tag, out, counts, want, res, res_max, jax_key=None, check_band=True,
+                 **extra):
+    """Raise unless the solve converged below ``res_max`` with exactly the
+    ``want`` launch counts (every kernel not named at 0), and within the
+    band of the JAX package's count where ``jax_key`` names one."""
+    x, info = out[:2]
+    n = int(info.iterations)
+    expect = dict.fromkeys(KERNELS, 0)
+    expect.update(want)
+    if not bool(torch.isfinite(x).all()) or (
+            STRICT and not (info.converged and res < res_max)):
+        raise AssertionError(f"{tag}: {info}, true residual {res:.3e}")
+    if counts != expect:
+        raise AssertionError(f"{tag}: launch counts {counts}, expected {expect}")
+    if check_band and jax_key is not None:
+        its_j = KRYLOV_JAX_COUNTS[jax_key]
+        if abs(n - its_j) > parity_band(its_j):
+            raise AssertionError(f"{tag}: {n} iterations, the JAX package's {its_j}")
+    log("krylov", entry=tag, iterations=n, status=spt.Status(int(info.status)).name,
+        true_residual=res,
+        **{f"{k}_launches": v for k, v in counts.items() if v}, **extra)
+    return n
+
+
+def krylov_times(tag, run, dev, its=None):
+    """Three timed calls of ``run`` (a prepared handle's call), each
+    converged in ``its`` iterations where given (None where the sums are
+    not fixed-order: BSR's ``index_add_`` atomics move the count by one
+    from run to run): the median wall, logged."""
+    walls, counts = [], []
+    for _ in range(3):
+        _sync(dev)
+        t0 = time.perf_counter()
+        x, info = run()[:2]
+        _sync(dev)
+        walls.append(time.perf_counter() - t0)
+        counts.append(int(info.iterations))
+        if not info.converged or (its is not None and counts[-1] != its):
+            raise AssertionError(f"{tag}: {info} (expected {its} iterations)")
+    wall = statistics.median(walls)
+    log("krylov", entry=f"timed({tag})", wall_s_median=f"{wall:.4f}",
+        walls_s=",".join(f"{w:.4f}" for w in walls),
+        iterations=",".join(map(str, counts)),
+        per_iteration_ms=f"{wall / max(statistics.median(counts), 1) * 1e3:.4f}")
+    return wall
+
+
+def krylov_profile(tag, run, n):
+    """One profiled call of ``run``: device busy ms, idle share, device µs
+    per iteration."""
+    prof = idle_share(lambda _: run(), None, names=REAL_KERNELS + ("dia_complex",))
+    if prof is None:
+        log("krylov", entry=f"profile({tag})", note="the profiler saw no device time")
+        return
+    log("krylov", entry=f"profile({tag})", wall_ms=f"{prof[0]:.4f}",
+        device_busy_ms=f"{prof[1]:.4f}", idle_share=f"{prof[2]:.4f}",
+        hand_kernels_ms=f"{prof[3]:.4f}",
+        device_us_per_iteration=f"{prof[1] / max(n, 1) * 1e3:.3f}")
+
+
+def phase_krylov_nonsym(dev, grid=GRID, timed=True):
+    """Phase 13 (a): phase 8's convection-diffusion system with Jacobi:
+    GMRES through solve() and the GMRES handle, IDR(s), CGS, TFQMR on K1,
+    and the s-step BiCGStab on the unpadded DIA (no kernel)."""
+    A = problems.convection_diffusion3d(grid, grid, grid, peclet=20.0)
+    b = np.random.default_rng(SEED + 3).standard_normal(A.shape[0]).astype(np.float32)
+    bd = torch.as_tensor(b, device=dev)
+    full = grid == GRID
+    kw = dict(tol=1e-4, max_iter=1000)
+    op = spt.optimize(A, device=dev)
+    cases = {   # tag → (solve kwargs, K1 from the count, the JAX count's key)
+        "gmres": (dict(method="gmres", M="jacobi", restart=RESTART), gmres_k1, "gmres"),
+        "idrs": (dict(method="idrs", M="jacobi", s=4), lambda n: n, None),
+        "cgs": (dict(method="cgs", M="jacobi"), lambda n: 1 + 2 * n, "cgs"),
+        "tfqmr": (dict(method="tfqmr", M="jacobi"), lambda n: 3 + 2 * n, "tfqmr"),
+        "ca_bicgstab": (dict(method="ca_bicgstab"), lambda n: 0, "ca_bicgstab"),
+    }
+    its = {}
+    for tag, (skw, k1, jkey) in cases.items():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)   # IDR(s)'s stream warning
+            out, c, wall = run_counted(lambda: spt.solve(A, b, device=dev, **kw, **skw), dev)
+            res = true_residual(A, out[0], b)
+            n = int(out[1].iterations)
+            its[tag] = krylov_check(f"solve({tag})", out, c, {"dia_spmv": k1(n)} if k1(n) else {},
+                                    res, 1e-3, jkey, full, wall_s_with_setup=f"{wall:.4f}")
+            handle = spt.prepare(A, device=dev, **kw, **skw)
+            if tag == "ca_bicgstab" and not isinstance(handle.operator, DIA):
+                raise AssertionError(f"ca_bicgstab runs on {layout_name(handle.operator)}")
+            if timed:
+                krylov_times(tag, lambda: handle(bd), dev, its[tag])
+                if tag in ("gmres", "idrs"):
+                    krylov_profile(tag, lambda: handle(bd), its[tag])
+    # the GMRES handle on the padded operator: the same solve
+    h = spt.GMRES.new(op, A.shape[0], restart=RESTART, device=dev)
+    out, c, _ = run_counted(lambda: h.precond_solve(op.jacobi_precond(), op.pad_vec(bd),
+                                                    max_iter=1000, tol=1e-4), dev)
+    x = op.unpad_vec(out[0])
+    n = out[1][0]
+    if n != its["gmres"] or c != {**dict.fromkeys(KERNELS, 0), "dia_spmv": gmres_k1(n)}:
+        raise AssertionError(f"GMRES handle: {n} iterations, counts {c}")
+    log("krylov", entry="GMRES.new(op).precond_solve", iterations=n,
+        true_residual=true_residual(A, x, b), K1_launches=c["dia_spmv"])
+    return its
+
+
+def phase_krylov_spd(dev, grid=GRID, timed=True):
+    """Phase 13 (b): phase 4's Poisson: single-sync CG (K1 once per
+    iteration, K3 never), the s-step CG with the Jacobi fold (no kernel),
+    block CG on 8 columns (K1 8 times per iteration) and batched BiCGStab
+    on 4 of them (each column as its single solve)."""
+    A = problems.poisson3d(grid, grid, grid)
+    n = A.shape[0]
+    b = poisson_rhs(A)
+    bd = torch.as_tensor(b, device=dev)
+    full = grid == GRID
+    kw = dict(tol=1e-4, max_iter=1000)
+    for tag, skw, k1 in (("cg_single_sync", dict(method="cg_single_sync", M="jacobi"),
+                          lambda m: m + 2),
+                         ("ca_cg", dict(method="ca_cg", M="jacobi"), lambda m: 0)):
+        out, c, wall = run_counted(lambda: spt.solve(A, b, device=dev, **kw, **skw), dev)
+        m = int(out[1].iterations)
+        its = krylov_check(f"solve({tag})", out, c, {"dia_spmv": k1(m)} if k1(m) else {},
+                           true_residual(A, out[0], b), 1e-3, tag, full,
+                           wall_s_with_setup=f"{wall:.4f}")
+        if timed:
+            handle = spt.prepare(A, device=dev, **kw, **skw)
+            krylov_times(tag, lambda: handle(bd), dev, its)
+
+    op = spt.optimize(A, device=dev)
+    B = np.random.default_rng(SEED + 4).standard_normal((n, 8)).astype(np.float32)
+    B2 = torch.stack([op.pad_vec(torch.as_tensor(B[:, j], device=dev)) for j in range(8)], 1)
+    run = lambda: spt.block_cg(op, B2, **kw)
+    out, c, wall = run_counted(run, dev)
+    X2, info = out
+    m = int(info.iterations)
+    res = max(true_residual(A, op.unpad_vec(X2[:, j]), B[:, j]) for j in range(8))
+    krylov_check("block_cg(8 columns)", out, c, {"dia_spmv": 8 * (m + 1)}, res, 1e-3,
+                 wall_s=f"{wall:.4f}")
+    if timed:
+        krylov_times("block_cg", run, dev, m)
+
+    M = op.jacobi_precond()
+    B4 = B2[:, :4].contiguous()
+    run = lambda: spt.batched(spt.bicgstab)(op, B4, M=M, **kw)
+    out, c, wall = run_counted(run, dev)
+    X4, info = out
+    per = [int(i) for i in info.iterations.tolist()]
+    for j in range(4):
+        x1, i1 = spt.bicgstab(op, B4[:, j].contiguous(), M=M, **kw)
+        if int(i1.iterations) != per[j] or not torch.equal(x1, X4[:, j]):
+            raise AssertionError(f"batched column {j}: {per[j]} iterations, single "
+                                 f"{int(i1.iterations)}")
+        res = true_residual(A, op.unpad_vec(X4[:, j]), B[:, j])
+        if not (int(info.status[j]) == 0 and res < 1e-3):
+            raise AssertionError(f"batched column {j}: status {int(info.status[j])}, "
+                                 f"true residual {res:.3e}")
+    want = {**dict.fromkeys(KERNELS, 0), "dia_spmv": 4, "dia_wdot": 2 * sum(per)}
+    if c != want:
+        raise AssertionError(f"batched(bicgstab): launch counts {c}, expected {want}")
+    log("krylov", entry="batched(bicgstab, 4 columns)", iterations=",".join(map(str, per)),
+        K1_launches=c["dia_spmv"], K2_launches=c["dia_wdot"], wall_s=f"{wall:.4f}")
+
+
+def phase_krylov_mg(dev, grid=GRID, timed=True):
+    """Phase 13 (c): CG with the geometric V-cycle relayed onto the
+    PaddedDIA (K1 once, K3 per iteration; the levels on torch DIA), then
+    M="amg" (RCM, a 1-D hierarchy; the reordered Poisson's layout decides
+    the kernels). Prints the set-up seconds of both."""
+    A = problems.poisson3d(grid, grid, grid)
+    b = poisson_rhs(A)
+    bd = torch.as_tensor(b, device=dev)
+    full = grid == GRID
+    kw = dict(method="cg", tol=1e-4, max_iter=1000)
+    t0 = time.perf_counter()
+    mg = spt.GridMGPrecond.from_csr(A, (grid, grid, grid), device=dev)
+    setup = time.perf_counter() - t0
+    if not all(isinstance(o, DIA) for o in mg.ops):
+        raise AssertionError("a V-cycle level is not on torch DIA")
+    handle = spt.prepare(A, M=mg, device=dev, **kw)
+    if not isinstance(handle._run.keywords["M"], spt.RelayedPrecond):
+        raise AssertionError("the V-cycle is not relayed onto the padded operator")
+    out, c, wall = run_counted(lambda: handle(bd), dev)
+    its = krylov_check("prepare(cg, M=GridMGPrecond)", out, c,
+                       {"dia_spmv": 1, "dia_dot": int(out[1].iterations)},
+                       true_residual(A, out[0], b), 1e-3, "cg_mg", full,
+                       levels=len(mg.ops), setup_s=f"{setup:.4f}")
+    if timed:
+        krylov_times("cg_mg", lambda: handle(bd), dev, its)
+
+    t0 = time.perf_counter()
+    handle = spt.prepare(A, M="amg", device=dev, **kw)
+    setup = time.perf_counter() - t0
+    inner = handle.operator.inner
+    out, c, wall = run_counted(lambda: handle(bd), dev)
+    m = int(out[1].iterations)
+    want = cg_counts(inner, m)
+    its = krylov_check("prepare(cg, M='amg')", out, c, want, true_residual(A, out[0], b),
+                       1e-3, "cg_amg", full, layout=layout_name(handle.operator),
+                       setup_s=f"{setup:.4f}")
+    if timed:
+        krylov_times("cg_amg", lambda: handle(bd), dev)
+
+
+def phase_krylov_inner(dev, grid=GRID, timed=True):
+    """Phase 13 (d, e): FGMRES with an inner CG of 8 steps on the padded
+    Poisson, through prepare() (M.A is op: no relay; K3 inside each apply),
+    then plain GMRES with the same M, whose outcome is printed only."""
+    A = problems.poisson3d(grid, grid, grid)
+    b = poisson_rhs(A)
+    bd = torch.as_tensor(b, device=dev)
+    op = spt.optimize(A, device=dev)
+    M = spt.InnerSolvePrecond(A=op, method="cg", iters=8)
+    handle = spt.prepare(op, method="fgmres", M=M, tol=1e-4, max_iter=200, device=dev)
+    if handle._run.keywords["M"] is not M:
+        raise AssertionError("the inner-solve M was relayed")
+    out, c, wall = run_counted(lambda: handle(bd), dev)
+    m = int(out[1].iterations)
+    # per step: the inner CG's r₀ (K1) and 8 fused dots (K3), then A·z (K1);
+    # per cycle its true residual (K1); r₀ once
+    want = {"dia_spmv": 2 * m + -(-m // RESTART) + 1, "dia_dot": 8 * m}
+    its = krylov_check("prepare(op, fgmres, M=InnerSolvePrecond(cg, 8))", out, c, want,
+                       true_residual(A, out[0], b), 1e-3, "fgmres_inner",
+                       grid == GRID, wall_s=f"{wall:.4f}")
+    if timed:
+        krylov_times("fgmres_inner", lambda: handle(bd), dev, its)
+    plain = spt.prepare(op, method="gmres", M=M, tol=1e-4, max_iter=100, device=dev)
+    x, info = plain(bd)
+    _sync(dev)
+    log("krylov", entry="prepare(op, gmres, M=InnerSolvePrecond(cg, 8))",
+        status=spt.Status(int(info.status)).name, iterations=int(info.iterations),
+        reported_residual=float(info.residual),
+        true_residual=true_residual(A, x, b),
+        note="plain GMRES with a nonlinear M: printed, not asserted")
+
+
+def phase_krylov_complex(dev, grid=GRID, timed=True):
+    """Phase 13 (f): GMRES with the complex Jacobi on phase 9's damped c64
+    Poisson: K5 per SpMV."""
+    P = problems.poisson3d(grid, grid, grid)
+    data = P.data.numpy().astype(np.complex64)
+    data[P.indices.numpy() == P.row_ids.numpy()] += 0.5j
+    arrays = (data, P.indices.numpy(), P.indptr.numpy())
+    A = CSR.from_arrays(*arrays, shape=P.shape)
+    r = np.random.default_rng(SEED + 6).standard_normal(A.shape[0]).astype(np.float32)
+    b = (r + 0.25j * r).astype(np.complex64)
+    kw = dict(method="gmres", M="jacobi", restart=RESTART, tol=1e-4, max_iter=1000)
+    out, c, wall = run_counted(lambda: spt.solve(A, b, device=dev, **kw), dev)
+    m = int(out[1].iterations)
+    its = krylov_check("solve(c64, gmres, M='jacobi')", out, c,
+                       {"dia_complex_spmv": gmres_k1(m)},
+                       complex_true_residual(arrays, A.shape, out[0], b), 1e-3,
+                       wall_s_with_setup=f"{wall:.4f}")
+    if timed:
+        handle = spt.prepare(A, device=dev, **kw)
+        bd = torch.as_tensor(b, device=dev)
+        krylov_times("gmres_c64", lambda: handle(bd), dev, its)
+
+
+def _recording(solver, its):
+    """``solver`` that appends each solve's iteration count to ``its``."""
+    def run(A, b, **kw):
+        x, info = solver(A, b, **kw)
+        its.append(int(info.iterations))
+        return x, info
+    return run
+
+
+def _planes_to_complex(out):
+    xr, xi, info = out
+    return torch.complex(xr, xi), info
+
+
+def phase_refine(dev, grid=GRID, timed=True):
+    """Phase 13 (g): refinement to f64 (c128) accuracy from f32 (c64) inner
+    solves on the kernels: BiCGStab + Jacobi (K1 once and K2 twice per
+    inner iteration), MINRES (K1 once, K3 and K4 its + 1 per inner solve);
+    on the c128 damped Poisson CS-MINRES with 1/|d| (K5 once, K6 its + 1)
+    and BiCGStab with the complex Jacobi (K5 once, K7 twice per iteration).
+    refine() runs with an inner solver that records its counts;
+    refine_solve() builds the same operators and must give the same x."""
+    from sprsolve_tpu_torch.solvers.refine import refine, refine_complex
+
+    A = problems.poisson3d(grid, grid, grid, dtype=np.float64)
+    n = A.shape[0]
+    b = np.random.default_rng(SEED + 2).standard_normal(n)
+    bd = torch.as_tensor(b, device=dev)
+    t0 = time.perf_counter()
+    A64 = DIA.from_csr(A, device=dev)
+    A32 = spt.optimize(CSR.from_arrays(A.data.numpy().astype(np.float32), A.indices,
+                                       A.indptr, A.shape), device=dev)
+    setup = time.perf_counter() - t0
+    for inner, M, per_solve in (
+            ("bicgstab", A32.jacobi_precond(), lambda k: {"dia_spmv": 1, "dia_wdot": 2 * k}),
+            ("minres", None, lambda k: {"dia_spmv": 1, "dia_dot": k + 1, "orth_norm": k + 1})):
+        inner_its = []
+        fn = _recording(getattr(spt, inner), inner_its)
+        run = lambda: refine(A64, A32, bd, inner=fn, M=M, tol=1e-12)
+        out, c, wall = run_counted(run, dev)
+        want = {}
+        for k in inner_its:
+            for key, v in per_solve(k).items():
+                want[key] = want.get(key, 0) + v
+        outer = krylov_check(f"refine(f64, inner={inner})", out, c, want,
+                             true_residual(A, out[0], b), 1e-11,
+                             inner_iterations=",".join(map(str, inner_its)),
+                             setup_s=f"{setup:.4f}")
+        n_inner = sum(inner_its)    # of this one solve: later runs append
+        x2, info2 = spt.refine_solve(A, b, inner=inner, M=None if M is None else "jacobi",
+                                     tol=1e-12, device=dev)
+        if int(info2.iterations) != outer or not torch.equal(x2, out[0]):
+            raise AssertionError(f"refine_solve(inner={inner}) differs from refine()")
+        if timed:
+            krylov_times(f"refine_{inner}", run, dev, outer)
+            if inner == "bicgstab":
+                krylov_profile("refine_bicgstab", run, n_inner)
+
+    P = problems.poisson3d(grid, grid, grid)
+    data = P.data.numpy().astype(np.complex128)
+    data[P.indices.numpy() == P.row_ids.numpy()] += 0.5j
+    arrays = (data, P.indices.numpy(), P.indptr.numpy())
+    Z = CSR.from_arrays(*arrays, shape=P.shape)
+    r = np.random.default_rng(SEED + 6).standard_normal(n)
+    bz = r + 0.25j * r
+    bzd = torch.as_tensor(bz, device=dev)
+    Z64 = DIA.from_csr(Z, device=dev)
+    Z32 = spt.optimize(CSR.from_arrays(data.astype(np.complex64), P.indices, P.indptr,
+                                       P.shape), device=dev)
+    if not isinstance(Z32, spt.ComplexPaddedDIA):
+        raise AssertionError(f"the c64 inner operator is {layout_name(Z32)}")
+    for inner, M, per_solve in (
+            ("cs_minres", spt.real_abs_jacobi(Z32),
+             lambda k: {"dia_complex_spmv": 1, "dia_complex_dot": k + 1}),
+            ("bicgstab", Z32.jacobi_precond(),
+             lambda k: {"dia_complex_spmv": 1, "dia_complex_wdot": 2 * k})):
+        inner_its = []
+        fn = _recording(getattr(spt, inner), inner_its)
+        run = lambda: _planes_to_complex(refine_complex(
+            Z64, Z32, bzd.real, bzd.imag, inner=fn, M=M, tol=1e-12, inner_max_iter=400))
+        out, c, wall = run_counted(run, dev)
+        want = {}
+        for k in inner_its:
+            for key, v in per_solve(k).items():
+                want[key] = want.get(key, 0) + v
+        outer = krylov_check(f"refine(c128, inner={inner})", out, c, want,
+                             complex_true_residual(arrays, Z.shape, out[0], bz), 1e-10,
+                             inner_iterations=",".join(map(str, inner_its)))
+        x2, info2 = spt.refine_solve(Z, bz, inner=inner, M="jacobi", tol=1e-12, device=dev)
+        if int(info2.iterations) != outer or not torch.equal(x2, out[0]):
+            raise AssertionError(f"refine_solve(c128, inner={inner}) differs")
+        if timed:
+            krylov_times(f"refine_c128_{inner}", run, dev, outer)
+
+
+def phase_krylov(dev, grid=GRID, timed=True):
+    """Phase 13: the rest of the Krylov family, multigrid, the inner-solve
+    preconditioner and mixed-precision refinement at 1M rows."""
+    t0 = time.perf_counter()
+    phase_krylov_nonsym(dev, grid, timed)
+    phase_krylov_spd(dev, grid, timed)
+    phase_krylov_mg(dev, grid, timed)
+    phase_krylov_inner(dev, grid, timed)
+    phase_krylov_complex(dev, grid, timed)
+    phase_refine(dev, grid, timed)
+    log("krylov", seconds=f"{time.perf_counter() - t0:.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -1876,6 +2314,7 @@ def main() -> int:
     phase_relayed(dev)
     phase_exact_and_lsqr(dev)
     phase_layouts(dev)
+    phase_krylov(dev)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -6,29 +6,32 @@ name.  Plain tensor code is PyTorch; the padded-DIA SpMV kernels that the
 JAX package wrote in Pallas are CUDA C++ for Hopper (``csrc/``), built with
 nvcc at first use.  The package imports no JAX.
 
-Ported so far: BiCGStab on the padded-DIA kernels K1/K2, MINRES and CG on
-K3/K4, BiCGStab(ℓ) as ``method="auto"``'s nonsymmetric route, the complex
-path on the two-plane kernels K5-K7 (COCG, CS-MINRES, complex BiCGStab and
-MINRES), LSQR (``auto``'s rectangular route, on the CSR path), the exact
-Gauss-Seidel sweep (on the host by design) and the multicolor one, and the
-preconditioners: Jacobi, multicolor GS/SOR/SSOR, Chebyshev, block-Jacobi,
-ILU(0) and IC(0), a flat one relayed onto a padded operator; and every
-layout of ``optimize()``: padded DIA, RCM-reordered DIA (``Reordered``),
-BSR and ComplexBSR, the band+outlier ``HybridDIA`` and the warned ELL, on
-a compiled host toolkit (``native``, ``csrc/hostkit.cpp``).
-``solve(A, b, method="bicgstab" | "minres" | "cg" | "bicgstabl" |
-"cs_minres" | "cocg" | "lsqr" | "auto", M="jacobi" | "block_jacobi" |
-"ilu0" | "ic0" | object)``, ``prepare`` and the ``BiCGStab``, ``MinRes``,
-``CG``, ``CSMinRes`` and ``GaussSeidel`` handles.  The entry points run on
-the CUDA device unless given ``device`` (e.g. ``device="cpu"``).
+Ported: every solver of the JAX package's ``solve()`` — BiCGStab on the
+padded-DIA kernels K1/K2, MINRES and CG on K3/K4, BiCGStab(ℓ), the
+Chronopoulos–Gear CG, CGS, TFQMR, GMRES and FGMRES, IDR(s), the s-step CG
+and BiCGStab, LSQR, the complex path on the two-plane kernels K5-K7 (COCG,
+CS-MINRES, complex BiCGStab, MINRES and GMRES) — plus block CG and
+``batched``, mixed-precision refinement (``refine``, ``refine_solve``),
+the exact Gauss-Seidel sweep (on the host by design) and the multicolor
+one; the preconditioners: Jacobi, multicolor GS/SOR/SSOR, Chebyshev,
+block-Jacobi, ILU(0) and IC(0), the multigrid V-cycle (``GridMGPrecond``,
+``M="amg"``) and the inner-solve ``InnerSolvePrecond``, a flat one relayed
+onto a padded operator; and every layout of ``optimize()``: padded DIA,
+RCM-reordered DIA (``Reordered``), BSR and ComplexBSR, the band+outlier
+``HybridDIA`` and the warned ELL, on a compiled host toolkit (``native``,
+``csrc/hostkit.cpp``).  ``solve``, ``prepare`` and the ``BiCGStab``,
+``MinRes``, ``CG``, ``GMRES``, ``CSMinRes`` and ``GaussSeidel`` handles
+run on the CUDA device unless given ``device`` (e.g. ``device="cpu"``).
 """
 
 from . import errors, precond, vecalg
-from .api import CG, BiCGStab, CSMinRes, GaussSeidel, MinRes, PreparedSolver, prepare, solve
+from .api import (CG, GMRES, BiCGStab, CSMinRes, GaussSeidel, MinRes, PreparedSolver,
+                  prepare, solve)
 from .errors import SolveInfo, SolverError, Status
 from .ops.operator import DiagonalOperator, IdentityOperator, LinearOperator
 from .ops.hybrid import HybridDIA
 from .ops.optimize import optimize
+from .multigrid import GridMGPrecond
 from .ops.padded_dia import ComplexPaddedDIA, PaddedDIA
 from .precond import (
     BlockJacobiPrecond,
@@ -37,6 +40,7 @@ from .precond import (
     DiagPrecond,
     IC0Precond,
     ILU0Precond,
+    InnerSolvePrecond,
     RelayedPrecond,
     estimate_spectral_bounds,
     real_abs_jacobi,
@@ -45,17 +49,29 @@ from .solvers import (
     ColoredELL,
     MaskedGSPrecond,
     MulticolorGSPrecond,
+    batched,
     bicgstab,
     bicgstabl,
+    block_cg,
+    ca_bicgstab,
+    ca_cg,
     cg,
+    cg_single_sync,
+    cgs,
     cocg,
     color_masks,
     cs_minres,
+    fgmres,
     gauss_seidel,
     gauss_seidel_redblack,
+    gmres,
     greedy_color,
+    idrs,
     lsqr,
     minres,
+    refine,
+    refine_solve,
+    tfqmr,
     with_real_planes,
 )
 from .sparse import (
@@ -80,12 +96,25 @@ __all__ = [
     "PreparedSolver",
     "BiCGStab",
     "CG",
+    "GMRES",
     "CSMinRes",
     "MinRes",
     "GaussSeidel",
     "bicgstab",
     "bicgstabl",
     "cg",
+    "cg_single_sync",
+    "ca_cg",
+    "ca_bicgstab",
+    "cgs",
+    "tfqmr",
+    "gmres",
+    "fgmres",
+    "idrs",
+    "block_cg",
+    "batched",
+    "refine",
+    "refine_solve",
     "cocg",
     "cs_minres",
     "minres",
@@ -120,6 +149,8 @@ __all__ = [
     "ILU0Precond",
     "IC0Precond",
     "RelayedPrecond",
+    "InnerSolvePrecond",
+    "GridMGPrecond",
     "gershgorin_bounds",
     "optimize",
     "HybridDIA",

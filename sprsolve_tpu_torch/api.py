@@ -9,20 +9,23 @@ and the layout-optimizing form::
 
     x, info = sprsolve_tpu_torch.solve(A, b, method="bicgstab", M="jacobi")
 
-Every entry point (``solve``, ``prepare``, ``optimize`` and the handles)
-runs on the CUDA device unless the caller passes ``device``, e.g.
-``device="cpu"``; without CUDA and without a device they raise.  The
-functional solvers (``bicgstab(op, b)`` and the like) run where their
-tensors are.  Ported so far: ``method="bicgstab"``, ``"bicgstabl"``,
-``"cg"``, ``"minres"``, ``"cs_minres"``, ``"cocg"``, ``"lsqr"`` and
-``"auto"``; ``M=None``, ``"jacobi"``, ``"block_jacobi"``, ``"ilu0"``,
-``"ic0"`` or a preconditioner object (a flat one on a padded operator runs
-through :class:`~sprsolve_tpu_torch.precond.RelayedPrecond`); and the
-``BiCGStab``, ``MinRes``, ``CG``, ``CSMinRes`` and ``GaussSeidel`` handles.
-``solve`` and ``prepare`` lay out any square CSR through
+Every entry point (``solve``, ``prepare``, ``optimize``, ``refine_solve``
+and the handles) runs on the CUDA device unless the caller passes
+``device``, e.g. ``device="cpu"``; without CUDA and without a device they
+raise.  The functional solvers (``bicgstab(op, b)`` and the like) run
+where their tensors are.  ``method`` is any of the JAX package's:
+``"bicgstab"``, ``"bicgstabl"``, ``"cg"``, ``"cg_single_sync"``,
+``"minres"``, ``"cs_minres"``, ``"cocg"``, ``"cgs"``, ``"tfqmr"``,
+``"gmres"``, ``"fgmres"``, ``"idrs"``, ``"lsqr"``, the s-step ``"ca_cg"``
+and ``"ca_bicgstab"`` (on flat layouts, see :func:`_prepare_ca`), or
+``"auto"``; ``M`` is None, ``"jacobi"``, ``"block_jacobi"``, ``"ilu0"``,
+``"ic0"``, ``"amg"`` or a preconditioner object (a flat one on a padded
+operator runs through :class:`~sprsolve_tpu_torch.precond.RelayedPrecond`;
+one built on the operator itself, ``M.A is op``, runs as it is).  The
+handles are ``BiCGStab``, ``MinRes``, ``CG``, ``GMRES``, ``CSMinRes`` and
+``GaussSeidel``.  ``solve`` and ``prepare`` lay out any square CSR through
 :func:`~sprsolve_tpu_torch.optimize` (padded DIA, RCM-reordered DIA, BSR,
-the band+outlier hybrid, or ELL with a warning).  The other methods and
-``M="amg"`` raise NotImplementedError naming their ROADMAP.md item.
+the band+outlier hybrid, or ELL with a warning).
 """
 
 from __future__ import annotations
@@ -34,18 +37,18 @@ import torch
 from .errors import IncompatibleMatrixFormat, InvalidPreconditioner
 from .ops.operator import as_operator
 from .ops.optimize import default_device
-from .solvers import bicgstab, bicgstabl, cg, cocg, cs_minres, gauss_seidel, lsqr, minres
-from .sparse.containers import CSC, CSR, ELL
+from .solvers import (bicgstab, bicgstabl, ca_bicgstab, ca_cg, cg, cg_single_sync, cgs,
+                      cocg, cs_minres, fgmres, gauss_seidel, gmres, idrs, lsqr, minres,
+                      tfqmr)
+from .sparse.containers import CSC, CSR, DIA, ELL
 
-_SOLVERS = {"bicgstab": bicgstab, "bicgstabl": bicgstabl, "cg": cg, "cocg": cocg,
-            "cs_minres": cs_minres, "lsqr": lsqr, "minres": minres}
-
-# the JAX package's other methods and preconditioner builders, by the
-# ROADMAP.md Queue 1 item that ports them
-_LATER_METHODS = dict.fromkeys(("gmres", "fgmres", "idrs", "cgs", "tfqmr",
-                                "cg_single_sync", "ca_cg", "ca_bicgstab"), 10)
-_LATER_M = {"amg": 10}
-_BUILT_M = ("jacobi", "block_jacobi", "ilu0", "ic0")
+_SOLVERS = {"bicgstab": bicgstab, "bicgstabl": bicgstabl, "ca_bicgstab": ca_bicgstab,
+            "ca_cg": ca_cg, "cg": cg, "cg_single_sync": cg_single_sync, "cgs": cgs,
+            "cocg": cocg, "cs_minres": cs_minres, "fgmres": fgmres, "gmres": gmres,
+            "idrs": idrs, "lsqr": lsqr, "minres": minres, "tfqmr": tfqmr}
+# the s-step pair runs a pipeline of its own (_prepare_ca)
+_CA_METHODS = ("ca_cg", "ca_bicgstab")
+_BUILT_M = ("jacobi", "block_jacobi", "ilu0", "ic0", "amg")
 
 
 def _auto_method(A, parity: str = "fast") -> str:
@@ -98,11 +101,6 @@ def _resolve(method: str, A, solver_kwargs: dict):
 def _solver(method: str):
     if method in _SOLVERS:
         return _SOLVERS[method]
-    if method in _LATER_METHODS:
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet: ROADMAP.md Queue 1 item "
-            f"{_LATER_METHODS[method]}"
-        )
     raise ValueError(f"unknown method {method!r}")
 
 
@@ -124,6 +122,81 @@ def _build_M(M: str, src, device):
     if M == "block_jacobi":
         return BlockJacobiPrecond.from_csr(src, device=device)
     return (ILU0Precond if M == "ilu0" else IC0Precond).from_csr(src, device=device)
+
+
+def _amg(src, optimize_layout: bool, device):
+    """``M="amg"`` (``sprsolve_tpu/api.py:210-241``): RCM localizes the
+    graph, a 1-D aggregation hierarchy is built over that order, and the
+    operator is wrapped in the permutation. A padded inner operator gets
+    the V-cycle through :class:`~sprsolve_tpu_torch.precond.RelayedPrecond`
+    (the outer ``Reordered`` boundary handles the permutation). Returns
+    ``(op, M, padded)``."""
+    from .multigrid import GridMGPrecond
+    from .ops.optimize import optimize
+    from .ops.reordered import Reordered
+    from .precond import RelayedPrecond
+    from .sparse.containers import reorder_rcm
+
+    if not isinstance(src, CSR):
+        raise InvalidPreconditioner(
+            "M='amg' builds from the matrix on the host and needs a CSR/CSC "
+            "input (got an operator); build GridMGPrecond."
+        )
+    A_rcm, perm = reorder_rcm(src)
+    mg = GridMGPrecond.from_csr(A_rcm, (A_rcm.shape[0],), device=device)
+    inner_op = optimize(A_rcm, device=device) if optimize_layout else A_rcm.to(device)
+    op = Reordered.wrap(inner_op, perm)
+    if hasattr(inner_op, "pad_vec"):
+        return op, RelayedPrecond(inner=mg, op=inner_op), True
+    return op, mg, True
+
+
+def _prepare_ca(A, method: str, M, optimize_layout: bool, device, solver_kwargs):
+    """The s-step pipeline of ``ca_cg``/``ca_bicgstab``
+    (``sprsolve_tpu/api.py:133-182``). Returns ``(op, scale)``.
+
+    - The CA solvers take no M apply: their basis is a polynomial in the
+      bare operator.  ``ca_cg`` takes ``M="jacobi"`` on a CSR/CSC input
+      by folding it into the system
+      (:func:`~sprsolve_tpu_torch.solvers.ca_cg.fold_jacobi`; ``tol`` then
+      applies to the scaled residual): b is scaled by ``scale`` and x
+      unscaled at each call.  Any other M, a ``DiagPrecond`` included,
+      raises :class:`~sprsolve_tpu_torch.errors.InvalidPreconditioner`.
+    - The layout is the unpadded torch ``DIA`` when the pattern is banded,
+      else the CSR: never a padded kernel layout, so no hand kernel runs.
+    - ``bounds`` default to Gershgorin's, for the Chebyshev basis."""
+    from .solvers.ca_cg import fold_jacobi
+    from .utils.bounds import gershgorin_bounds
+    from .vecalg import real_dtype
+
+    src = A.to_csr() if isinstance(A, CSC) else A
+    scale = None
+    if M is not None:
+        if method != "ca_cg" or not (isinstance(M, str) and M == "jacobi") \
+                or not isinstance(src, CSR):
+            raise InvalidPreconditioner(
+                "the s-step solvers take no M apply (the CA basis is a "
+                "polynomial in the bare operator); ca_cg supports "
+                "M='jacobi' on a CSR/CSC input by folding it into the "
+                "system — for anything stronger use cg/cg_single_sync/"
+                "bicgstab with M"
+            )
+        # folding a ones vector gives the scale D^{-1/2} itself
+        ones = torch.ones(src.shape[0], dtype=real_dtype(src.dtype))
+        src, scale, _, _ = fold_jacobi(src, ones)
+        scale = scale.to(device)
+    op = src
+    if isinstance(src, CSR):
+        if optimize_layout:
+            try:
+                op = DIA.from_csr(src, device=device)
+            except ValueError:   # a wide pattern: the CSR gather path
+                op = src.to(device)
+        else:
+            op = src.to(device)
+    if solver_kwargs.get("bounds") is None and isinstance(op, (CSR, DIA)):
+        solver_kwargs["bounds"] = gershgorin_bounds(op)
+    return op, scale
 
 
 def _prepare_op_M(A, method: str, M, optimize_layout: bool, device):
@@ -165,12 +238,10 @@ def _prepare_op_M(A, method: str, M, optimize_layout: bool, device):
                 _CS_MINRES_M + "of the string builders only M='jacobi' (→ 1/|d|) "
                 "qualifies"
             )
-        if M in _LATER_M:
-            raise NotImplementedError(
-                f"M={M!r} is not ported yet: ROADMAP.md Queue 1 item {_LATER_M[M]}"
-            )
         if M not in _BUILT_M:
             raise ValueError(f"unknown preconditioner {M!r}")
+        if M == "amg":
+            return _amg(src, optimize_layout, device)
         M = _build_M(M, src, device)
 
     op = src
@@ -244,7 +315,12 @@ def solve(
     :func:`_auto_method`; ``parity="reference"`` keeps plain BiCGStab for a
     nonsymmetric matrix). ``method="lsqr"`` solves any m×n ``A`` in the
     least-squares sense (``damp=``, ``AH=``; ``AH`` defaults to
-    ``A.adjoint()``). A CSC is converted to CSR first.
+    ``A.adjoint()``). ``"gmres"``/``"fgmres"`` take ``restart=``,
+    ``"idrs"`` takes ``s=``, and the s-step ``"ca_cg"``/``"ca_bicgstab"``
+    take ``s=``, ``basis=`` and ``bounds=`` (Gershgorin by default); they
+    run on the unpadded layout, and ``ca_cg`` takes ``M="jacobi"`` only,
+    folded into the system. ``M="amg"`` is the RCM-ordered 1-D
+    aggregation V-cycle. A CSC is converted to CSR first.
     """
     handle = prepare(A, method=method, M=M, tol=tol, max_iter=max_iter,
                      optimize_layout=optimize_layout, device=device, **solver_kwargs)
@@ -262,9 +338,10 @@ class PreparedSolver:
         x2, info2 = handle(b2, x0=x1)
     """
 
-    def __init__(self, op, run, shape, device=None):
+    def __init__(self, op, run, shape, device=None, scale=None):
         self._op = op
         self._run = run
+        self._scale = scale   # a folded Jacobi's D^{-1/2} (ca_cg), else None
         self._padded = hasattr(op, "pad_vec")
         self._m, self._n = shape
         self._device = getattr(op, "device", device)
@@ -279,12 +356,17 @@ class PreparedSolver:
         # validate before padding: pad_vec would silently zero-extend a short b
         b = _vec(b, self._m, device, "Input vec")
         x0 = None if x0 is None else _vec(x0, self._n, device, "x0")
+        if self._scale is not None:
+            b = b * self._scale
+            x0 = None if x0 is None else x0 / self._scale
         if self._padded:
             b = self._op.pad_vec(b)
             x0 = None if x0 is None else self._op.pad_vec(x0)
         x, *rest = self._run(self._op, b, x0)
         if self._padded:
             x = self._op.unpad_vec(x)
+        if self._scale is not None:
+            x = x * self._scale
         return (x, *rest)
 
 
@@ -303,6 +385,10 @@ def prepare(
     takes what :func:`solve` takes."""
     method, solver = _resolve(method, A, solver_kwargs)
     device = default_device(device)
+    if method in _CA_METHODS:
+        op, scale = _prepare_ca(A, method, M, optimize_layout, device, solver_kwargs)
+        return PreparedSolver(op, partial(solver, tol=tol, max_iter=max_iter,
+                                          **solver_kwargs), A.shape, device, scale)
     op, M, _ = _prepare_op_M(A, method, M, optimize_layout, device)
     if method == "lsqr" and "AH" not in solver_kwargs:
         # the adjoint is a host build, made once (sprsolve_tpu/api.py:546-552)
@@ -375,6 +461,20 @@ class CG(_Handle):
     the handle shape of :class:`BiCGStab`)."""
 
     _fn = staticmethod(cg)
+
+
+class GMRES(_Handle):
+    """Restarted GMRES(m) handle for general systems (no reference
+    counterpart; the handle shape of :class:`BiCGStab`). ``restart`` is the
+    Krylov dimension per cycle."""
+
+    def __init__(self, A, size: int, restart: int = 32, device=None):
+        super().__init__(A, size, device)
+        self.restart = int(restart)
+        self._fn = partial(gmres, restart=self.restart)
+
+    new = classmethod(lambda cls, A, size, restart=32, device=None:
+                      cls(A, size, restart, device))
 
 
 class CSMinRes(_Handle):

@@ -120,3 +120,27 @@ def hybrid_from_reference(core, out_rows, out_cols, out_vals, shape) -> HybridDI
     return HybridDIA(core=core, out_rows=_index(out_rows, dev), out_cols=_index(out_cols, dev),
                      out_vals=torch.as_tensor(np.array(out_vals), device=dev),
                      shape=tuple(int(s) for s in shape))
+
+
+def grid_mg_from_reference(level_csrs, dinvs, coarse_inv, grids, nu1: int = 2,
+                           nu2: int = 2, omega: float = 2.0 / 3.0,
+                           coarse_scale: float = 1.8, device="cpu"):
+    """The port's :class:`~sprsolve_tpu_torch.multigrid.GridMGPrecond` from
+    the JAX hierarchy's state: each level's Galerkin CSR as a ``(data,
+    indices, indptr, shape)`` tuple (laid out as ``from_csr`` lays it out,
+    torch ``DIA`` when banded), the per-level 1/diag arrays, the coarsest
+    dense inverse and the per-level grid shapes."""
+    from .multigrid import FlatViewOperator, GridMGPrecond
+    from .ops.optimize import optimize
+
+    ops = []
+    for data, indices, indptr, shape in level_csrs:
+        op = optimize(csr_from_reference(data, indices, indptr, shape),
+                      prefer_kernels=False, device=device)
+        ops.append(FlatViewOperator(op=op) if hasattr(op, "pad_vec") else op)
+    return GridMGPrecond(
+        ops=tuple(ops),
+        dinvs=tuple(torch.as_tensor(np.asarray(d), device=device) for d in dinvs),
+        coarse_inv=torch.as_tensor(np.asarray(coarse_inv), device=device),
+        grids=tuple(tuple(int(x) for x in g) for g in grids),
+        nu1=int(nu1), nu2=int(nu2), omega=float(omega), coarse_scale=float(coarse_scale))

@@ -1,7 +1,6 @@
 """Preconditioners.
 
-Counterpart of ``sprsolve_tpu/precond.py`` (reference ``src/precond.rs``),
-all but ``InnerSolvePrecond``:
+Counterpart of ``sprsolve_tpu/precond.py`` (reference ``src/precond.rs``):
 
 - the diagonal (Jacobi) ones: the reciprocal of the diagonal is taken once
   at construction and the apply is an elementwise multiply; as in the
@@ -17,7 +16,8 @@ all but ``InnerSolvePrecond``:
   with a strict triangular factor laid out by ``optimize(...,
   prefer_kernels=False, allow_reorder=False)``;
 - :class:`RelayedPrecond`, which applies a flat-layout preconditioner to
-  the vectors of a padded operator.
+  the vectors of a padded operator;
+- :class:`InnerSolvePrecond`, a budgeted inner Krylov solve (for FGMRES).
 """
 
 from __future__ import annotations
@@ -490,3 +490,57 @@ class RelayedPrecond:
     def matvec_dot(self, r2: torch.Tensor):
         y = self.matvec(r2)
         return y, conj_dot(r2, y)
+
+
+@dataclasses.dataclass(frozen=True)
+class InnerSolvePrecond:
+    """A preconditioner that applies a budgeted INNER Krylov solve, z ≈ A⁻¹·r
+    (Saad, *Iterative Methods* §9.4).
+
+    The map r ↦ z is a nonlinear function of r (the Krylov polynomial
+    depends on its input), so the outer solver must be flexible:
+    :func:`~sprsolve_tpu_torch.solvers.fgmres.fgmres`.  Each apply starts
+    from z₀ = 0, runs at most ``iters`` steps (``inner_tol`` allows an
+    early exit) and ignores the inner status.  ``A`` should be the SAME
+    (possibly padded) operator the outer solve runs on, so the vector
+    layouts agree: ``solve()`` and ``prepare()`` then pass the object
+    through as it is (``M.A is op``), and on a ``PaddedDIA`` an inner CG
+    runs K3.  ``inner_M`` preconditions the inner solve itself.
+    """
+
+    A: object
+    inner_M: object = None
+    method: str = "cg"
+    iters: int = 8
+    inner_tol: float = 0.0
+
+    @property
+    def shape(self):
+        return getattr(self.A, "shape", None)
+
+    # inner methods with the standard (A, b, x0=None, *, M=None, tol,
+    # max_iter) -> (x, info) signature: a whitelist, so that a name of
+    # another signature fails here with a clear message
+    _INNER_METHODS = (
+        "cg", "cg_single_sync", "bicgstab", "bicgstabl", "cgs", "tfqmr",
+        "minres", "gmres", "fgmres", "idrs", "cocg", "cs_minres",
+    )
+
+    def _solver(self):
+        if self.method not in self._INNER_METHODS:
+            raise InvalidPreconditioner(
+                f"InnerSolvePrecond: inner method {self.method!r} is not "
+                f"supported (choose one of {', '.join(self._INNER_METHODS)})"
+            )
+        from . import solvers
+
+        return getattr(solvers, self.method)
+
+    def matvec(self, r: torch.Tensor) -> torch.Tensor:
+        z, _info = self._solver()(self.A, r, M=self.inner_M, tol=self.inner_tol,
+                                  max_iter=self.iters)
+        return z
+
+    def matvec_dot(self, r: torch.Tensor):
+        z = self.matvec(r)
+        return z, conj_dot(r, z)

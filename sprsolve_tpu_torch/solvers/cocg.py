@@ -18,8 +18,10 @@ iteration and exits as the JAX package:
 |ρ| and |pᵀAp| are ``abs()``; the JAX package's sqrt(re² + im²) form works
 around a TPU compiler fault and is not ported.  The loop is a Python
 ``while`` with one host read of the iteration's predicates, as in
-:func:`~sprsolve_tpu_torch.solvers.cg.cg`.  Batched solves with the
-per-column freeze come with the column axis (ROADMAP Queue 1 item 10).
+:func:`~sprsolve_tpu_torch.solvers.cg.cg`.  Several right-hand sides go
+through :func:`~sprsolve_tpu_torch.solvers.block_cg.batched`, which runs one
+solve per column: each column stops at its own exit, what the JAX
+package's per-column freeze of COCG's lockstep ``vmap`` guarantees there.
 """
 
 from __future__ import annotations

@@ -24,18 +24,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..vecalg import full_precision_matmul
 from .containers import CSR, _host
 
 
 def full_precision_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.bmm`` with TF32 off for the call: a float32 product on the
     card then rounds like the float32 reference, not to a 10-bit mantissa."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        return torch.bmm(a, b)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+    return full_precision_matmul(a, b)
 
 
 def _block_keys(m: CSR, bs: int):

@@ -18,7 +18,13 @@ the port's updates are bitwise those of the JAX package.  The distributed
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+# the numpy scalar type of each dtype: the solvers that do their small
+# coefficient algebra on the host do it in the solve's own precision
+NUMPY_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
+                torch.complex64: np.complex64, torch.complex128: np.complex128}
 
 
 def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -90,3 +96,16 @@ def eps_for(dtype: torch.dtype, device=None) -> torch.Tensor:
     (T::Real::epsilon())."""
     rdt = real_dtype(dtype)
     return torch.tensor(torch.finfo(rdt).eps, dtype=rdt, device=device)
+
+
+def full_precision_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with TF32 off for the call, whatever the global setting: a
+    float32 product on the card then rounds like the float32 reference
+    (the JAX package pins ``Precision.HIGHEST`` on its basis and Gram
+    products), not to a 10-bit mantissa."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return a @ b
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

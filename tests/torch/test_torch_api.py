@@ -109,11 +109,14 @@ def test_solve_dimension_checks():
 @pytest.mark.parametrize("method,item", [("lsqr", 6), ("cs_minres", 7), ("cocg", 7),
                                          ("gmres", 10), ("ca_cg", 10), ("tfqmr", 10),
                                          ("idrs", 10)])
-def test_unported_methods_name_their_roadmap_item(method, item):
-    """Each method still to port names its ROADMAP.md item. Item 7's methods
-    (CS-MINRES and COCG) are ported: the same calls now solve; on a real SPD
-    system they are MINRES and CG. Item 6's LSQR is ported too: it solves
-    the square system on the CSR path, as the JAX package's does."""
+def test_unported_methods_name_their_roadmap_item(method, item, monkeypatch):
+    """Every method of the JAX package's solve() is ported now. Item 7's
+    methods (CS-MINRES and COCG) solve; on a real SPD system they are MINRES
+    and CG. Item 6's LSQR solves the square system on the CSR path, as the
+    JAX package's does. Item 10's GMRES, s-step CG, TFQMR and IDR(s) solve
+    in as many iterations as the JAX package's within the band (IDR(s) with
+    the JAX package's shadow space, on the flat layout where both have the
+    same length), and prepare() runs the same solve."""
     tA, jA, b = _poisson_f32(4)
     if item == 6:
         kw = dict(method=method, tol=1e-5, max_iter=200)
@@ -134,31 +137,53 @@ def test_unported_methods_name_their_roadmap_item(method, item):
                                 device="cpu")(b)
         assert torch.equal(x, x2) and info2.iterations == info.iterations
         return
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        tsp.solve(tA, b, method=method, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        tsp.prepare(tA, method=method, device="cpu")
+    kw = dict(method=method, tol=1e-5, max_iter=200)
+    if method == "idrs":
+        import importlib
+
+        import jax
+        tidrs = importlib.import_module("sprsolve_tpu_torch.solvers.idrs")
+
+        def jax_p(n, s, dtype, device):
+            P, _ = jnp.linalg.qr(jax.random.normal(jax.random.key(7), (n, s), jnp.float32))
+            return torch.as_tensor(np.asarray(P), device=device)
+
+        monkeypatch.setattr(tidrs, "_shadow_space", jax_p)
+        kw["optimize_layout"] = False
+    x, info = tsp.solve(tA, b, device="cpu", **kw)
+    xj, info_j = jsp.solve(jA, b, **kw)
+    assert info.converged and bool(info_j.converged)
+    assert abs(info.iterations - int(info_j.iterations)) <= _band(int(info_j.iterations))
+    assert _true_res(tA, x, b) < 1e-4
+    xj = torch.from_numpy(np.array(xj))
+    assert float(torch.linalg.norm(x - xj) / torch.linalg.norm(xj)) < 1e-3
+    x2, info2 = tsp.prepare(tA, device="cpu", **kw)(b)
+    assert torch.equal(x, x2) and info2.iterations == info.iterations
 
 
 @pytest.mark.parametrize("M,item", [("ilu0", 8), ("block_jacobi", 8), ("amg", 10)])
 def test_unported_preconditioners_name_their_roadmap_item(M, item):
-    """Item 10's AMG still names its ROADMAP.md item. Item 8's builders are
-    ported: BiCGStab solves with them, relayed onto the padded operator, in
-    as many iterations as JAX's within the band."""
+    """Every preconditioner a string names is ported. Item 8's: BiCGStab
+    solves with them, relayed onto the padded operator, in as many
+    iterations as JAX's within the band. Item 10's AMG: CG solves with the
+    RCM-ordered 1-D V-cycle in as many iterations as JAX's within the band."""
     tA, jA, b = _poisson_f32(4)
+    kw = dict(M=M, tol=1e-5, max_iter=200)
+    if item == 10:
+        kw["method"] = "cg"
+    x, info = tsp.solve(tA, b, device="cpu", **kw)
+    xj, info_j = jsp.solve(jA, b, **kw)
+    assert info.converged and bool(info_j.converged) and _true_res(tA, x, b) < 1e-4
+    assert abs(info.iterations - int(info_j.iterations)) <= _band(int(info_j.iterations))
+    xj = torch.from_numpy(np.array(xj))
+    assert float(torch.linalg.norm(x - xj) / torch.linalg.norm(xj)) < 1e-3
     if item == 8:
-        kw = dict(M=M, tol=1e-5, max_iter=200)
-        x, info = tsp.solve(tA, b, device="cpu", **kw)
-        xj, info_j = jsp.solve(jA, b, **kw)
-        assert info.converged and bool(info_j.converged) and _true_res(tA, x, b) < 1e-4
-        assert abs(info.iterations - int(info_j.iterations)) <= _band(int(info_j.iterations))
-        xj = torch.from_numpy(np.array(xj))
-        assert float(torch.linalg.norm(x - xj) / torch.linalg.norm(xj)) < 1e-3
         assert isinstance(tsp.prepare(tA, device="cpu", **kw)._run.keywords["M"],
                           tsp.RelayedPrecond)
-        return
-    with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
-        tsp.solve(tA, b, M=M, device="cpu")
+    else:
+        from sprsolve_tpu_torch.ops.reordered import Reordered
+
+        assert isinstance(tsp.prepare(tA, device="cpu", **kw).operator, Reordered)
 
 
 def test_object_api_precond_solve_matches_jax():
@@ -365,6 +390,11 @@ def test_import_leaves_jax_out():
         "import sprsolve_tpu_torch.sparse.bsr, sprsolve_tpu_torch.ops.reordered\n"
         "import sprsolve_tpu_torch.ops.hybrid, sprsolve_tpu_torch.multigrid\n"
         "import sprsolve_tpu_torch.utils.tuning\n"
+        "import sprsolve_tpu_torch.solvers.gmres, sprsolve_tpu_torch.solvers.fgmres\n"
+        "import sprsolve_tpu_torch.solvers.idrs, sprsolve_tpu_torch.solvers.cgs\n"
+        "import sprsolve_tpu_torch.solvers.tfqmr, sprsolve_tpu_torch.solvers.ca_cg\n"
+        "import sprsolve_tpu_torch.solvers.ca_bicgstab, sprsolve_tpu_torch.solvers.block_cg\n"
+        "import sprsolve_tpu_torch.solvers.refine\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'sprsolve_tpu'))\n"
         "assert not bad, bad\n"

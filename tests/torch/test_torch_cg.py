@@ -107,7 +107,17 @@ def test_record_residuals_matches_jax():
 
 
 def test_cg_single_sync_names_its_roadmap_item():
-    tA = tprob.poisson3d(4, 4, 4)
+    """Item 10 is ported: ``method="cg_single_sync"`` solves, in as many
+    iterations as the JAX package's within the band, and prepare() runs
+    the same solve."""
+    tA, jA = tprob.poisson3d(4, 4, 4), jprob.poisson3d(4, 4, 4)
     b = np.ones(64, np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tsp.solve(tA, b, method="cg_single_sync", device="cpu")
+    kw = dict(method="cg_single_sync", M="jacobi", tol=1e-5, max_iter=200)
+    x, info = tsp.solve(tA, b, device="cpu", **kw)
+    xj, info_j = jsp.solve(jA, b, **kw)
+    assert info.converged and bool(info_j.converged)
+    its_j = int(info_j.iterations)
+    assert abs(info.iterations - its_j) <= max(3, -(-its_j // 4))
+    np.testing.assert_allclose(x.numpy(), np.asarray(xj), rtol=1e-3, atol=1e-4)
+    x2, info2 = tsp.prepare(tA, device="cpu", **kw)(b)
+    assert torch.equal(x, x2) and info2.iterations == info.iterations

@@ -857,3 +857,53 @@ def test_cuda_bsr_matches_scipy_with_tf32_allowed(dtype, cuda):
     want = S.astype(np.complex128) @ x.astype(np.complex128)
     tol = 1e-12 if dtype in (np.float64, np.complex128) else 1e-5
     np.testing.assert_allclose(y, want, rtol=tol, atol=tol * np.abs(want).max())
+
+
+def _smoke(monkeypatch):
+    """``chip_smoke.py``'s module, with phase 13 set to check launch counts
+    alone (its 32³ CGS and TFQMR drift, as the JAX package's do)."""
+    import importlib
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    monkeypatch.syspath_prepend(root)
+    smoke = importlib.import_module("chip_smoke")
+    monkeypatch.setattr(smoke, "STRICT", False)
+    return smoke
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("phase", ["nonsym", "spd", "mg", "inner", "complex", "refine"])
+def test_cuda_phase13_exact_launch_counts_at_32(phase, monkeypatch, cuda):
+    """Phase 13's cases (a)-(g) on the card at a 32³ grid, each asserting
+    its exact launch counts (GMRES its + cycles + 1, CGS 1 + 2·its, block
+    CG 8·(its + 1), batched BiCGStab per column as its single solve, ...)."""
+    smoke = _smoke(monkeypatch)
+    fn = getattr(smoke, "phase_refine" if phase == "refine" else f"phase_krylov_{phase}")
+    fn(cuda, grid=32, timed=False)
+
+
+@pytest.mark.cuda
+def test_cuda_basis_products_ignore_a_global_tf32(cuda):
+    """GMRES's basis products and block CG's Gram products run with TF32
+    off whatever the global setting: with it on, the count and x are those
+    of a run with it off."""
+    A = problems.convection_diffusion3d(32, 32, 32, peclet=20.0)
+    op = tsp.optimize(A, device=cuda)
+    rng = np.random.default_rng(3)
+    cols = [op.pad_vec(torch.as_tensor(rng.standard_normal(A.shape[0]), dtype=torch.float32,
+                                       device=cuda)) for _ in range(5)]
+    b, B = cols[0], torch.stack(cols[1:], dim=1)
+    runs = {}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            g = tsp.gmres(op, b, M=op.jacobi_precond(), tol=1e-5, max_iter=500, restart=32)
+            k = tsp.block_cg(op, B, tol=1e-5, max_iter=500)
+            runs[tf32] = (g, k)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for (x0, i0), (x1, i1) in zip(runs[False], runs[True]):
+        assert int(i0.iterations) == int(i1.iterations) and torch.equal(x0, x1)

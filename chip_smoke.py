@@ -32,6 +32,16 @@ Phases, each printing lines of its own:
    exceeds twice L2), the plain versions', each kernel's bound, K2's
    w = r0 variant as a row of its own and, for K1 and K5, the time of
    ``torch.mv`` on a ``torch.sparse_csr_tensor`` of the same matrix.
+   K1b (dia_spmm, the column-batched K1) on every real band set at 1, 3,
+   4, 8, 12 and 17 columns, and at every other shape phase 14 gives it
+   (64³ at 4, 8, 12 columns; 32³ at 8 and 16): each column bitwise K1's
+   on it, also with the card said to have 1 or 7 SMs (one wave of a few
+   blocks walking the tiles), halo rows zero after a NaN block was freed,
+   within Y_RTOL of its plain version, one kernel per call under
+   torch.profiler; its graph-replayed warm and
+   cold times at the shift-invert shape (64³) and the LOBPCG shape
+   (100³), m = 12, beside twelve K1 calls, its plain version, its bytes
+   bound and ``torch.sparse.mm`` on the same CSR.
 4. slice   — ``solve(A, b, method="bicgstab", M="jacobi")`` on the 100³
    Poisson in f32, with the launch counters reset just before: it must
    converge, reach a true relative residual (f64, scipy) below 1e-3, launch
@@ -121,7 +131,7 @@ Phases, each printing lines of its own:
    its), CGS (1 + 2·its), TFQMR (3 + 2·its) and the s-step BiCGStab on
    the unpadded DIA (no kernel), GMRES and IDR(4) profiled; (b) phase 4's
    Poisson: single-sync CG (K1 its + 2, K3 never), the s-step CG with the
-   Jacobi fold (no kernel), block CG on 8 columns (K1 8·(its + 1)) and
+   Jacobi fold (no kernel), block CG on 8 columns (K1b its + 1) and
    batched BiCGStab + Jacobi on 4 of them (each column its single solve);
    (c) CG with the geometric V-cycle relayed onto the PaddedDIA (K1 once,
    K3 its) and with ``M="amg"`` (RCM, a 1-D hierarchy; the reordered
@@ -135,15 +145,34 @@ Phases, each printing lines of its own:
    1e-11 (1e-10 complex) and equal to ``refine_solve``'s x.  The counts
    within max(3, ⌈its/4⌉) of the JAX package's 1M-row counts (IDR(s)
    excepted: another shadow draw).
+14. eigen — the eigensolvers at the widths of the repo's bench
+   (``bench.py:860-1000``), each through its public entry point with no
+   ``device`` argument, the launch counters reset before each and its K1b
+   count required exactly: (a) ``lobpcg`` on the 100³ Poisson's PaddedDIA
+   with ``GridMGPrecond`` (k = 4, tol 5e-4): CONVERGED, λ₀ within tol of
+   3·(2·sin(π/202))², the worst measured residual within tol, K1b
+   its + 1; the unpreconditioned run printed. (b) ``shift_invert_eigs``
+   on the 64³ Poisson (σ = 1, max_iter 60, inner_max_iter 600): the four λ
+   the analytic ones nearest σ within tol·|λ|, the measured residuals
+   within tol, K1b Σ(1 + lockstep iterations) + 1; the idle share of one
+   inverted apply. (c) ``rational_filter_eigs`` on the 32³ Poisson (m0 =
+   8, 4 nodes, inner_refine 1): the analytic λ, K1b Σ(1 + lockstep
+   iterations) + one per subspace iteration. (d) MINRES on a
+   ``ShiftedOperator`` (σ = 0.01) of the 1M-row PaddedDIA: its matvec
+   bitwise K1 − σ·x, K1 its + 2, true residual below 1e-3. (a) is timed
+   once more after its checked run; (b) and (c), minutes long, are timed
+   in their checked run, after a warm-up call on a one-step budget.
 
-The line before the last is a JSON object with one entry per kernel (K1-K7,
-each with its warm ``ms`` and its ``cold_ms``);
+The line before the last is a JSON object with one entry per kernel (K1-K7
+and K1b, each with its warm ``ms`` and its ``cold_ms``; K1b's launches are
+phase 14 (a)'s, the LOBPCG run, with (b)'s and (c)'s printed beside them);
 the last line is ``{"ok": true, "device": {...}}``.  Any failure raises, and
 the script exits non-zero.  It imports no JAX.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import importlib
 import json
@@ -175,6 +204,7 @@ SEED = 0
 GRID = 100          # the 100³ Poisson: 1,000,000 rows, 6,940,000 nnz
 KERNELS = {   # name → (source, the TPU kernel it replaces)
     "dia_spmv": ("sprsolve_tpu_torch/csrc/dia_spmv.cu", "sprsolve_tpu/ops/pallas_spmv.py:131"),
+    "dia_spmm": ("sprsolve_tpu_torch/csrc/dia_spmv.cu", "sprsolve_tpu/ops/pallas_spmv.py:131"),
     "dia_wdot": ("sprsolve_tpu_torch/csrc/dia_spmv.cu", "sprsolve_tpu/ops/pallas_spmv.py:159"),
     "dia_dot": ("sprsolve_tpu_torch/csrc/dia_spmv.cu", "sprsolve_tpu/ops/pallas_spmv.py:140"),
     "orth_norm": ("sprsolve_tpu_torch/csrc/fused.cu", "sprsolve_tpu/ops/pallas_fused.py:37"),
@@ -271,24 +301,84 @@ def cold_device_ms(call, operands, reps: int = 5) -> float:
     return device_ms(one_pass, reps=reps, inner=2) / n
 
 
+class _KernelNodeParams(ctypes.Structure):
+    """``CUDA_KERNEL_NODE_PARAMS_v2`` of ``libcuda``'s graph API."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("shared_bytes", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_nodes(fn) -> list:
+    """``[(name, nan)]`` of the nodes of one call of ``fn`` captured in a
+    CUDA graph, read through ``libcuda``'s graph API: a kernel node by its
+    function's name, any other node by its ``CUgraphNodeType`` number."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def ok(err, what):
+        if err:
+            raise RuntimeError(f"{what} returned CUresult {err}")
+
+    # the warm-up runs on the capture stream, so that per-stream state (the
+    # dot kernels' scratch) exists before the capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, stream=side):
+        fn()
+    g = ctypes.c_void_p(graph.raw_cuda_graph())
+    count = ctypes.c_size_t(0)
+    ok(cu.cuGraphGetNodes(g, None, ctypes.byref(count)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * max(count.value, 1))()
+    ok(cu.cuGraphGetNodes(g, nodes, ctypes.byref(count)), "cuGraphGetNodes")
+    out = []
+    for node in nodes[:count.value]:
+        kind = ctypes.c_int(-1)
+        ok(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+           "cuGraphNodeGetType")
+        if kind.value != 0:   # CU_GRAPH_NODE_TYPE_KERNEL
+            out.append((f"node type {kind.value}", float("nan")))
+            continue
+        kp = _KernelNodeParams()
+        ok(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node), ctypes.byref(kp)),
+           "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if kp.func:
+            ok(cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(kp.func)), "cuFuncGetName")
+        else:
+            ok(cu.cuKernelGetName(ctypes.byref(name), ctypes.c_void_p(kp.kern)),
+               "cuKernelGetName")
+        out.append((name.value.decode(), float("nan")))
+    return out
+
+
 def kernel_events(fn) -> list:
     """``[(name, µs)]`` of the device events (kernels, copies, memsets) of
-    one call of ``fn`` under torch.profiler, after a warm-up call."""
+    one call of ``fn`` under torch.profiler, after a warm-up call. A trace
+    can come back with no device event at all (seen once in ~20 profiled
+    calls on the card, and eight times in a row once, on K6 after the
+    cuSPARSE yardsticks had run): it is taken again up to eight times, and
+    then the call is counted from its CUDA graph instead (:func:`graph_nodes`,
+    no times), which the log line says."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # a trace can come back with no device event at all (seen once in ~20
-    # profiled calls on the card): take it again, up to three times
-    for _ in range(3):
+    for _ in range(8):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
         if events:
-            break
+            return events
+    events = graph_nodes(fn)
+    log("profiler", note="eight empty traces; the call counted from its CUDA graph",
+        nodes=";".join(n for n, _ in events))
     return events
 
 
@@ -345,7 +435,8 @@ def band_sets(dev):
 
 
 def launch_counts() -> dict:
-    return {"dia_spmv": pd.dia_spmv.launches, "dia_wdot": pd.dia_wdot.launches,
+    return {"dia_spmv": pd.dia_spmv.launches, "dia_spmm": pd.dia_spmm.launches,
+            "dia_wdot": pd.dia_wdot.launches,
             "dia_dot": pd.dia_dot.launches, "orth_norm": fused.orth_norm.launches,
             "dia_complex_spmv": pd.dia_complex_spmv.launches,
             "dia_complex_dot": pd.dia_complex_dot.launches,
@@ -743,6 +834,135 @@ def complex_kernel_stats(op, x, w, dinv) -> dict:
     return stats
 
 
+# --- phase 3, K1b: the column-batched K1 -------------------------------------
+SPMM_COLUMNS = (1, 3, 4, 8, 12, 17)   # the block widths of phase 3's K1b checks at 1M rows
+SPMM_SMS = (1, 7)   # forced SM counts: one wave of a few blocks, each walking many tiles
+EIGEN_BLOCK = 12                # LOBPCG's (n, 3k) block at k = 4
+
+
+def spmm_tiles(lib, X2, Y, m: int, n_pad: int) -> int:
+    """The tiles of SPMM_TILE column groups that K1b walks on this block
+    (the kernel's own column grouping, asked of the library)."""
+    w = lib.sprsolve_dia_spmm_width(pd._VCODE[X2.dtype], m, X2.data_ptr(), Y.data_ptr())
+    return -(-(n_pad * (m // w)) // pd.SPMM_TILE)
+
+
+def check_spmm_kernel(name, op, rng, errs, profile: bool, columns=SPMM_COLUMNS) -> None:
+    """K1b on one band set at every width of ``columns``: column j bitwise
+    K1's on column j (halo rows zero after a NaN block was freed), the
+    same bitwise with the card said to have SPMM_SMS SMs (one wave of a few
+    blocks walking the tiles), within Y_RTOL of the plain version; with
+    ``profile``, one kernel per call."""
+    dt, b, o, h = op.vdtype, op.bands, op.offsets, op.h
+    absb = b.to(dt).abs()
+    lib, sm_count = _cuda_build.load(), pd._sm_count
+    walks = []
+    for m in columns:
+        X2 = op.pad_block(torch.as_tensor(rng.standard_normal((op.n, m)), dtype=dt,
+                                          device=b.device))
+        dirty(X2)
+        Y = pd.dia_spmm(b, X2, o, h)
+        for j in range(m):
+            if not torch.equal(Y[:, j], pd.dia_spmv(b, X2[:, j].contiguous(), o, h)):
+                raise AssertionError(f"{name} K1b m={m}: column {j} is not K1's bit for bit")
+        if bool(Y[:h].any()) or bool(Y[h + op.n:].any()):
+            raise AssertionError(f"{name} K1b m={m}: nonzero halo or tail rows")
+        tiles = spmm_tiles(lib, X2, Y, m, op.n_pad)
+        # an SM holds at most 2048 threads: 8 blocks of SPMM_TILE
+        if tiles <= 8 * max(SPMM_SMS):
+            raise AssertionError(f"{name} K1b m={m}: {tiles} tiles walk no forced grid")
+        walks.append(tiles // (8 * max(SPMM_SMS)))
+        try:
+            for sms in SPMM_SMS:
+                pd._sm_count = lambda index, sms=sms: sms
+                if not torch.equal(pd.dia_spmm(b, X2, o, h), Y):
+                    raise AssertionError(f"{name} K1b m={m}: the grid of {sms} SMs differs")
+        finally:
+            pd._sm_count = sm_count
+        scale = pd.dia_spmm_plain(absb, X2.abs(), o, h).max()
+        e = check_close(f"{name} K1b m={m}", Y, pd.dia_spmm_plain(b, X2, o, h), scale,
+                        Y_RTOL[dt])
+        errs["dia_spmm"] = max(errs["dia_spmm"], e)
+        if profile and m == EIGEN_BLOCK:
+            ev = kernel_events(lambda: pd.dia_spmm(b, X2, o, h))
+            if len(ev) != 1 or "dia_spmm_kernel" not in ev[0][0]:
+                raise AssertionError(f"K1b: one call ran {ev}, not one kernel")
+            log("kernels", set=name, call=f"K1b m={m}", profiler_events=1,
+                kernel_us=f"{ev[0][1]:.3f}")
+    torch.cuda.synchronize()
+    log("kernels", set=name, kernel="K1b", columns=",".join(map(str, columns)),
+        result="each column bitwise K1's, also on the one-wave grids of "
+        + " and ".join(map(str, SPMM_SMS)) + " SMs; halo rows zero",
+        least_tiles_per_block_walked=min(walks))
+
+
+def library_spmm_ms(what, csr, X, Y_kernel):
+    """``torch.sparse.mm`` of a ``torch.sparse_csr_tensor`` of the same
+    matrix on the unpadded (n, m) block: K1b's yardstick, never called by
+    the port. Its graph-replayed ms, or None (printed) where torch cannot
+    run it on the card."""
+    try:
+        S = torch.sparse_csr_tensor(
+            torch.as_tensor(csr.indptr.numpy().astype(np.int32), device=X.device),
+            torch.as_tensor(csr.indices.numpy().astype(np.int32), device=X.device),
+            torch.as_tensor(csr.data.numpy(), device=X.device), size=csr.shape)
+        Y = torch.sparse.mm(S, X)
+        err = float((Y - Y_kernel).abs().max())
+        t = device_ms(lambda: torch.sparse.mm(S, X))
+    except Exception as e:   # the yardstick only: report, and time nothing
+        log("library", kernel=what, call="torch.sparse.mm(sparse_csr, X)",
+            unavailable=repr(e)[:200])
+        return None
+    log("library", kernel=what, call="torch.sparse.mm(sparse_csr, X)", columns=X.shape[1],
+        ms=f"{t:.5f}", max_abs_diff_vs_kernel=f"{err:.3e}")
+    return t
+
+
+def spmm_stats(tag, A, op, rng) -> dict:
+    """K1b at an eigensolver's shape (``op`` from ``A``, m = EIGEN_BLOCK
+    f32 columns): graph-replayed warm and cold device time, the plain
+    version's, the wrapper's, the bytes bound (bands once, the block read
+    once and written once) and ``torch.sparse.mm``'s time; twelve K1 calls
+    on the same columns beside it."""
+    m, b, o, h = EIGEN_BLOCK, op.bands, op.offsets, op.h
+    X = torch.as_tensor(rng.standard_normal((op.n, m)), dtype=torch.float32,
+                        device=b.device)
+    X2 = op.pad_block(X)
+    Y2 = pd.dia_spmm(b, X2, o, h)
+    cols = [X2[:, j].contiguous() for j in range(m)]
+    bms, by = bound_ms(nbytes(b, X2, Y2), 2.0 * len(o) * op.n_pad * m, torch.float32)
+    st = {"ms": device_ms(lambda: pd.dia_spmm(b, X2, o, h)),
+          "cold_ms": cold_device_ms(lambda b, x: pd.dia_spmm(b, x, o, h), (b, X2)),
+          "plain_ms": device_ms(lambda: pd.dia_spmm_plain(b, X2, o, h)),
+          "wrapper_ms": median_ms(lambda: pd.dia_spmm(b, X2, o, h)),
+          "bound_ms": bms, "bound_by": by,
+          "k1_x12_ms": device_ms(lambda: [pd.dia_spmv(b, c, o, h) for c in cols]),
+          "library_ms": library_spmm_ms(f"K1b {tag}", A, X, op.unpad_block(Y2))}
+    log("kernels", set=tag, kernel="dia_spmm", columns=m, timing="graph-replayed",
+        **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in st.items()},
+        share_of_bound=f"{bms / st['ms']:.3f}", cold_share_of_bound=f"{bms / st['cold_ms']:.3f}")
+    return st
+
+
+def phase_spmm(dev, errs, stats):
+    """Phase 3, K1b: every band set of phase 3 (1M rows: int8, f32, bf16,
+    f64) at SPMM_COLUMNS, then every other shape the eigen phase gives
+    K1b (64³ at 4, 8 and 12 columns for shift-invert, 32³ at 8 and 16 for
+    the rational filter's Rayleigh-Ritz and its two planes of 8), then the
+    timings at the shift-invert shape (64³) and the LOBPCG shape (100³),
+    m = 12; the kernel line reports the LOBPCG shape."""
+    rng = np.random.default_rng(SEED + 9)
+    for name, op, _ in band_sets(dev):
+        check_spmm_kernel(name, op, rng, errs, profile=name == "poisson100_int8")
+    A64, A32 = (problems.poisson3d(g, g, g) for g in (SI_GRID, RF_GRID))
+    op64, op32 = (spt.optimize(a, device=dev) for a in (A64, A32))
+    check_spmm_kernel(f"poisson{SI_GRID}_int8", op64, rng, errs, False, (4, 8, 12))
+    check_spmm_kernel(f"poisson{RF_GRID}_int8", op32, rng, errs, False, (8, 16))
+    spmm_stats(f"poisson{SI_GRID}_int8", A64, op64, rng)
+    A = problems.poisson3d(GRID, GRID, GRID)
+    stats["dia_spmm"] = spmm_stats("poisson100_int8", A, spt.optimize(A, device=dev), rng)
+
+
 def phase_orth_norm(name, op, mk, errs):
     """K4 on three vectors of ``op``'s layout, with β and α as 0-d CUDA
     tensors as MINRES passes them; returns its and its plain version's
@@ -890,7 +1110,7 @@ def phase_symmetric(dev):
         if not (info.converged and res < 1e-3 and bool(torch.isfinite(x).all())
                 and x.shape == (A.shape[0],)):
             raise AssertionError(f"{name}: {info}, true residual {res:.3e}")
-        want = {"dia_spmv": 1, "dia_wdot": 0,
+        want = {"dia_spmv": 1, "dia_spmm": 0, "dia_wdot": 0,
                 "dia_dot": n if name == "cg" else n + 1,
                 "orth_norm": 0 if name == "cg" else n + 1,
                 "dia_complex_spmv": 0, "dia_complex_dot": 0, "dia_complex_wdot": 0}
@@ -969,7 +1189,7 @@ def phase_nonsymmetric(dev):
     wall = time.perf_counter() - t0
     c, n = launch_counts(), int(info.iterations)
     res = true_residual(A, x, b)
-    want = {"dia_spmv": 1, "dia_wdot": 4 * n, "dia_dot": 0, "orth_norm": 0,
+    want = {"dia_spmv": 1, "dia_spmm": 0, "dia_wdot": 4 * n, "dia_dot": 0, "orth_norm": 0,
             "dia_complex_spmv": 0, "dia_complex_dot": 0, "dia_complex_wdot": 0}
     if not (info.converged and res < 1e-3 and c == want):
         raise AssertionError(f"auto on convection-diffusion: {info}, true residual "
@@ -1078,7 +1298,7 @@ def phase_complex(dev):
                 and x.shape == (A.shape[0],) and x.dtype == torch.complex64
                 and x.device.type == dev.type):
             raise AssertionError(f"complex {name}: {info}, true residual {res:.3e}")
-        real = {k: c[k] for k in ("dia_spmv", "dia_wdot", "dia_dot", "orth_norm")}
+        real = {k: c[k] for k in ("dia_spmv", "dia_spmm", "dia_wdot", "dia_dot", "orth_norm")}
         want = {"auto": (n + 1, 0, 0), "cs_minres": (1, n + 1, 0),
                 "bicgstab": (c["dia_complex_spmv"], 0, 2 * n)}[name]
         got = (c["dia_complex_spmv"], c["dia_complex_dot"], c["dia_complex_wdot"])
@@ -1189,7 +1409,7 @@ def phase_c128(dev):
 
 
 # --- phase 11: the preconditioners ------------------------------------------
-REAL_KERNELS = ("dia_spmv", "dia_dots", "orth_norm")
+REAL_KERNELS = ("dia_spmv", "dia_spmm", "dia_dots", "orth_norm")
 
 
 def expect_counts(what, got, **nonzero):
@@ -2013,8 +2233,8 @@ def phase_krylov_nonsym(dev, grid=GRID, timed=True):
 def phase_krylov_spd(dev, grid=GRID, timed=True):
     """Phase 13 (b): phase 4's Poisson: single-sync CG (K1 once per
     iteration, K3 never), the s-step CG with the Jacobi fold (no kernel),
-    block CG on 8 columns (K1 8 times per iteration) and batched BiCGStab
-    on 4 of them (each column as its single solve)."""
+    block CG on 8 columns (one K1b per iteration: the block is one launch)
+    and batched BiCGStab on 4 of them (each column as its single solve)."""
     A = problems.poisson3d(grid, grid, grid)
     n = A.shape[0]
     b = poisson_rhs(A)
@@ -2041,7 +2261,7 @@ def phase_krylov_spd(dev, grid=GRID, timed=True):
     X2, info = out
     m = int(info.iterations)
     res = max(true_residual(A, op.unpad_vec(X2[:, j]), B[:, j]) for j in range(8))
-    krylov_check("block_cg(8 columns)", out, c, {"dia_spmv": 8 * (m + 1)}, res, 1e-3,
+    krylov_check("block_cg(8 columns)", out, c, {"dia_spmm": m + 1}, res, 1e-3,
                  wall_s=f"{wall:.4f}")
     if timed:
         krylov_times("block_cg", run, dev, m)
@@ -2271,6 +2491,327 @@ def phase_krylov(dev, grid=GRID, timed=True):
     log("krylov", seconds=f"{time.perf_counter() - t0:.2f}")
 
 
+# --- phase 14: the eigensolvers ----------------------------------------------
+EIGS_K = 4             # pairs wanted (bench.py:860-1000)
+EIGS_TOL = 5e-4
+SI_GRID = 64           # shift-invert's Poisson (bench.py:916)
+SI_MAX_ITER = 60
+SI_INNER_MAX_ITER = 600
+RF_GRID = 32           # the rational filter's Poisson (bench.py:977)
+RF_INNER_MAX_ITER = 3000
+RF_NODES = 4
+RF_REFINE = 1
+SIGMA = 1.0
+SHIFT = 0.01           # ShiftedOperator's σ in (d)
+eigs_mod = importlib.import_module("sprsolve_tpu_torch.solvers.eigs")
+rat_mod = importlib.import_module("sprsolve_tpu_torch.solvers.rational")
+
+
+def entry_kw(dev) -> dict:
+    """The entry points' device argument: none on the card (they run there
+    by default), ``device`` elsewhere."""
+    return {} if torch.device(dev).type == "cuda" else {"device": dev}
+
+
+def poisson_eigs(grid: int) -> np.ndarray:
+    """Every eigenvalue of the grid³ 7-point Poisson, with multiplicity:
+    sums over the three axes of 2 − 2·cos(πj/(grid + 1)), j = 1..grid."""
+    e = 2.0 - 2.0 * np.cos(np.pi * np.arange(1, grid + 1) / (grid + 1))
+    return (e[:, None, None] + e[None, :, None] + e[None, None, :]).ravel()
+
+
+def poisson_eigs_nearest(grid: int, sigma: float, k: int) -> np.ndarray:
+    """The k eigenvalues of the grid³ Poisson nearest σ, ascending."""
+    lam = poisson_eigs(grid)
+    return np.sort(lam[np.argsort(np.abs(lam - sigma), kind="stable")[:k]])
+
+
+def match_nearest(got, grid: int, sigma: float, tol: float) -> tuple:
+    """Whether the returned λ are the analytic eigenvalues nearest σ
+    within tol·|λ|: ``(ok, exact)``. ``exact``: the sorted λ within
+    tol·|λ| of the k nearest counted with multiplicity. ``ok``: each λ
+    within tol·|λ| of its own analytic eigenvalue (one per λ, as far as
+    the multiplicities go) at a distance from σ at most the k-th nearest's
+    plus tol·max|λ| — the k nearest up to the tolerance, which is all a
+    tol-level answer can tell apart where two eigenvalues' distances to σ
+    differ by less than tol·|λ| (at 64³: 0.998321 and 1.001746, each
+    6-fold, 7e-5 apart in distance)."""
+    got = np.sort(np.asarray(got, np.float64))
+    k = got.size
+    lam = poisson_eigs(grid)
+    dist = np.abs(lam - sigma)
+    order = np.argsort(dist, kind="stable")
+    exact = k > 0 and bool(np.all(np.abs(got - np.sort(lam[order[:k]])) <= tol * np.abs(got)))
+    if k == 0:
+        return False, False
+    reach = dist[order[k - 1]] + tol * float(np.abs(got).max())
+    cand = sorted(lam[dist <= reach].tolist())
+    for v in got:   # injective: each analytic eigenvalue (with multiplicity) once
+        j = min(range(len(cand)), key=lambda i: abs(cand[i] - v), default=None)
+        if j is None or abs(cand[j] - v) > tol * abs(v):
+            return False, exact
+        cand.pop(j)
+    return True, exact
+
+
+def pair_residuals(A, lam, X) -> np.ndarray:
+    """‖A·xᵢ − λᵢ·xᵢ‖/‖xᵢ‖ per pair, scipy f64 on the CSR."""
+    import scipy.sparse as sps
+
+    S = sps.csr_matrix((A.data.numpy().astype(np.float64), A.indices.numpy(),
+                        A.indptr.numpy()), shape=A.shape)
+    Xh = X.detach().cpu().numpy().astype(np.float64)
+    lh = lam.detach().cpu().numpy().astype(np.float64)
+    return np.linalg.norm(S @ Xh - Xh * lh[None, :], axis=0) / np.linalg.norm(Xh, axis=0)
+
+
+def recorded(module, name, steps):
+    """``module.name`` (a lockstep block solve) replaced by one that
+    appends each solve's lockstep iterations to ``steps``; returns the
+    original, to be put back."""
+    orig = getattr(module, name)
+
+    def run(*args, **kwargs):
+        X, info, n = orig(*args, **kwargs)
+        steps.append(n)
+        return X, info, n
+
+    setattr(module, name, run)
+    return orig
+
+
+def eig_check(tag, info, counts, want, **extra):
+    """Raise unless the counts are exactly ``want`` (every kernel not named
+    at 0) and, under STRICT, the solve is CONVERGED."""
+    expect = dict.fromkeys(KERNELS, 0)
+    expect.update(want)
+    if counts != expect:
+        raise AssertionError(f"{tag}: launch counts {counts}, expected {expect}")
+    if STRICT and int(info.status) != int(spt.Status.CONVERGED):
+        raise AssertionError(f"{tag}: {info}")
+    log("eigen", entry=tag, status=spt.Status(int(info.status)).name,
+        iterations=int(info.iterations), residual=f"{float(info.residual):.4e}",
+        **{f"{k}_launches": v for k, v in counts.items() if v}, **extra)
+
+
+def eig_timed(tag, run, dev, steps: int, unit: str):
+    """One timed call of ``run`` after the checked one: wall seconds and ms
+    per ``unit``."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    log("eigen", entry=f"timed({tag})", wall_s=f"{wall:.4f}",
+        **{f"ms_per_{unit}": f"{wall / max(steps, 1) * 1e3:.4f}"})
+    return wall
+
+
+def eig_warm_up(A, dev, warm) -> float:
+    """Before a long eigen run, which is then the timed one: ``warm()``,
+    the same entry point on a budget of one step (every code path, each
+    library's first call), and the set-up seconds of ``optimize()`` on A,
+    which the timed run's wall includes."""
+    warm()
+    _sync(dev)
+    t0 = time.perf_counter()
+    spt.optimize(A, **entry_kw(dev))
+    _sync(dev)
+    return time.perf_counter() - t0
+
+
+def phase_eigen_lobpcg(dev, grid=GRID, timed=True):
+    """Phase 14 (a): LOBPCG on the Poisson with the geometric V-cycle as M,
+    A the PaddedDIA of optimize(): K1b once per iteration plus once; λ₀
+    within tol of 3·(2·sin(π/(2(grid + 1))))², the worst measured residual
+    ‖A·x − λx‖/(|λ| + max|λ|) within tol. Then the unpreconditioned run
+    (gap-limited), printed."""
+    A = problems.poisson3d(grid, grid, grid)
+    n = A.shape[0]
+    t0 = time.perf_counter()
+    op = spt.optimize(A, **entry_kw(dev))
+    M = spt.GridMGPrecond.from_csr(A, (grid,) * 3, **entry_kw(dev))
+    setup = time.perf_counter() - t0
+    X0 = np.random.default_rng(SEED + 10).standard_normal((n, EIGS_K)).astype(np.float32)
+    run = lambda: spt.lobpcg(op, X0, M=M, tol=EIGS_TOL, max_iter=60)
+    (lam, X, info), c, wall = run_counted(run, dev)
+    its = int(info.iterations)
+    l1 = 3 * (2 * np.sin(np.pi / (2 * (grid + 1)))) ** 2
+    res = pair_residuals(A, lam, X) / (lam.abs().cpu().numpy() + float(lam.abs().max()))
+    if STRICT and not (abs(float(lam[0]) - l1) <= EIGS_TOL * l1 and res.max() <= EIGS_TOL):
+        raise AssertionError(f"lobpcg: λ₀ {float(lam[0])} against {l1}, residuals {res}")
+    eig_check("lobpcg(M=GridMG)", info, c, {"dia_spmm": its + 1},
+              K1b_formula="its + 1", lam0=f"{float(lam[0]):.8e}", lam0_analytic=f"{l1:.8e}",
+              lam=",".join(f"{v:.6e}" for v in lam.tolist()),
+              worst_measured_residual=f"{res.max():.4e}", setup_s=f"{setup:.4f}",
+              wall_s=f"{wall:.4f}")
+    if timed:
+        eig_timed("lobpcg(M=GridMG)", run, dev, its, "lobpcg_step")
+    run_u = lambda: spt.lobpcg(op, X0, tol=EIGS_TOL, max_iter=80)
+    (lam_u, _, info_u), c_u, wall_u = run_counted(run_u, dev)
+    if c_u["dia_spmm"] != int(info_u.iterations) + 1:
+        raise AssertionError(f"lobpcg without M: counts {c_u}, {info_u}")
+    log("eigen", entry="lobpcg(no M)", status=spt.Status(int(info_u.status)).name,
+        iterations=int(info_u.iterations), residual=f"{float(info_u.residual):.4e}",
+        lam0=f"{float(lam_u[0]):.8e}", dia_spmm_launches=c_u["dia_spmm"],
+        wall_s=f"{wall_u:.4f}", note="gap-limited; printed, not asserted")
+    return c["dia_spmm"]
+
+
+def phase_eigen_shift_invert(dev, grid=SI_GRID, timed=True):
+    """Phase 14 (b): shift_invert_eigs on the grid³ Poisson (f32, k = 4,
+    σ = 1): two LOBPCG passes on the inverted operator, each apply one
+    lockstep block MINRES on a ShiftedOperator over the flat view of the
+    PaddedDIA; K1b = Σ(1 + lockstep iterations) over the inner solves, plus
+    one for the Rayleigh quotients on A. The four λ equal the analytic ones
+    nearest σ within tol·|λ| (:func:`match_nearest`), the measured
+    residuals within tol."""
+    A = problems.poisson3d(grid, grid, grid)
+    kw = dict(tol=EIGS_TOL, max_iter=SI_MAX_ITER, inner_max_iter=SI_INNER_MAX_ITER,
+              **entry_kw(dev))
+    run = lambda: spt.shift_invert_eigs(A, EIGS_K, SIGMA, **kw)
+    if timed:
+        setup = eig_warm_up(A, dev, lambda: spt.shift_invert_eigs(
+            A, EIGS_K, SIGMA, **{**kw, "max_iter": 1, "inner_max_iter": 10}))
+    steps = []
+    orig = recorded(eigs_mod, "_minres_block", steps)
+    try:
+        (lam, X, info), c, wall = run_counted(run, dev)
+    finally:
+        setattr(eigs_mod, "_minres_block", orig)
+    its = int(info.iterations)
+    if len(steps) != its + 2:
+        raise AssertionError(f"shift_invert: {len(steps)} inner solves for {its} iterations")
+    want = poisson_eigs_nearest(grid, SIGMA, EIGS_K)
+    got = np.sort(lam.cpu().numpy().astype(np.float64))
+    res = pair_residuals(A, lam, X) / np.abs(lam.cpu().numpy())
+    ok, exact = match_nearest(got, grid, SIGMA, EIGS_TOL)
+    if STRICT and not (ok and res.max() <= EIGS_TOL):
+        raise AssertionError(f"shift_invert: λ {got} against {want}, residuals {res}")
+    eig_check("shift_invert_eigs", info, c, {"dia_spmm": sum(1 + s for s in steps) + 1},
+              K1b_formula="sum(1 + lockstep) + 1", inner_solves=len(steps),
+              lockstep_inner_iterations=sum(steps),
+              lam=",".join(f"{v:.7e}" for v in got), analytic=",".join(f"{v:.7e}" for v in want),
+              nearest_within_tol=ok, nearest_with_multiplicity=exact,
+              worst_measured_residual=f"{res.max():.4e}", wall_s_with_setup=f"{wall:.4f}")
+    if timed:
+        log("eigen", entry="timed(shift_invert_eigs)", wall_s=f"{wall:.4f}",
+            setup_s=f"{setup:.4f}", ms_per_lobpcg_step=f"{(wall - setup) / its * 1e3:.4f}",
+            ms_per_lockstep_iteration=f"{(wall - setup) / sum(steps) * 1e3:.4f}")
+    if timed and torch.device(dev).type == "cuda":
+        # the idle share of one inverted-operator apply: one lockstep MINRES
+        # on a 3k-column block
+        op = FlatViewOperator(op=spt.optimize(A, device=dev))
+        inv = eigs_mod.InvertedOperator(A=spt.ShiftedOperator(A=op, shift=SIGMA),
+                                        inner_tol=min(EIGS_TOL * 1e-2, 1e-8),
+                                        inner_max_iter=SI_INNER_MAX_ITER)
+        Xb = torch.as_tensor(np.random.default_rng(SEED + 11).standard_normal(
+            (A.shape[0], 3 * EIGS_K)), dtype=torch.float32, device=dev)
+        steps = []
+        orig = recorded(eigs_mod, "_minres_block", steps)
+        try:
+            prof = idle_share(lambda _: inv.matmat(Xb), None, names=("dia_spmm",))
+        finally:
+            setattr(eigs_mod, "_minres_block", orig)
+        if prof is None:
+            log("eigen", entry="profile(inverted apply)", note="the profiler saw no device time")
+        else:
+            n = steps[-1]
+            log("eigen", entry="profile(inverted apply)", lockstep_iterations=n,
+                wall_ms=f"{prof[0]:.4f}", device_busy_ms=f"{prof[1]:.4f}",
+                idle_share=f"{prof[2]:.4f}", k1b_ms=f"{prof[3]:.4f}",
+                ms_per_lockstep_iteration=f"{prof[0] / max(n, 1):.4f}")
+    return c["dia_spmm"]
+
+
+def phase_eigen_rational(dev, grid=RF_GRID, timed=True):
+    """Phase 14 (c): rational_filter_eigs on the grid³ Poisson (f32, k = 4,
+    σ = 1, m0 = 8, 4 nodes, one refinement pass): each node solve one
+    lockstep block COCG whose apply takes both planes in one K1b; K1b =
+    Σ(1 + lockstep iterations) over the node solves plus one Rayleigh–Ritz
+    apply per subspace iteration. The four λ equal the analytic ones
+    nearest σ within tol·|λ|."""
+    A = problems.poisson3d(grid, grid, grid)
+    kw = dict(tol=EIGS_TOL, inner_tol=1e-3, inner_max_iter=RF_INNER_MAX_ITER, m0=8,
+              n_quad=RF_NODES, inner_refine=RF_REFINE, seed=0, **entry_kw(dev))
+    run = lambda: spt.rational_filter_eigs(A, EIGS_K, SIGMA, **kw)
+    if timed:
+        setup = eig_warm_up(A, dev, lambda: spt.rational_filter_eigs(
+            A, EIGS_K, SIGMA, **{**kw, "max_iter": 1, "inner_max_iter": 10}))
+    steps = []
+    orig = recorded(rat_mod, "_cocg_block", steps)
+    try:
+        (lam, X, info), c, wall = run_counted(run, dev)
+    finally:
+        setattr(rat_mod, "_cocg_block", orig)
+    per_pass = RF_NODES * (1 + RF_REFINE)
+    passes, rest = divmod(len(steps), per_pass)
+    if rest:
+        raise AssertionError(f"rational: {len(steps)} node solves, not whole passes")
+    want = poisson_eigs_nearest(grid, SIGMA, EIGS_K)
+    got = np.sort(lam.cpu().numpy().astype(np.float64))
+    res = pair_residuals(A, lam, X) / np.abs(lam.cpu().numpy())
+    ok, exact = match_nearest(got, grid, SIGMA, EIGS_TOL)
+    if STRICT and not (ok and got.size == EIGS_K and res.max() <= EIGS_TOL):
+        raise AssertionError(f"rational: λ {got} against {want}, residuals {res}")
+    eig_check("rational_filter_eigs", info, c,
+              {"dia_spmm": sum(1 + s for s in steps) + passes},
+              K1b_formula="sum(1 + lockstep) + passes", subspace_iterations=passes,
+              inner_cocg_iterations=int(info.iterations), lockstep_iterations=sum(steps),
+              lam=",".join(f"{v:.7e}" for v in got), analytic=",".join(f"{v:.7e}" for v in want),
+              nearest_within_tol=ok, nearest_with_multiplicity=exact,
+              worst_measured_residual=f"{res.max():.4e}" if res.size else "none",
+              wall_s_with_setup=f"{wall:.4f}")
+    if timed:
+        log("eigen", entry="timed(rational_filter_eigs)", wall_s=f"{wall:.4f}",
+            setup_s=f"{setup:.4f}",
+            ms_per_subspace_iteration=f"{(wall - setup) / passes * 1e3:.4f}",
+            ms_per_lockstep_iteration=f"{(wall - setup) / sum(steps) * 1e3:.4f}")
+    return c["dia_spmm"]
+
+
+def phase_eigen_shifted(dev, grid=GRID):
+    """Phase 14 (d): ShiftedOperator(PaddedDIA, σ = 0.01): its matvec
+    bitwise K1 minus σ·x; functional MINRES on it (K1 its + 2, no fused
+    kernel) to tol 1e-4 with the true residual of (A − σI)·x − b below
+    1e-3."""
+    A = problems.poisson3d(grid, grid, grid)
+    op = spt.optimize(A, **entry_kw(dev))
+    S = spt.ShiftedOperator(A=op, shift=SHIFT)
+    rng = np.random.default_rng(SEED + 12)
+    x2 = op.pad_vec(torch.as_tensor(rng.standard_normal(op.n), dtype=torch.float32,
+                                    device=dev))
+    if not torch.equal(S.matvec(x2), pd.dia_spmv(op.bands, x2, op.offsets, op.h) - SHIFT * x2):
+        raise AssertionError("ShiftedOperator.matvec is not K1 − σ·x")
+    b = poisson_rhs(A)
+    bd = op.pad_vec(torch.as_tensor(b, device=dev))
+    (x, info), c, wall = run_counted(lambda: spt.minres(S, bd, tol=1e-4, max_iter=5000), dev)
+    its = int(info.iterations)
+    import scipy.sparse as sps
+
+    Sm = sps.csr_matrix((A.data.numpy().astype(np.float64), A.indices.numpy(),
+                         A.indptr.numpy()), shape=A.shape) - SHIFT * sps.identity(A.shape[0])
+    xh = op.unpad_vec(x).cpu().numpy().astype(np.float64)
+    res = float(np.linalg.norm(Sm @ xh - b) / np.linalg.norm(b))
+    if STRICT and not (info.converged and res < 1e-3):
+        raise AssertionError(f"minres(ShiftedOperator): {info}, true residual {res:.3e}")
+    eig_check("minres(ShiftedOperator σ=0.01)", info, c, {"dia_spmv": its + 2},
+              true_residual=f"{res:.4e}", wall_s=f"{wall:.4f}")
+
+
+def phase_eigen(dev):
+    """Phase 14: the eigensolvers at the repo's own widths; returns K1b's
+    launches in (a), the LOBPCG run, the main K1b path (each run counts
+    from 0, and its launches are printed beside it)."""
+    t0 = time.perf_counter()
+    k1b = {"lobpcg": phase_eigen_lobpcg(dev), "shift_invert": phase_eigen_shift_invert(dev),
+           "rational_filter": phase_eigen_rational(dev)}
+    phase_eigen_shifted(dev)
+    log("eigen", seconds=f"{time.perf_counter() - t0:.2f}",
+        **{f"dia_spmm_launches_{k}": v for k, v in k1b.items()})
+    return k1b["lobpcg"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -2293,6 +2834,7 @@ def main() -> int:
     assert lib.sprsolve_dia_row_tile() == pd.ROW_TILE
     assert lib.sprsolve_dia_max_diags() == pd.MAX_DIAGS
     assert lib.sprsolve_dia_dots_tile() == pd.DOT_TILE
+    assert lib.sprsolve_dia_spmm_threads() == pd.SPMM_TILE
     assert lib.sprsolve_dia_dots_scratch_head() == pd.DOT_SCRATCH_HEAD
     assert lib.sprsolve_dia_complex_dots_tile() == pd.COMPLEX_DOT_TILE
     assert all((lib.sprsolve_dia_complex_dots_blocks_per_sm if dt.is_complex
@@ -2300,6 +2842,7 @@ def main() -> int:
                for dt, b in pd.DOT_BLOCKS_PER_SM.items())
 
     errs, _, stats = phase_kernels(dev)
+    phase_spmm(dev, errs, stats)
     phase_complex_kernels(dev, errs, stats)
     launches = phase_slice(dev)
     phase_f64(dev)
@@ -2315,6 +2858,7 @@ def main() -> int:
     phase_exact_and_lsqr(dev)
     phase_layouts(dev)
     phase_krylov(dev)
+    launches["dia_spmm"] = phase_eigen(dev)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -22,13 +22,17 @@ RCM-reordered DIA (``Reordered``), BSR and ComplexBSR, the band+outlier
 ``csrc/hostkit.cpp``).  ``solve``, ``prepare`` and the ``BiCGStab``,
 ``MinRes``, ``CG``, ``GMRES``, ``CSMinRes`` and ``GaussSeidel`` handles
 run on the CUDA device unless given ``device`` (e.g. ``device="cpu"``).
+The eigensolvers — ``lobpcg``, ``shift_invert_eigs`` (MINRES on a
+``ShiftedOperator``) and ``rational_filter_eigs`` — run their block
+applies on K1b, the column-batched K1, with lockstep block MINRES and
+COCG inside; the last two lay out a CSR on the CUDA device by default.
 """
 
-from . import errors, precond, vecalg
+from . import debug, errors, precond, vecalg
 from .api import (CG, GMRES, BiCGStab, CSMinRes, GaussSeidel, MinRes, PreparedSolver,
                   prepare, solve)
 from .errors import SolveInfo, SolverError, Status
-from .ops.operator import DiagonalOperator, IdentityOperator, LinearOperator
+from .ops.operator import DiagonalOperator, IdentityOperator, LinearOperator, ShiftedOperator
 from .ops.hybrid import HybridDIA
 from .ops.optimize import optimize
 from .multigrid import GridMGPrecond
@@ -67,10 +71,13 @@ from .solvers import (
     gmres,
     greedy_color,
     idrs,
+    lobpcg,
     lsqr,
     minres,
+    rational_filter_eigs,
     refine,
     refine_solve,
+    shift_invert_eigs,
     tfqmr,
     with_real_planes,
 )
@@ -82,6 +89,7 @@ from .sparse import (
     DIA,
     ELL,
     ComplexBSR,
+    csr_from_bcoo,
     csr_from_dense,
     csr_from_scipy,
     reorder_rcm,
@@ -111,6 +119,9 @@ __all__ = [
     "gmres",
     "fgmres",
     "idrs",
+    "lobpcg",
+    "shift_invert_eigs",
+    "rational_filter_eigs",
     "block_cg",
     "batched",
     "refine",
@@ -135,11 +146,13 @@ __all__ = [
     "BSR",
     "ComplexBSR",
     "csr_from_dense",
+    "csr_from_bcoo",
     "csr_from_scipy",
     "reorder_rcm",
     "LinearOperator",
     "IdentityOperator",
     "DiagonalOperator",
+    "ShiftedOperator",
     "DiagPrecond",
     "ComplexDiagPrecond",
     "real_abs_jacobi",
@@ -159,6 +172,7 @@ __all__ = [
     "SolveInfo",
     "SolverError",
     "Status",
+    "debug",
     "errors",
     "precond",
     "vecalg",

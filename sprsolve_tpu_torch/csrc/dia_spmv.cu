@@ -15,6 +15,10 @@
 //     (sprsolve_tpu/ops/pallas_spmv.py:159, wrapper _dia_wdot_pallas_call :194):
 //     K1 on u = dinv * x (HAS_DINV) or on x, and out = [sum w*y, sum y*y];
 //     with W_IS_X the dot reads the raw x, as w_ref = x_ref does on the TPU.
+// K1b dia_spmm_kernel replaces _dia_kernel under jax.vmap (the column-batched
+//     call that sprsolve_tpu/solvers/lobpcg.py:51-54 reaches through
+//     multigrid.py:259 and _dia_pallas_call :509): Y = A * X for a block of m
+//     vectors, each column bit for bit K1's result on that column.
 // K3  dia_dots_kernel<.., YY = false> replaces _dia_dot_kernel
 //     (sprsolve_tpu/ops/pallas_spmv.py:140, wrapper _dia_dotmv_pallas_call
 //     :474): K1 and out = [sum x*y], with x the raw body of the SpMV input
@@ -30,6 +34,26 @@
 // served from L1/L2, so x costs about one HBM pass; the offsets live in the
 // kernel's parameter space and the band loop is unrolled to MAX_DIAGS with
 // an early exit, so no offset is indexed dynamically.
+//
+// K1b's design: the block is row-major, (h + n_pad + h, m): row r of the
+// padded layout holds entry r of every column, so a column is a strided
+// padded vector and the m entries of a row are adjacent.  A thread owns a
+// group of W adjacent columns of one row (W = 4 f32 or 2 f64 entries, one
+// 16-byte access, where W divides m; else 2 or 1), SPMM_THREADS groups per
+// tile, a grid-stride walk over the tiles by one wave of blocks (as many as
+// share an SM, by the runtime's occupancy count, times the SM count the
+// caller passes; the result does not depend on the grid).  Per band it loads the band
+// element once and applies it to its W columns; the threads of a row load
+// it from one address (a broadcast), so each band element is read from
+// memory once per row.  X's shifted reads X[h + i + off_d][j..j+W) and Y's
+// writes are whole 16-byte accesses, coalesced across the warp.  Each
+// entry sums over the bands in K1's order with K1's expression,
+// acc = acc + widen(band) * x, which nvcc fuses into the same FMA, so
+// column j equals K1 on column j bit for bit.  The walk also clears the h
+// halo rows at each end.  HBM bytes: the bands once plus m * (x + y).
+// A first version with one entry per thread ran at 0.21 of this bound,
+// slower than m K1 calls (PERF.md, section 6): per entry it issued as many
+// loads as K1 issues per row.
 //
 // K2 and K3 (dia_dots_kernel) answer what held their first versions back:
 //  * One launch, deterministic.  A block sums each tile's dots in a fixed
@@ -79,6 +103,8 @@
 #define DOT_TILE (4 * DOT_THREADS)      // rows of a K2/K3 tile, 4 per thread
 #define DOT_HALO 128                    // staged rows on each side of a tile
 #define SCRATCH_HEAD 256                // scratch bytes before the partials
+#define SPMM_THREADS 256                // threads of a K1b block: one tile
+#define SPMM_MAX_ENTRIES 0x7fffff00LL   // K1b blocks hold fewer entries
 
 // K2/K3 blocks that share an SM: 8 (all its 2048 threads) in f32, where the
 // kernel fits 32 registers; 4 in f64
@@ -155,6 +181,82 @@ dia_spmv_kernel(const B* __restrict__ bands, const V* __restrict__ x,
   if (i < h) {  // h <= n_pad: the first h threads clear both halos
     y[i] = V(0);
     y[h + n_pad + i] = V(0);
+  }
+}
+
+// --- K1b ---------------------------------------------------------------------
+// W entries of V as one access: 16 bytes for float4 / double2
+template <typename V, int W>
+struct Group {
+  V v[W];
+};
+
+template <typename V, int W>
+__device__ __forceinline__ Group<V, W> ld_group(const V* p) {
+  Group<V, W> g;
+  if constexpr (W == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    g.v[0] = t.x; g.v[1] = t.y; g.v[2] = t.z; g.v[3] = t.w;
+  } else if constexpr (W == 2 && sizeof(V) == 4) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    g.v[0] = t.x; g.v[1] = t.y;
+  } else if constexpr (W == 2) {
+    const double2 t = *reinterpret_cast<const double2*>(p);
+    g.v[0] = t.x; g.v[1] = t.y;
+  } else {
+    g.v[0] = *p;
+  }
+  return g;
+}
+
+template <typename V, int W>
+__device__ __forceinline__ void st_group(V* p, const Group<V, W>& g) {
+  if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(g.v[0], g.v[1], g.v[2], g.v[3]);
+  } else if constexpr (W == 2 && sizeof(V) == 4) {
+    *reinterpret_cast<float2*>(p) = make_float2(g.v[0], g.v[1]);
+  } else if constexpr (W == 2) {
+    *reinterpret_cast<double2*>(p) = make_double2(g.v[0], g.v[1]);
+  } else {
+    *p = g.v[0];
+  }
+}
+
+// Indices are 32-bit (a 32-bit division finds the row): the launcher takes
+// blocks of fewer than SPMM_MAX_ENTRIES entries, so no index of the walk
+// (at most twice that) passes 2^32.
+template <typename V, typename B, int W>
+__global__ void __launch_bounds__(SPMM_THREADS)
+dia_spmm_kernel(const B* __restrict__ bands, const V* __restrict__ x,
+                V* __restrict__ y, long long n_pad, long long h, long long m,
+                Offsets offs) {
+  using IDX = unsigned;
+  const IDX groups = (IDX)(m / W);            // column groups of a row
+  const IDX body = (IDX)n_pad * groups;
+  const IDX stride = (IDX)gridDim.x * SPMM_THREADS;
+  const IDX first = (IDX)blockIdx.x * SPMM_THREADS + threadIdx.x;
+  const V* __restrict__ xb = x + h * m;
+  V* __restrict__ yb = y + h * m;
+  for (IDX g = first; g < body; g += stride) {
+    const IDX i = g / groups;
+    const long long e = (long long)g * W;       // = i * m + W * (g % groups)
+    Group<V, W> acc;
+#pragma unroll
+    for (int w = 0; w < W; ++w) acc.v[w] = V(0);
+#pragma unroll
+    for (int d = 0; d < MAX_DIAGS; ++d) {
+      if (d >= offs.nd) break;
+      const V b = widen<V>(bands[(long long)d * n_pad + i]);
+      const Group<V, W> xv = ld_group<V, W>(xb + e + offs.off[d] * m);
+#pragma unroll
+      for (int w = 0; w < W; ++w) acc.v[w] = acc.v[w] + b * xv.v[w];
+    }
+    st_group<V, W>(yb + e, acc);
+  }
+  const IDX halo = (IDX)(h * m);
+  for (IDX e = first; e < halo; e += stride) {
+    y[e] = V(0);
+    yb[(long long)n_pad * m + e] = V(0);
   }
 }
 
@@ -396,6 +498,52 @@ void launch_spmv(const void* bands, const void* x, void* y, long long n_pad,
       (const B*)bands, (const V*)x, (V*)y, n_pad, h, o);
 }
 
+// the columns a K1b thread takes: a 16-byte group where it divides m and
+// the blocks are 16-byte aligned, else 8 bytes, else one entry
+template <typename V>
+int spmm_width(long long m, const void* x, const void* y) {
+  const bool aligned = (((uintptr_t)x | (uintptr_t)y) & 15u) == 0;
+  if (sizeof(V) == 4 && aligned && m % 4 == 0) return 4;
+  if (aligned && m % 2 == 0) return 2;
+  return 1;
+}
+
+// K1b blocks of the instantiation W that share an SM, asked of the runtime
+// once
+template <typename V, typename B, int W>
+int spmm_blocks_per_sm() {
+  static const int n = [] {
+    int k = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k, dia_spmm_kernel<V, B, W>,
+                                                  SPMM_THREADS, 0);
+    return k > 0 ? k : 1;
+  }();
+  return n;
+}
+
+template <typename V, typename B, int W>
+void launch_spmm_w(const void* bands, const void* x, void* y, long long n_pad,
+                   long long h, long long m, const Offsets& o, int sm_count,
+                   cudaStream_t s) {
+  const long long tiles = (n_pad * (m / W) + SPMM_THREADS - 1) / SPMM_THREADS;
+  const long long wave = (long long)spmm_blocks_per_sm<V, B, W>() * sm_count;
+  dia_spmm_kernel<V, B, W><<<(unsigned)(tiles < wave ? tiles : wave), SPMM_THREADS, 0, s>>>(
+      (const B*)bands, (const V*)x, (V*)y, n_pad, h, m, o);
+}
+
+template <typename V, typename B>
+void launch_spmm(const void* bands, const void* x, void* y, long long n_pad,
+                 long long h, long long m, const Offsets& o, int sm_count,
+                 cudaStream_t s) {
+  const int w = spmm_width<V>(m, x, y);
+  if (w == 4)
+    launch_spmm_w<V, B, (sizeof(V) == 4 ? 4 : 2)>(bands, x, y, n_pad, h, m, o, sm_count, s);
+  else if (w == 2)
+    launch_spmm_w<V, B, 2>(bands, x, y, n_pad, h, m, o, sm_count, s);
+  else
+    launch_spmm_w<V, B, 1>(bands, x, y, n_pad, h, m, o, sm_count, s);
+}
+
 struct DotArgs {
   const void *bands, *x, *dinv, *w;
   void *y, *out, *scratch;
@@ -488,6 +636,35 @@ extern "C" int sprsolve_dia_spmv(int vcode, int bcode, const void* bands,
   else if (vcode == 0 && bcode == 1) launch_spmv<float, __nv_bfloat16>(bands, x, y, n_pad, h, o, s);
   else if (vcode == 0 && bcode == 2) launch_spmv<float, int8_t>(bands, x, y, n_pad, h, o, s);
   else if (vcode == 1 && bcode == 0) launch_spmv<double, double>(bands, x, y, n_pad, h, o, s);
+  else return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sprsolve_dia_spmm_threads() { return SPMM_THREADS; }
+
+// the columns one K1b thread takes, by vector type code (see spmm_width)
+extern "C" int sprsolve_dia_spmm_width(int vcode, long long m, const void* x,
+                                       const void* y) {
+  return vcode == 1 ? spmm_width<double>(m, x, y) : spmm_width<float>(m, x, y);
+}
+
+// K1b.  x and y: row-major (h + n_pad + h, m) blocks of fewer than
+// SPMM_MAX_ENTRIES entries, x's halo rows zero.  sm_count: the SMs the
+// launch's one wave of blocks fills (at most one block per tile).
+extern "C" int sprsolve_dia_spmm(int vcode, int bcode, const void* bands,
+                                 const void* x, void* y, long long n_pad,
+                                 long long h, long long m,
+                                 const long long* offsets, int nd, int sm_count,
+                                 void* stream) {
+  if (bad_geometry(n_pad, h, nd) || m < 1 || sm_count < 1 ||
+      m >= SPMM_MAX_ENTRIES / (n_pad + 2 * h))
+    return (int)cudaErrorInvalidValue;
+  const Offsets o = make_offsets(offsets, nd);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vcode == 0 && bcode == 0) launch_spmm<float, float>(bands, x, y, n_pad, h, m, o, sm_count, s);
+  else if (vcode == 0 && bcode == 1) launch_spmm<float, __nv_bfloat16>(bands, x, y, n_pad, h, m, o, sm_count, s);
+  else if (vcode == 0 && bcode == 2) launch_spmm<float, int8_t>(bands, x, y, n_pad, h, m, o, sm_count, s);
+  else if (vcode == 1 && bcode == 0) launch_spmm<double, double>(bands, x, y, n_pad, h, m, o, sm_count, s);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

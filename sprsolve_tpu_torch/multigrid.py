@@ -199,7 +199,9 @@ class GridMGPrecond:
 class FlatViewOperator:
     """Flat-vector view of a padded-layout operator: each apply pads x,
     runs the operator's SpMV (kernel K1 on a ``PaddedDIA``) and unpads the
-    result, two vector passes besides the SpMV."""
+    result, two vector passes besides the SpMV. :meth:`matmat` does the same
+    for an (n, m) block: one K1b launch on a ``PaddedDIA``, one matvec per
+    column on an operator without a block apply."""
 
     op: object
 
@@ -217,3 +219,8 @@ class FlatViewOperator:
     def matvec_dot(self, x: torch.Tensor):
         y = self.matvec(x)
         return y, conj_dot(x, y)
+
+    def matmat(self, X: torch.Tensor) -> torch.Tensor:
+        if hasattr(self.op, "matmat") and hasattr(self.op, "pad_block"):
+            return self.op.unpad_block(self.op.matmat(self.op.pad_block(X)))
+        return torch.stack([self.matvec(X[:, j]) for j in range(X.shape[1])], dim=1)

@@ -3,7 +3,8 @@
 (counterpart of ``sprsolve_tpu/ops``)."""
 
 from .hybrid import HybridDIA
-from .operator import DiagonalOperator, IdentityOperator, LinearOperator, as_operator
+from .operator import (DiagonalOperator, IdentityOperator, LinearOperator, ShiftedOperator,
+                       as_operator)
 from .optimize import optimize
 from .padded_dia import ComplexPaddedDIA, PaddedDIA
 from .reordered import Reordered
@@ -13,6 +14,7 @@ __all__ = [
     "LinearOperator",
     "IdentityOperator",
     "DiagonalOperator",
+    "ShiftedOperator",
     "as_operator",
     "optimize",
     "PaddedDIA",

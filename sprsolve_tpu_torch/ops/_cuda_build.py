@@ -41,6 +41,12 @@ _SIGNATURES = {
     "sprsolve_dia_dots_blocks_per_sm": ([_I32], _I32),   # vcode
     # vcode, bcode, bands, x, y, n_pad, h, offsets, nd, stream
     "sprsolve_dia_spmv": ([_I32, _I32, _P, _P, _P, _I64, _I64, _P, _I32, _P], _I32),
+    "sprsolve_dia_spmm_threads": ([], _I32),
+    "sprsolve_dia_spmm_width": ([_I32, _I64, _P, _P], _I32),   # vcode, m, x, y
+    # vcode, bcode, bands, x, y, n_pad, h, m, offsets, nd, sm_count, stream
+    "sprsolve_dia_spmm": (
+        [_I32, _I32, _P, _P, _P, _I64, _I64, _I64, _P, _I32, _I32, _P], _I32
+    ),
     # vcode, bcode, bands, x, dinv, w, y, out, scratch, scratch_bytes, grid,
     # n_pad, h, offsets, nd, stream
     "sprsolve_dia_wdot": (

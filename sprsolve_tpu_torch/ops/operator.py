@@ -180,3 +180,81 @@ class _DenseOperator:
     def matvec_dot(self, x: torch.Tensor):
         y = self.a @ x
         return y, conj_dot(x, y)
+
+
+# the padded-layout protocol a ShiftedOperator forwards, so that a shifted
+# kernel operator keeps solving in its own layout
+_LAYOUT_ATTRS = ("pad_vec", "unpad_vec", "padded_len")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShiftedOperator:
+    """y = A·x − shift·x, without materialising A − shift·I.
+
+    Counterpart of ``sprsolve_tpu/ops/operator.py:209-285``: wraps any
+    operator, for spectral transformations (``scipy.sparse.linalg.minres(...,
+    shift=σ)`` parity, shift-invert eigencomputations, Helmholtz-like
+    A − σI solves) on every layout, the padded kernel layouts included: the
+    wrapper forwards the layout protocol (``pad_vec``/``unpad_vec``, and
+    ``padded_len``, which the solvers' shape checks read), so a shifted
+    ``PaddedDIA`` still runs in its internal layout. Like the JAX
+    class it forwards no fused method: MINRES on it runs K1 and separate
+    dots. Build Jacobi preconditioners from :meth:`diagonal`, which
+    includes the shift.
+    """
+
+    A: object
+    shift: object  # a Python scalar or a 0-d tensor
+
+    @property
+    def shape(self):
+        return self.A.shape
+
+    @property
+    def dtype(self):
+        return getattr(self.A, "dtype", None)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return self.A.matvec(x) - self.shift * x
+
+    def matvec_dot(self, x: torch.Tensor):
+        y = self.matvec(x)
+        return y, conj_dot(x, y)
+
+    def matmat(self, X: torch.Tensor) -> torch.Tensor:
+        if hasattr(self.A, "matmat"):
+            return self.A.matmat(X) - self.shift * X
+        return torch.stack([self.matvec(X[:, j]) for j in range(X.shape[1])], dim=1)
+
+    def __getattr__(self, name):
+        if name in _LAYOUT_ATTRS:
+            return getattr(self.A, name)
+        raise AttributeError(name)
+
+    def diagonal(self) -> torch.Tensor:
+        """Flat shifted diagonal (a padded inner operator's is un-laid)."""
+        if hasattr(self.A, "diagonal"):
+            d = self.A.diagonal()
+        elif hasattr(self.A, "diagonal_padded"):
+            d = self.A.unpad_vec(self.A.diagonal_padded())
+        else:
+            raise AttributeError("diagonal")
+        return d - self.shift
+
+    def jacobi_precond(self):
+        """Jacobi of the *shifted* operator, 1/(diag(A) − σ), re-laid into
+        the inner operator's layout when it has one (the path
+        ``solve(..., M="jacobi")`` takes for padded operators)."""
+        from ..precond import DiagPrecond
+
+        M = DiagPrecond.new(self.diagonal())
+        if hasattr(self.A, "relay_diag_precond"):
+            return self.A.relay_diag_precond(M)
+        return M
+
+    def relay_diag_precond(self, M):
+        if hasattr(self.A, "relay_diag_precond"):
+            return self.A.relay_diag_precond(M)
+        raise NotImplementedError(
+            "inner operator has no internal-layout diagonal relay"
+        )

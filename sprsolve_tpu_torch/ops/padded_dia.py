@@ -23,6 +23,9 @@ Kernels (``csrc/dia_spmv.cu``, ``csrc/dia_complex.cu``), each beside its
 plain PyTorch version:
 
 - K1 :func:`dia_spmv` — y = Σ_d band_d ⊙ shift(x, off_d).
+- K1b :func:`dia_spmm` — K1 on every column of a row-major block of padded
+  vectors in one launch (the JAX package's K1 under ``jax.vmap``), each
+  column bitwise K1's.
 - K2 :func:`dia_wdot` — K1 on u = dinv ⊙ x (Jacobi fold) or on x, plus
   [wᵀy, yᵀy]; w = None reads the dot's w from x itself.
 - K3 :func:`dia_dot` — K1 plus xᵀy (the ``dotmv`` form).
@@ -62,6 +65,7 @@ from . import _cuda_build
 
 ROW_TILE = 256   # rows per CUDA block (ROW_TILE in csrc/dia_spmv.cu)
 MAX_DIAGS = 32   # offsets a kernel takes (MAX_DIAGS in csrc/dia_spmv.cu)
+SPMM_MAX_ENTRIES = 0x7FFFFF00   # K1b blocks hold fewer (SPMM_MAX_ENTRIES there)
 
 # band storage each vector dtype takes, and the launchers' type codes
 _BAND_DTYPES = {
@@ -93,6 +97,20 @@ def dia_spmv_plain(bands: torch.Tensor, x: torch.Tensor, offsets, h: int
         acc = torch.addcmul(acc, bands[d].to(x.dtype),
                             x[h + off: h + off + n_pad])
     return F.pad(acc, (h, h))
+
+
+def dia_spmm_plain(bands: torch.Tensor, X: torch.Tensor, offsets, h: int
+                   ) -> torch.Tensor:
+    """K1b in plain PyTorch: :func:`dia_spmv_plain`'s band loop over all
+    columns at once. The sums run on the transposed block, whose rows are
+    contiguous like a padded vector, so each column takes the same
+    vectorised multiply-add as ``dia_spmv_plain`` and equals it bitwise."""
+    n_pad = bands.shape[1]
+    Xt = X.t().contiguous()
+    acc = torch.zeros((X.shape[1], n_pad), dtype=X.dtype, device=X.device)
+    for d, off in enumerate(offsets):
+        acc = torch.addcmul(acc, bands[d].to(X.dtype), Xt[:, h + off: h + off + n_pad])
+    return F.pad(acc, (h, h)).t().contiguous()
 
 
 def dia_wdot_plain(bands: torch.Tensor, x: torch.Tensor,
@@ -211,6 +229,34 @@ def _check(planes, x: torch.Tensor, offsets, h: int, *vecs) -> int:
     return planes[0].shape[1]
 
 
+def _check_block(bands: torch.Tensor, X: torch.Tensor, offsets, h: int) -> int:
+    """Validate what K1b takes: a real row-major ``(h + n_pad + h, m)``
+    block of fewer than SPMM_MAX_ENTRIES entries, contiguous, of the bands'
+    device, with bands that serve its dtype. Returns n_pad."""
+    if X.dim() != 2 or X.shape[1] < 1:
+        raise ValueError(f"a block must be (rows, m ≥ 1), got {tuple(X.shape)}")
+    if X.dtype not in _REAL or bands.dtype not in _BAND_DTYPES[X.dtype]:
+        raise TypeError(f"{bands.dtype} bands and {X.dtype} blocks: K1b takes real "
+                        "blocks (a complex block goes as its interleaved planes)")
+    if bands.dim() != 2 or len(offsets) != bands.shape[0] or len(offsets) > MAX_DIAGS:
+        raise ValueError(f"{len(offsets)} offsets for bands of shape {tuple(bands.shape)}")
+    if offsets and max(abs(o) for o in offsets) > h:
+        raise ValueError("an offset reaches past the halo")
+    n_pad = bands.shape[1]
+    if n_pad <= 0 or n_pad % ROW_TILE or not 0 <= h <= n_pad:
+        raise ValueError(f"n_pad={n_pad}, h={h}: not a padded layout")
+    if X.shape[0] != n_pad + 2 * h:
+        raise ValueError(f"block of {X.shape[0]} rows; the layout takes {n_pad + 2 * h}")
+    if X.shape[1] >= SPMM_MAX_ENTRIES // X.shape[0]:
+        raise ValueError(f"a block of {X.shape[0]} × {X.shape[1]} entries: K1b takes "
+                         f"fewer than {SPMM_MAX_ENTRIES} (32-bit indices)")
+    if X.device != bands.device:
+        raise ValueError("bands and block must share one device")
+    if not X.is_contiguous() or not bands.is_contiguous():
+        raise ValueError("K1b's operands must be contiguous")
+    return n_pad
+
+
 def launch_env(x: torch.Tensor):
     """``(library, stream)`` for a launch on ``x``'s CUDA device; raises for
     a device that is neither CPU nor CUDA."""
@@ -302,6 +348,34 @@ def dia_spmv(bands: torch.Tensor, x: torch.Tensor, offsets, h: int
     _cuda_build.check(lib, err, "dia_spmv")
     dia_spmv.launches += 1
     return y
+
+
+SPMM_TILE = 256   # column groups of a K1b tile (SPMM_THREADS in csrc/dia_spmv.cu)
+
+
+def dia_spmm(bands: torch.Tensor, X: torch.Tensor, offsets, h: int) -> torch.Tensor:
+    """K1b: Y[:, j] = A·X[:, j] for a row-major ``(h + n_pad + h, m)`` block
+    whose columns are padded vectors (zero halo rows), in one launch; each
+    column is bitwise K1's result on that column.
+
+    One wave of blocks walks the tiles of SPMM_TILE column groups, as many
+    as share an SM times the card's SM count (:func:`_sm_count`); the
+    result does not depend on the grid.
+    Replaces ``_dia_kernel`` (``sprsolve_tpu/ops/pallas_spmv.py:131``) under
+    ``jax.vmap``, the call ``sprsolve_tpu/solvers/lobpcg.py:51-54`` makes
+    through ``multigrid.py:259`` and ``_dia_pallas_call`` (``:509``)."""
+    n_pad = _check_block(bands, X, offsets, h)
+    if X.device.type == "cpu":
+        return dia_spmm_plain(bands, X, offsets, h)
+    lib, codes, offs, stream = _launch_args((bands,), X, offsets)
+    Y = torch.empty_like(X)
+    err = _on_device(
+        X, lib.sprsolve_dia_spmm, *codes, bands.data_ptr(), X.data_ptr(), Y.data_ptr(),
+        n_pad, h, X.shape[1], offs, len(offsets), _sm_count(X.device.index), stream,
+    )
+    _cuda_build.check(lib, err, "dia_spmm")
+    dia_spmm.launches += 1
+    return Y
 
 
 def dia_wdot(bands: torch.Tensor, x: torch.Tensor, w: Optional[torch.Tensor],
@@ -435,6 +509,7 @@ def dia_complex_wdot(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
 
 
 dia_spmv.launches = 0
+dia_spmm.launches = 0
 dia_wdot.launches = 0
 dia_dot.launches = 0
 dia_complex_spmv.launches = 0
@@ -443,10 +518,10 @@ dia_complex_wdot.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Set the launch count of every kernel wrapper (K1-K7) to 0."""
+    """Set the launch count of every kernel wrapper (K1-K7, K1b) to 0."""
     from .fused import orth_norm
 
-    for wrapper in (dia_spmv, dia_wdot, dia_dot, orth_norm, dia_complex_spmv,
+    for wrapper in (dia_spmv, dia_spmm, dia_wdot, dia_dot, orth_norm, dia_complex_spmv,
                     dia_complex_dot, dia_complex_wdot):
         wrapper.launches = 0
 
@@ -529,6 +604,14 @@ class PaddedDIA:
     def unpad_vec(self, x2: torch.Tensor) -> torch.Tensor:
         return x2[self.h: self.h + self.n]
 
+    def pad_block(self, X: torch.Tensor) -> torch.Tensor:
+        """(n, m) → the row-major (h + n_pad + h, m) block :meth:`matmat`
+        takes: each column padded, zero halo and tail rows."""
+        return F.pad(X, (0, 0, self.h, self.n_pad - self.n + self.h))
+
+    def unpad_block(self, X2: torch.Tensor) -> torch.Tensor:
+        return X2[self.h: self.h + self.n]
+
     # --- operator protocol ---------------------------------------------------
     # A complex vector is two real planes through K1, composed with separate
     # dots, as in the JAX package (``pallas_spmv.py:682-751``).
@@ -538,6 +621,18 @@ class PaddedDIA:
             mv = lambda v: dia_spmv(self.bands, v.contiguous(), self.offsets, self.h)
             return torch.complex(mv(x2.real), mv(x2.imag))
         return dia_spmv(self.bands, x2, self.offsets, self.h)
+
+    def matmat(self, X2: torch.Tensor) -> torch.Tensor:
+        """A·X for a row-major ``(h + n_pad + h, m)`` block of padded vectors
+        (:meth:`pad_block`) in one K1b launch. A complex block goes as its
+        interleaved real and imaginary planes, 2m real columns of the same
+        launch (no copy); each column is bitwise :meth:`matvec`'s."""
+        if X2.is_complex():
+            m = X2.shape[1]
+            planes = torch.view_as_real(X2.resolve_conj().contiguous()).reshape(-1, 2 * m)
+            Y = dia_spmm(self.bands, planes, self.offsets, self.h)
+            return torch.view_as_complex(Y.view(-1, m, 2))
+        return dia_spmm(self.bands, X2.contiguous(), self.offsets, self.h)
 
     def matvec_wdot(self, x2: torch.Tensor, w2: torch.Tensor):
         """(A·x, wᵀ(A·x), (A·x)ᵀ(A·x)) in one pass (K2). ``w2 is x2``, decided

@@ -46,6 +46,25 @@ def spmv_dia(m: DIA, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def spmm_dia(m: DIA, X: torch.Tensor) -> torch.Tensor:
+    """Y = A·X for DIA with X of shape (n, k) (``sprsolve_tpu/ops/spmv.py:63``):
+    :func:`spmv_dia`'s band loop over all columns at once. The sums run on
+    the transposed block, whose rows are contiguous like a vector, so each
+    column takes the same multiply-adds as ``spmv_dia`` and equals it bit
+    for bit."""
+    n = m.shape[0]
+    dt = torch.promote_types(m.dtype, X.dtype)
+    Xt = X.t().to(dt).contiguous()
+    Y = torch.zeros((X.shape[1], n), dtype=dt, device=X.device)
+    for d, off in enumerate(m.offsets):
+        if off >= 0:
+            shifted = torch.nn.functional.pad(Xt[:, off:], (0, off))
+        else:
+            shifted = torch.nn.functional.pad(Xt[:, :off], (-off, 0))
+        Y = torch.addcmul(Y, m.bands[d].to(dt), shifted)
+    return Y.t().contiguous()
+
+
 def row_sum(p: torch.Tensor) -> torch.Tensor:
     """Σ_j p[:, j], the slots added strictly left to right (``torch.sum``
     may add them in another order, and the exact Gauss-Seidel fixed points

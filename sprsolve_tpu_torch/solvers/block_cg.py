@@ -8,8 +8,9 @@ the reference's surface, which solves one rhs at a time):
   precision), α and β are k×k solves of the jittered Pᴴ·A·P, a column
   with a zero rhs counts as converged with x = 0, and a non-positive Gram
   diagonal is BREAKDOWN.  ``A.matmat`` serves where the operator has one
-  (BSR, ``HybridDIA``); otherwise one ``matvec`` per column (K1 per column
-  on a :class:`~sprsolve_tpu_torch.ops.padded_dia.PaddedDIA`).
+  (BSR, ``HybridDIA``, ``DIA``, and a
+  :class:`~sprsolve_tpu_torch.ops.padded_dia.PaddedDIA`, whose (padded_len,
+  k) block is one K1b launch); otherwise one ``matvec`` per column.
 - :func:`batched` lifts any single-rhs solver to a block by running it
   ONCE PER COLUMN, so each column stops at its own exit.  The JAX
   package's ``vmap`` runs the columns in lockstep, and a column of an
@@ -25,27 +26,12 @@ import torch
 
 from ..errors import SolveInfo, Status
 from ..vecalg import eps_for, full_precision_matmul, real_dtype
-from .common import make_info
-
-
-def _columns(fn, X: torch.Tensor) -> torch.Tensor:
-    return torch.stack([fn(X[:, i].contiguous()) for i in range(X.shape[1])], dim=1)
+from .common import block_apply, make_info
 
 
 def _apply_M(M, R):
     """Column-wise preconditioner apply on an (n, k) block."""
-    if M is None:
-        return R
-    if hasattr(M, "matmat"):
-        return M.matmat(R)
-    return _columns(M.matvec, R)
-
-
-def _matmat(A, X):
-    """A·X for an (n, k) block: ``A.matmat``, else one matvec per column."""
-    if hasattr(A, "matmat"):
-        return A.matmat(X)
-    return _columns(A.matvec, X)
+    return R if M is None else block_apply(M, R)
 
 
 def block_cg(
@@ -91,12 +77,12 @@ def block_cg(
     # early-out, src/bicg_stab.rs:56-60, per column)
     thresholds = tol * torch.maximum(bn, tiny)
 
-    X, R = X0, B - _matmat(A, X0)
+    X, R = X0, B - block_apply(A, X0)
     Z = _apply_M(M, R)
     P, rn = Z, colnorms(R)
     its, status = 0, Status.RUNNING
     while its < max_iter and bool(torch.any(rn > thresholds)):
-        Q = _matmat(A, P)
+        Q = block_apply(A, P)
         S = gram(P, Q)
         jitter = eps * torch.mean(torch.diagonal(S).abs())
         S = S + jitter.to(T) * eye

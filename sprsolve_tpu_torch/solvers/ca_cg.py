@@ -29,8 +29,7 @@ import torch
 
 from ..errors import IncompatibleMatrixFormat, Status
 from ..vecalg import NUMPY_DTYPES, axpy, conj_dot, full_precision_matmul, real_dtype
-from .block_cg import _matmat
-from .common import _guard3, check_shapes, make_info
+from .common import _guard3, block_apply, check_shapes, make_info
 
 
 def _basis_change(s: int, basis: str, theta: float, delta: float) -> np.ndarray:
@@ -119,7 +118,7 @@ def basis_block(A, p, r, deg: int, basis: str, theta: float, delta: float):
     """V = [ρ₀(A)p … ρ_deg(A)p, ρ₀(A)r … ρ_{deg−1}(A)r] as (m, 2·deg + 1)."""
     chain = [torch.stack([p, r], dim=1)]
     for j in range(deg):
-        Av = _matmat(A, chain[-1])
+        Av = block_apply(A, chain[-1])
         if basis == "monomial":
             nxt = Av
         elif j == 0:

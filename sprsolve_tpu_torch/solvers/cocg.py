@@ -117,3 +117,87 @@ def cocg(
 
     x, info, hist = _guard3(b, x0, main, hist_len, rdt)
     return (x, info, hist) if record_residuals else (x, info)
+
+
+def _cocg_block(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *, M=None,
+                tol, max_iter):
+    """COCG on every column of an (n, m) block in lockstep: the port's
+    counterpart of ``jax.vmap(cocg)``.
+
+    Each iteration applies A to the whole block once (``A.matmat``), and
+    ρ, pᵀAp, α and the norms are (m,) tensors. A column stops at its own
+    exit — convergence, a ρ or pᵀAp breakdown, ``max_iter`` — and its x,
+    count, residual and status stay frozen after (the ``live``/``upd``
+    masks of ``sprsolve_tpu/solvers/cocg.py:136-181``), so each column gets
+    its single solve's result; a zero column takes the zero-rhs guard. One
+    host read per iteration: whether any column still runs.
+
+    Returns ``(X, SolveInfo, steps)``: the info's fields are (m,) tensors,
+    and ``steps`` counts the lockstep iterations (block applies in the
+    loop).
+    """
+    from ..errors import SolveInfo
+    from .common import block_apply, check_block, col_dot, col_norm
+
+    B, X0 = check_block(A, B, X0)
+    T, dev = B.dtype, B.device
+    rdt = real_dtype(T)
+    m, max_iter = B.shape[1], int(max_iter)
+    eps = eps_for(T, dev)
+    one = torch.ones((), dtype=T, device=dev)
+    precond = (lambda R: R) if M is None else (lambda R: block_apply(M, R))
+    RUN, DONE, BRK, OUT = (torch.tensor(int(s), device=dev) for s in (
+        Status.RUNNING, Status.CONVERGED, Status.BREAKDOWN, Status.INSUFFICIENT_ITER))
+
+    rhs_norm = col_norm(B)
+    zero_rhs = rhs_norm <= eps
+    tol2 = torch.tensor(tol, dtype=rdt, device=dev) * rhs_norm
+    R = torch.addcmul(B, block_apply(A, X0), -one)   # R = B − A·X
+    r_norm = col_norm(R)
+    below = r_norm <= tol2
+    status = torch.where(below, DONE, torch.full((m,), int(Status.RUNNING), device=dev))
+    res = torch.where(below, r_norm / rhs_norm, torch.zeros_like(r_norm))
+    its = torch.zeros(m, dtype=torch.int64, device=dev)
+
+    Z = precond(R)
+    rho = col_dot(R, Z)                   # unconjugated bilinear form
+    brk_tol = (r_norm * eps) ** 2
+    X, P = X0, Z
+
+    def settle(live, status, res):
+        # columns that left the loop running: converged or out of iterations
+        out = ~live & (status == RUN)
+        status = torch.where(out, torch.where(r_norm <= tol2, DONE, OUT), status)
+        return status, torch.where(out, r_norm / rhs_norm, res)
+
+    live = (status == RUN) & (r_norm > tol2) & (its < max_iter) & ~zero_rhs
+    status, res = settle(live | zero_rhs, status, res)
+    steps = 0
+    while bool(live.any()):   # the iteration's one host read
+        steps += 1
+        Q = block_apply(A, P)
+        pq = col_dot(P, Q)
+        ok = (rho.abs() > brk_tol) & (pq.abs() > brk_tol)
+        alpha = rho / torch.where(ok, pq, one)
+        X_next = torch.addcmul(X, P, alpha)
+        R = torch.addcmul(R, Q, -alpha)
+        Z = precond(R)
+        rho_next = col_dot(R, Z)
+        r_norm_next = col_norm(R)
+        P = torch.addcmul(Z, P, rho_next / torch.where(ok, rho, one))   # p = z + β·p
+        rho = rho_next
+        # BREAKDOWN keeps the previous x, count and residual
+        brk = live & ~ok
+        status = torch.where(brk, BRK, status)
+        res = torch.where(brk, r_norm / rhs_norm, res)
+        upd = live & ok
+        X = torch.where(upd, X_next, X)
+        r_norm = torch.where(upd, r_norm_next, r_norm)
+        its = its + upd
+        live = upd & (r_norm > tol2) & (its < max_iter)
+        status, res = settle(live, status, res)
+
+    X = torch.where(zero_rhs, torch.zeros_like(X), X)
+    res = torch.where(zero_rhs, rhs_norm, res)
+    status = torch.where(zero_rhs, DONE, status)
+    return X, SolveInfo(iterations=its, residual=res, status=status), steps

@@ -3,7 +3,7 @@
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -55,3 +55,43 @@ def check_shapes(A, b: torch.Tensor, x0: torch.Tensor) -> None:
         raise IncompatibleMatrixFormat(
             "Input and output vec dimension do not match"
         )
+
+
+# --- (n, m) blocks: the lockstep solves' column algebra ----------------------
+def block_apply(A, X: torch.Tensor) -> torch.Tensor:
+    """A·X for an (n, m) block: ``A.matmat`` (one K1b launch on a padded
+    operator's flat view), else one ``matvec`` per column."""
+    if hasattr(A, "matmat"):
+        return A.matmat(X)
+    return torch.stack([A.matvec(X[:, j].contiguous()) for j in range(X.shape[1])], dim=1)
+
+
+def col_dot(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Xⱼᵀ·Yⱼ for every column j, no conjugation: an (m,) tensor."""
+    return torch.sum(X * Y, dim=0)
+
+
+def col_conj_dot(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """Xⱼᴴ·Yⱼ for every column j: an (m,) tensor."""
+    return torch.sum(torch.conj(X) * Y, dim=0)
+
+
+def col_norm(X: torch.Tensor) -> torch.Tensor:
+    """‖Xⱼ‖₂ for every column j, real: an (m,) tensor."""
+    if X.is_complex():
+        return torch.sqrt(torch.sum(X.real * X.real + X.imag * X.imag, dim=0))
+    return torch.sqrt(torch.sum(X * X, dim=0))
+
+
+def check_block(A, B: torch.Tensor, X0: Optional[torch.Tensor]):
+    """``(B, X0)`` of a lockstep solve: B an (n, m) tensor whose rows match
+    ``A.shape[1]``, X0 zeros of B's shape by default."""
+    B = torch.as_tensor(B)
+    if B.dim() != 2:
+        raise IncompatibleMatrixFormat("a block solve takes B of shape (n, m)")
+    if getattr(A, "shape", None) is not None and B.shape[0] != A.shape[1]:
+        raise IncompatibleMatrixFormat("Input vec dimension doesn't match the matrix size")
+    X0 = torch.zeros_like(B) if X0 is None else torch.as_tensor(X0, device=B.device)
+    if X0.shape != B.shape:
+        raise IncompatibleMatrixFormat("Input and output vec dimension do not match")
+    return B, X0

@@ -176,3 +176,140 @@ def minres(
 
     x, info, hist = _guard3(b, x0, main, hist_len, rdt)
     return (x, info, hist) if record_residuals else (x, info)
+
+
+def _minres_block(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *, M=None,
+                  tol, max_iter):
+    """MINRES on every column of an (n, m) block in lockstep: the port's
+    counterpart of ``jax.vmap(minres)``.
+
+    Each iteration applies A to the whole block once (``A.matmat``: one K1b
+    launch on a padded operator's flat view), and every scalar of
+    :func:`minres`'s recurrence is an (m,) tensor. A column stops at its own
+    exit — convergence, the β² gate of the preconditioned variant,
+    ``max_iter`` — and its x, count, residual and status stay frozen after
+    (``torch.where``), so each column gets its single solve's result; a zero
+    column takes the zero-rhs guard. One host read per iteration: whether
+    any column still runs. No fused Lanczos step (K4 takes one vector).
+
+    Returns ``(X, SolveInfo, steps)``: the info's fields are (m,) tensors,
+    as :func:`~sprsolve_tpu_torch.solvers.block_cg.batched` returns, and
+    ``steps`` counts the lockstep iterations (block applies in the loop).
+    """
+    from ..errors import SolveInfo
+    from .common import block_apply, check_block, col_conj_dot, col_norm
+
+    B, X0 = check_block(A, B, X0)
+    has_precond = M is not None
+    T, dev = B.dtype, B.device
+    rdt = real_dtype(T)
+    m, max_iter = B.shape[1], int(max_iter)
+    eps = eps_for(T, dev)
+    one_r = torch.ones((), dtype=rdt, device=dev)
+    zero_r = torch.zeros((), dtype=rdt, device=dev)
+    RUN, DONE, BAD, OUT = (torch.tensor(int(s), device=dev) for s in (
+        Status.RUNNING, Status.CONVERGED, Status.INVALID_PRECONDITIONER,
+        Status.INSUFFICIENT_ITER))
+
+    def beta_gate(beta_new2, noise_scale):
+        re2 = beta_new2.real
+        bad = re2 < -eps * noise_scale
+        if beta_new2.is_complex():
+            bad = bad | (beta_new2.imag.abs() > eps * torch.maximum(re2.abs(), noise_scale))
+        return bad
+
+    def guarded_inv(beta):
+        return torch.where(beta > 0, one_r / beta, zero_r)
+
+    rhs_norm = col_norm(B)
+    zero_rhs = rhs_norm <= eps
+    threshold = torch.tensor(tol, dtype=rdt, device=dev) * rhs_norm
+    V_new = torch.addcmul(B, block_apply(A, X0), -torch.ones((), dtype=T, device=dev))
+    res_norm = col_norm(V_new)
+    zeros = torch.zeros_like(B)
+    status = torch.full((m,), int(Status.RUNNING), device=dev)
+    if has_precond:
+        W_new = block_apply(M, V_new)
+        beta_new2 = col_conj_dot(V_new, W_new)
+        bad0 = beta_gate(beta_new2, res_norm * col_norm(W_new))
+        beta_new = torch.sqrt(torch.clamp(beta_new2.real, min=0))
+        ts = guarded_inv(beta_new)
+        V_new, W_new = V_new * ts, W_new * ts
+        status = torch.where(bad0, BAD, status)
+    else:
+        beta_new = res_norm
+        V_new = V_new * (one_r / beta_new)
+        W_new = zeros
+    beta_one = beta_new
+
+    X, V, P, P_old = X0, zeros, zeros, zeros
+    c = c_old = eta = torch.ones(m, dtype=T, device=dev)
+    s = s_old = torch.zeros(m, dtype=rdt, device=dev)
+    its = torch.zeros(m, dtype=torch.int64, device=dev)
+    res = torch.zeros(m, dtype=rdt, device=dev)
+
+    def settle(live, status, res):
+        # columns that left the loop still running ran out of iterations
+        out = ~live & (status == RUN)
+        return torch.where(out, OUT, status), torch.where(out, res_norm / rhs_norm, res)
+
+    live = (status == RUN) & (its < max_iter) & ~zero_rhs
+    status, res = settle(live | zero_rhs, status, res)
+    steps = 0
+    while bool(live.any()):   # the iteration's one host read
+        steps += 1
+        beta = beta_new
+        V_old, V = V, V_new
+        W = W_new if has_precond else V
+        AW = block_apply(A, W)
+        alpha = col_conj_dot(W, AW)
+        V_next = torch.addcmul(AW, V_old, (-beta).to(T))
+        V_next = torch.addcmul(V_next, V, -alpha)
+        if has_precond:
+            W_next = block_apply(M, V_next)
+            beta_next2 = col_conj_dot(V_next, W_next)
+            bad = live & beta_gate(beta_next2, beta * beta)
+            beta_next = torch.sqrt(torch.clamp(beta_next2.real, min=0))
+        else:
+            bad = torch.zeros_like(live)
+            beta_next = col_norm(V_next)
+
+        ts = guarded_inv(beta_next)
+        r3 = s_old * beta
+        tr = c_old * beta
+        r2 = alpha * s + c * tr
+        r1_hat = c * alpha - tr * s
+        r1_inv = one_r / torch.sqrt(abs2(r1_hat) + beta_next * beta_next)
+        c_next = r1_hat * r1_inv
+        s_next = beta_next * r1_inv
+        P_next = torch.addcmul(W, P, -r2)
+        P_next = torch.addcmul(P_next, P_old, (-r3).to(T))
+        P_next = P_next * r1_inv
+        res_next = res_norm * s_next.abs()
+        converged = res_next < threshold
+
+        # a column whose β² gate fails keeps its x (the reference returns
+        # before the update); the others take the step
+        upd = live & ~bad
+        X = torch.where(upd, torch.addcmul(X, P_next, (c_next * eta) * beta_one), X)
+        status = torch.where(bad, BAD, status)
+        status = torch.where(upd & converged, DONE, status)
+        res = torch.where(upd & converged, res_next / rhs_norm, res)
+        its = its + (upd & ~converged)
+        V_new = V_next * ts
+        if has_precond:
+            W_new = W_next * ts
+        beta_new = beta_next
+        c_old, c = c, c_next
+        s_old, s = s, s_next
+        P_old, P = P, P_next
+        eta = eta * (-s_next)
+        res_norm = torch.where(live, res_next, res_norm)
+        live = upd & ~converged & (its < max_iter)
+        status, res = settle(live, status, res)
+
+    X = torch.where(zero_rhs, torch.zeros_like(X), X)
+    res = torch.where(zero_rhs, rhs_norm, res)
+    status = torch.where(zero_rhs, DONE, status)
+    its = torch.where(zero_rhs, torch.zeros_like(its), its)
+    return X, SolveInfo(iterations=its, residual=res, status=status), steps

@@ -340,6 +340,12 @@ class DIA:
 
         return spmv_dia(self, x)
 
+    def matmat(self, X: torch.Tensor) -> torch.Tensor:
+        """Y = A·X for an (n, k) block, each column bitwise :meth:`matvec`'s."""
+        from ..ops.spmv import spmm_dia
+
+        return spmm_dia(self, X)
+
     def matvec_dot(self, x: torch.Tensor):
         from ..vecalg import conj_dot
 
@@ -373,6 +379,28 @@ def csr_from_scipy(m, device=None) -> CSR:
     """Build from a scipy.sparse matrix (any format)."""
     m = m.tocsr()
     return CSR.from_arrays(m.data, m.indices, m.indptr, m.shape, device=device)
+
+
+def csr_from_bcoo(m, device=None) -> CSR:
+    """Build from a torch sparse COO or CSR tensor (the port's counterpart
+    of ``sprsolve_tpu/sparse/containers.py:481-505``, which takes JAX's
+    BCOO/BCSR). Duplicates are summed, and index pairs outside the shape
+    (the padding a fixed-size sparse buffer carries) are dropped."""
+    if not isinstance(m, torch.Tensor) or m.layout not in (torch.sparse_coo,
+                                                           torch.sparse_csr):
+        raise ValueError("csr_from_bcoo takes a torch sparse COO or CSR tensor")
+    if m.dim() != 2 or m.dense_dim() != 0:
+        raise ValueError("csr_from_bcoo supports rank-2 sparse tensors without "
+                         "dense dimensions")
+    if m.layout == torch.sparse_csr:
+        m = m.to_sparse_coo()
+    # the raw entries: coalesce() would sum duplicates but not drop padding
+    idx = _host(m._indices()).astype(np.int64)
+    dat = _host(m._values())
+    nrows, ncols = (int(s) for s in m.shape)
+    keep = (idx[0] >= 0) & (idx[0] < nrows) & (idx[1] >= 0) & (idx[1] < ncols)
+    return CSR.from_coo(COO(data=dat[keep], row=idx[0, keep], col=idx[1, keep],
+                            shape=(nrows, ncols)), device=device)
 
 
 def csr_from_dense(a, device=None) -> CSR:

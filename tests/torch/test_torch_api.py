@@ -395,6 +395,9 @@ def test_import_leaves_jax_out():
         "import sprsolve_tpu_torch.solvers.tfqmr, sprsolve_tpu_torch.solvers.ca_cg\n"
         "import sprsolve_tpu_torch.solvers.ca_bicgstab, sprsolve_tpu_torch.solvers.block_cg\n"
         "import sprsolve_tpu_torch.solvers.refine\n"
+        "import sprsolve_tpu_torch.solvers.lobpcg, sprsolve_tpu_torch.solvers.eigs\n"
+        "import sprsolve_tpu_torch.solvers.rational, sprsolve_tpu_torch.debug\n"
+        "import sprsolve_tpu_torch.ops.operator, sprsolve_tpu_torch.sparse.containers\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'sprsolve_tpu'))\n"
         "assert not bad, bad\n"
@@ -408,3 +411,13 @@ def test_import_leaves_jax_out():
     assert "import jax" not in smoke and "from jax" not in smoke
     assert "sprsolve_tpu." not in smoke.replace("sprsolve_tpu_torch", "")
     assert "import sprsolve_tpu\n" not in smoke
+
+
+def test_port_exports_every_public_name_of_the_jax_package():
+    """All 75 names of ``sprsolve_tpu.__all__`` (the eigensolvers,
+    ``ShiftedOperator``, ``csr_from_bcoo`` and ``debug`` since slice 9)."""
+    missing = sorted(set(jsp.__all__) - set(tsp.__all__))
+    assert not missing, missing
+    assert len(jsp.__all__) == 75
+    assert all(hasattr(tsp, name) for name in tsp.__all__)
+    assert callable(tsp.debug.check_operator)

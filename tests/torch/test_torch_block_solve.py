@@ -121,19 +121,32 @@ def test_block_cg_complex_hermitian():
 
 
 def test_block_cg_on_the_padded_layout_applies_a_per_column():
-    """On a PaddedDIA (no ``matmat``) each iteration applies A once per
-    column: k·(its + 1) SpMVs in all, the first for R₀."""
+    """On a PaddedDIA each iteration applies A to every column of the
+    (padded_len, k) block in one K1b launch (``PaddedDIA.matmat``, the
+    JAX package's K1 under ``vmap``): its + 1 block applies in all, the
+    first for R₀, and X bitwise what one matvec per column gives."""
+    from sprsolve_tpu_torch.ops import padded_dia as pd
+
     A = tprob.poisson3d(6, 6, 6)
     op = tsp.optimize(A, device="cpu")
     B = np.random.default_rng(5).standard_normal((216, 4)).astype(np.float32)
     B2 = torch.stack([op.pad_vec(torch.as_tensor(B[:, j])) for j in range(4)], dim=1)
     calls = []
-    orig = op.matvec
-    object.__setattr__(op, "matvec", lambda x: calls.append(1) or orig(x))
-    X2, info = tsp.block_cg(op, B2, tol=1e-5, max_iter=200)
-    object.__delattr__(op, "matvec")
+    orig = pd.dia_spmm
+    pd.dia_spmm = lambda *a, **k: calls.append(a[1].shape) or orig(*a, **k)
+    try:
+        X2, info = tsp.block_cg(op, B2, tol=1e-5, max_iter=200)
+    finally:
+        pd.dia_spmm = orig
     info.raise_if_error()
-    assert len(calls) == 4 * (info.iterations + 1)
+    assert calls == [(op.padded_len, 4)] * (info.iterations + 1)
+
+    class PerColumn:          # the same operator without a block apply
+        shape = op.shape
+        matvec = staticmethod(op.matvec)
+
+    X2c, infoc = tsp.block_cg(PerColumn(), B2, tol=1e-5, max_iter=200)
+    assert torch.equal(X2, X2c) and infoc.iterations == info.iterations
     X = torch.stack([op.unpad_vec(X2[:, j]) for j in range(4)], dim=1).numpy()
     S = A.to_dia()
     for j in range(4):

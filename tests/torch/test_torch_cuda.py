@@ -878,7 +878,7 @@ def _smoke(monkeypatch):
 def test_cuda_phase13_exact_launch_counts_at_32(phase, monkeypatch, cuda):
     """Phase 13's cases (a)-(g) on the card at a 32³ grid, each asserting
     its exact launch counts (GMRES its + cycles + 1, CGS 1 + 2·its, block
-    CG 8·(its + 1), batched BiCGStab per column as its single solve, ...)."""
+    CG its + 1 K1b, batched BiCGStab per column as its single solve, ...)."""
     smoke = _smoke(monkeypatch)
     fn = getattr(smoke, "phase_refine" if phase == "refine" else f"phase_krylov_{phase}")
     fn(cuda, grid=32, timed=False)
@@ -907,3 +907,116 @@ def test_cuda_basis_products_ignore_a_global_tf32(cuda):
         torch.backends.cuda.matmul.allow_tf32 = prev
     for (x0, i0), (x1, i1) in zip(runs[False], runs[True]):
         assert int(i0.iterations) == int(i1.iterations) and torch.equal(x0, x1)
+
+
+def _k1b_operator(storage, grid, cuda):
+    """A PaddedDIA of the grid³ Poisson with the given band storage."""
+    base = problems.poisson3d(grid, grid, grid).to_dia()
+    scale = {"int8": 1.0, "bf16": 2.5, "f32": 1.0 + 1e-3, "f64": 1.0 + 1e-9}[storage]
+    dt = np.float64 if storage == "f64" else np.float32
+    op = tsp.PaddedDIA.from_dia(DIA(bands=torch.from_numpy(base.bands.numpy().astype(dt) * dt(scale)),
+                                    offsets=base.offsets, shape=base.shape), device=cuda)
+    want = {"int8": torch.int8, "bf16": torch.bfloat16, "f32": torch.float32,
+            "f64": torch.float64}[storage]
+    assert op.bands.dtype == want
+    return op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("storage", ["int8", "bf16", "f32", "f64"])
+@pytest.mark.parametrize("m", [1, 5, 12, 16])
+def test_cuda_k1b_columns_are_k1_bitwise(storage, m, cuda, monkeypatch):
+    """K1b on a 56³ block: each column bitwise K1's on it, halo rows zero
+    (a NaN block freed first), the same bits with the card said to have 1
+    or 3 SMs (each block of the one wave then walks at least 72 tiles, or
+    24), and within 8·eps·(|A|·|x|) of the plain version; one launch per
+    call."""
+    from sprsolve_tpu_torch.ops import _cuda_build
+
+    op = _k1b_operator(storage, 56, cuda)
+    dt, b, o, h = op.vdtype, op.bands, op.offsets, op.h
+    rng = np.random.default_rng(m)
+    X2 = op.pad_block(torch.as_tensor(rng.standard_normal((op.n, m)), dtype=dt, device=cuda))
+    junk = torch.full_like(X2, float("nan"))
+    del junk
+    before = pd.dia_spmm.launches
+    Y = pd.dia_spmm(b, X2, o, h)
+    assert pd.dia_spmm.launches == before + 1
+    for j in range(m):
+        assert torch.equal(Y[:, j], pd.dia_spmv(b, X2[:, j].contiguous(), o, h)), j
+    assert not bool(Y[:h].any()) and not bool(Y[h + op.n:].any())
+    width = _cuda_build.load().sprsolve_dia_spmm_width(pd._VCODE[dt], m, X2.data_ptr(),
+                                                       Y.data_ptr())
+    # an SM holds at most 2048 threads: 8 blocks of SPMM_TILE
+    assert -(-(op.n_pad * (m // width)) // pd.SPMM_TILE) >= 72 * 8
+    for sms in (1, 3):
+        monkeypatch.setattr(pd, "_sm_count", lambda index, sms=sms: sms)
+        assert torch.equal(pd.dia_spmm(b, X2, o, h), Y), sms
+    scale = pd.dia_spmm_plain(b.to(dt).abs(), X2.abs(), o, h)
+    err = (Y - pd.dia_spmm_plain(b, X2, o, h)).abs()
+    assert bool((err <= 8 * EPS[dt] * scale).all())
+
+
+@pytest.mark.cuda
+def test_cuda_k1b_complex_block_and_flat_view(cuda):
+    """A complex block through PaddedDIA.matmat is one K1b launch over its
+    interleaved planes, each column bitwise the two-K1 matvec; the flat
+    view pads, launches once and unpads."""
+    from sprsolve_tpu_torch.multigrid import FlatViewOperator
+
+    op = _k1b_operator("int8", 24, cuda)
+    rng = np.random.default_rng(2)
+    Z = torch.complex(*(torch.as_tensor(rng.standard_normal((op.n, 4)), dtype=torch.float32,
+                                        device=cuda) for _ in range(2)))
+    before = pd.dia_spmm.launches
+    Y = FlatViewOperator(op=op).matmat(Z)
+    assert pd.dia_spmm.launches == before + 1
+    for j in range(4):
+        assert torch.equal(Y[:, j], op.unpad_vec(op.matvec(op.pad_vec(Z[:, j]))))
+
+
+def _portable_draws(tag, shape, dtype, device):
+    """LOBPCG's refills from numpy, the same on every device."""
+    draw = np.random.default_rng(list(tag)).standard_normal(shape)
+    return torch.as_tensor(draw).to(dtype).to(device)
+
+
+@pytest.mark.cuda
+def test_cuda_lobpcg_and_shift_invert_match_their_cpu_runs(monkeypatch, cuda):
+    """LOBPCG on the 16³ Poisson's PaddedDIA and shift_invert_eigs on the
+    12³ one, on the card by default and on the CPU: the same status, the
+    counts within max(3, ⌈its/4⌉) and the eigenvalues within tol·|λ|
+    (f32 sums differ between the two)."""
+    import importlib
+
+    lob = importlib.import_module("sprsolve_tpu_torch.solvers.lobpcg")
+    monkeypatch.setattr(lob, "_fresh_directions", _portable_draws)
+    A = problems.poisson3d(16, 16, 16)
+    X0 = np.random.default_rng(0).standard_normal((A.shape[0], 4)).astype(np.float32)
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        op = tsp.optimize(A, device=dev)
+        runs[dev.type] = tsp.lobpcg(op, X0, tol=1e-4, max_iter=200)
+    (lg, _, ig), (lc, _, ic) = runs["cuda"], runs["cpu"]
+    assert lg.device.type == "cuda" and ig.status == ic.status == 0
+    assert abs(ig.iterations - ic.iterations) <= max(3, -(-ic.iterations // 4))
+    np.testing.assert_allclose(lg.cpu().numpy(), lc.numpy(), rtol=1e-4)
+    B = problems.poisson3d(12, 12, 12)
+    kw = dict(tol=1e-4, max_iter=100, inner_max_iter=400)
+    lg, Xg, ig = tsp.shift_invert_eigs(B, 2, 1.0, **kw)
+    lc, _, ic = tsp.shift_invert_eigs(B, 2, 1.0, device="cpu", **kw)
+    assert Xg.device.type == "cuda" and ig.status == ic.status == 0
+    assert abs(ig.iterations - ic.iterations) <= max(3, -(-ic.iterations // 4))
+    np.testing.assert_allclose(np.sort(lg.cpu().numpy()), np.sort(lc.numpy()), rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["lobpcg", "shift_invert", "rational", "shifted"])
+def test_cuda_phase14_exact_launch_counts_at_16(case, monkeypatch, cuda):
+    """Phase 14's cases on the card at a 16³ grid with cut budgets, each
+    asserting its exact K1b (or K1) launch count."""
+    smoke = _smoke(monkeypatch)
+    monkeypatch.setattr(smoke, "SI_MAX_ITER", 6)
+    monkeypatch.setattr(smoke, "SI_INNER_MAX_ITER", 60)
+    fn = getattr(smoke, f"phase_eigen_{case}")
+    fn(cuda, grid=16, **({} if case == "shifted" else {"timed": False}))

@@ -4,7 +4,7 @@ kernel wrapper is replaced by a shim that counts its calls (on the card a
 call is a launch), and phase 13's functions run with ``device="cpu"``,
 untimed.  Every count formula of phase 13 (GMRES's its + cycles + 1,
 CGS's 1 + 2·its, TFQMR's 3 + 2·its, IDR(s)'s its, single-sync CG's
-its + 2, block CG's k·(its + 1), FGMRES with an inner CG, the V-cycle
+its + 2, block CG's its + 1 block applies (K1b), FGMRES with an inner CG, the V-cycle
 relayed under CG, refinement's per-inner-solve sums) must hold exactly;
 the JAX package's 1M-row counts are checked on the card only."""
 
@@ -39,8 +39,8 @@ def _counting(orig):
 @pytest.fixture
 def counters(monkeypatch):
     monkeypatch.setattr(smoke, "RESTART", 6)
-    for name in ("dia_spmv", "dia_wdot", "dia_dot", "dia_complex_spmv", "dia_complex_dot",
-                 "dia_complex_wdot"):
+    for name in ("dia_spmv", "dia_spmm", "dia_wdot", "dia_dot", "dia_complex_spmv",
+                 "dia_complex_dot", "dia_complex_wdot"):
         monkeypatch.setattr(pd, name, _counting(getattr(pd, name)))
     monkeypatch.setattr(fused, "orth_norm", _counting(fused.orth_norm))
 

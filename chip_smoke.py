@@ -162,6 +162,32 @@ Phases, each printing lines of its own:
    bitwise K1 − σ·x, K1 its + 2, true residual below 1e-3. (a) is timed
    once more after its checked run; (b) and (c), minutes long, are timed
    in their checked run, after a warm-up call on a one-step budget.
+15. front   — this slice's front ends on the 100³ Poisson (1M rows): (a)
+   ``mmwrite`` of the f64 Poisson with symmetric storage (3.97M stored
+   entries) into a temporary directory, ``mmread`` back through the
+   compiled parser, bitwise the source CSR, both times and the file's
+   size; (b) ``info`` through ``main()`` and as ``python -m
+   sprsolve_tpu_torch``, the same text, 1000000 × 1000000 and 7 distinct
+   diagonals; (c) ``solve`` from the file with phase 4's rhs (``.npy``)
+   and no ``--device`` (the card): ``auto`` → MINRES in f64 at tol 1e-8
+   (K1 1, K3 and K4 its + 1), BiCGStab + Jacobi (K1 1, K2 2·its), and
+   both again with ``--f32`` at tol 1e-4; rc 0, the written x's true
+   residual below 1e-6 (1e-3 in f32), exact counts; (d) the damped
+   complex-symmetric Poisson in c128 at tol 1e-12: ``auto`` + Jacobi →
+   COCG (K5 its + 1), CS-MINRES with 1/|d| (K5 1, K6 its + 1) and
+   ``scipy_compat.bicgstab`` on the scipy matrix with the complex Jacobi
+   (K5 1, K7 2·its, its read from the solver), true residuals below 1e-9;
+   (e) ``scipy_compat`` cg and minres on the f64 Poisson and gmres on the
+   f64 convection-diffusion system as scipy matrices at rtol 1e-12: info
+   0 and x within 1e-6 of scipy.sparse.linalg's own; cg with maxiter 5
+   gives info 5, as scipy's does; (f) ``tune_padded_dia`` and
+   ``tune_complex_padded_dia`` on the two operators (each candidate's µs
+   printed), every dot-kernel output bitwise the same at every candidate
+   grid, and a fresh operator takes the cached winner; (g)
+   ``timing.spmv_report`` of K1 on the f32 Poisson within 5% of phase 3's
+   share, and a trace from ``timing.trace``; (h) K1-K4 on the f64 Poisson
+   and K5-K7 on the c128 damped Poisson: warm, cold, plain, bound and
+   ``torch.mv`` on the same CSR.
 
 The line before the last is a JSON object with one entry per kernel (K1-K7
 and K1b, each with its warm ``ms`` and its ``cold_ms``; K1b's launches are
@@ -630,12 +656,12 @@ def check_one_launch(name, calls, spmv, spmv_name, kernel, profile: bool) -> Non
         "eager calls and 3 graph replays; tickets at 0")
 
 
-def real_kernel_stats(op, x, dinv, mk) -> dict:
+def real_kernel_stats(op, x, dinv, mk, csr=None, tag="poisson100_int8") -> dict:
     """Graph-replayed device times of K1-K4 and their plain versions at the
     main path's shapes (K2 with the Jacobi fold and w = x, BiCGStab's second
     SpMV; and with w = r0, its first, as a row of its own), warm and cold in
     L2, the wrapper times, each kernel's bound from these inputs, and K1's
-    library call."""
+    library call on ``csr`` (default: the f32 Poisson)."""
     D, n_pad, h = len(op.offsets), op.n_pad, op.h
     b, o = op.bands, op.offsets
     a, vold, v, r0 = mk(), mk(), mk(), mk()
@@ -655,23 +681,23 @@ def real_kernel_stats(op, x, dinv, mk) -> dict:
         "dia_dot": (lambda b, x: pd.dia_dot(b, x, o, h),
                     lambda b, x: pd.dia_dot_plain(b, x, o, h),
                     (b, x), nbytes(b, x, x), (2 * D + 2) * n_pad),
-        "orth_norm": (lambda *t: fused.orth_norm(*t, h), fused.orth_norm_plain,
+        "orth_norm": (lambda *t: fused.orth_norm(*t, h), lambda *t: fused.orth_norm_plain(*t, h),
                       (a, vold, v, beta, alpha), nbytes(a, vold, v, a), 6 * n_pad),
     }
     stats = {}
     for name, (kern, plain, ops, moved, flops) in calls.items():
-        bms, by = bound_ms(moved, flops, torch.float32)
+        bms, by = bound_ms(moved, flops, op.vdtype)
         stats[name] = {"ms": device_ms(lambda: kern(*ops)),
                        "cold_ms": cold_device_ms(kern, ops),
                        "plain_ms": device_ms(lambda: plain(*ops)),
                        "wrapper_ms": median_ms(lambda: kern(*ops)),
                        "bound_ms": bms, "bound_by": by, "library_ms": None}
-    A = problems.poisson3d(GRID, GRID, GRID)
+    A = problems.poisson3d(GRID, GRID, GRID) if csr is None else csr
     stats["dia_spmv"]["library_ms"] = library_ms(
         "K1 dia_spmv", A, op.unpad_vec(x).contiguous(),
         op.unpad_vec(pd.dia_spmv(b, x, o, h)))
     for name, st in stats.items():
-        log("kernels", set="poisson100_int8", kernel=name, timing="graph-replayed",
+        log("kernels", set=tag, kernel=name, timing="graph-replayed",
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in st.items()},
             share_of_bound=f"{st['bound_ms'] / st['ms']:.3f}",
             cold_share_of_bound=f"{st['bound_ms'] / st['cold_ms']:.3f}")
@@ -784,12 +810,13 @@ def phase_complex_kernels(dev, errs, stats):
             stats.update(complex_kernel_stats(op, x, w, dinv))
 
 
-def complex_kernel_stats(op, x, w, dinv) -> dict:
+def complex_kernel_stats(op, x, w, dinv, csr_arrays=None, tag="damped_int8_bf16") -> dict:
     """K5-K7 at the main path's shapes (the damped set): graph-replayed
     device times of every variant and their plain versions, the bounds from
-    these inputs, and K5's library call. The kernel line reports K6 with
-    ``conj_x`` (CS-MINRES's step) and K7 with the fold and w = x
-    (BiCGStab's second SpMV)."""
+    these inputs, and K5's library call on ``csr_arrays`` (default: the c64
+    damped Poisson). The kernel line reports K6 with ``conj_x``
+    (CS-MINRES's step) and K7 with the fold and w = x (BiCGStab's second
+    SpMV)."""
     bre, bim, o, h = op.re.bands, op.im.bands, op.offsets, op.h
     D, n_pad = len(o), op.n_pad
     planes = nbytes(bre, bim)
@@ -816,18 +843,18 @@ def complex_kernel_stats(op, x, w, dinv) -> dict:
     }
     stats = {}
     for name, (kern, plain, ops, moved, flops) in variants.items():
-        bms, by = bound_ms(moved, flops, torch.float32)
+        bms, by = bound_ms(moved, flops, op.re.vdtype)
         stats[name] = {"ms": device_ms(lambda: kern(*ops)),
                        "cold_ms": cold_device_ms(kern, ops),
                        "plain_ms": device_ms(lambda: plain(*ops)),
                        "wrapper_ms": median_ms(lambda: kern(*ops)), "bound_ms": bms,
                        "bound_by": by, "library_ms": None}
-    csr = spt.CSR.from_arrays(*damped_csr_arrays(), shape=op.shape)
+    csr = spt.CSR.from_arrays(*(csr_arrays or damped_csr_arrays()), shape=op.shape)
     stats["dia_complex_spmv"]["library_ms"] = library_ms(
         "K5 dia_complex_spmv", csr, op.unpad_vec(x).contiguous(),
         op.unpad_vec(pd.dia_complex_spmv(bre, bim, x, o, h)))
     for name, st in stats.items():
-        log("kernels", set="damped_int8_bf16", kernel=name, timing="graph-replayed",
+        log("kernels", set=tag, kernel=name, timing="graph-replayed",
             **{k: (f"{v:.5f}" if isinstance(v, float) else v) for k, v in st.items()},
             share_of_bound=f"{st['bound_ms'] / st['ms']:.3f}",
             cold_share_of_bound=f"{st['bound_ms'] / st['cold_ms']:.3f}")
@@ -973,7 +1000,7 @@ def phase_orth_norm(name, op, mk, errs):
     alpha = torch.tensor(-1.3, dtype=dt, device=dev)
     dirty(a)
     vn, ss = fused.orth_norm(a, vold, v, beta, alpha, op.h)
-    vn_r, ss_r = fused.orth_norm_plain(a, vold, v, beta, alpha)
+    vn_r, ss_r = fused.orth_norm_plain(a, vold, v, beta, alpha, op.h)
     scale = a.abs() + 0.7 * vold.abs() + 1.3 * v.abs()
     if not bool(((vn - vn_r).abs() <= Y_RTOL[dt] * scale).all()):
         raise AssertionError(f"{name} K4: v+ outside rtol {Y_RTOL[dt]}")
@@ -983,7 +1010,8 @@ def phase_orth_norm(name, op, mk, errs):
     torch.cuda.synchronize()
     return {
         "orth_norm": median_ms(lambda: fused.orth_norm(a, vold, v, beta, alpha, op.h)),
-        "orth_norm_plain": median_ms(lambda: fused.orth_norm_plain(a, vold, v, beta, alpha)),
+        "orth_norm_plain": median_ms(lambda: fused.orth_norm_plain(a, vold, v, beta, alpha,
+                                                                   op.h)),
     }
 
 
@@ -1086,7 +1114,7 @@ class PlainOperator:
         return pd.dia_dot_plain(self.op.bands, x2, self.op.offsets, self.op.h)
 
     def orth_norm(self, a2, vold2, v2, beta, alpha):
-        return fused.orth_norm_plain(a2, vold2, v2, beta, alpha)
+        return fused.orth_norm_plain(a2, vold2, v2, beta, alpha, self.op.h)
 
 
 def phase_symmetric(dev):
@@ -2812,6 +2840,414 @@ def phase_eigen(dev):
     return k1b["lobpcg"]
 
 
+# --- phase 15: the front ends ------------------------------------------------
+cli = importlib.import_module("sprsolve_tpu_torch.__main__")
+api_mod = importlib.import_module("sprsolve_tpu_torch.api")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_MAX_ITER = 2000
+SCIPY_RTOL = 1e-12
+COMPLEX_TOL = 1e-12
+
+
+def device_argv(dev) -> list:
+    """The CLI's device flag: none on the card (the default), ``--device``
+    elsewhere."""
+    return [] if torch.device(dev).type == "cuda" else ["--device", str(dev)]
+
+
+def run_cli(argv):
+    """``main(argv)`` of ``python -m sprsolve_tpu_torch`` with its standard
+    output captured and echoed: (return code, text, wall seconds)."""
+    import contextlib
+    import io as _io
+
+    buf = _io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log("front", cli=" ".join(argv[:1]), out=repr(line))
+    return rc, text, wall
+
+
+def cli_report(text: str):
+    """(method, iterations, status, true rel-res) of a ``solve`` report line
+    ("minres: 320 iterations, status CONVERGED, true rel-res 1.2e-09, ...")."""
+    line = text.splitlines()[0]
+    head, rest = line.split(": ", 1)
+    its = int(rest.split(" iterations")[0])
+    status = rest.split("status ")[1].split(",")[0]
+    relres = float(rest.split("true rel-res ")[1].split(",")[0])
+    return head, its, status, relres
+
+
+@dataclasses.dataclass
+class recording_solver:
+    """Within the block, ``solve()``'s ``method`` solver appends each solve's
+    iteration count to ``its`` (the count a scipy-shaped call does not
+    return)."""
+    method: str
+    its: list = dataclasses.field(default_factory=list)
+
+    def __enter__(self):
+        orig = self._orig = api_mod._SOLVERS[self.method]
+
+        def run(*args, **kwargs):
+            x, info = orig(*args, **kwargs)
+            self.its.append(int(info.iterations))
+            return x, info
+
+        api_mod._SOLVERS[self.method] = run
+        return self.its
+
+    def __exit__(self, *exc):
+        api_mod._SOLVERS[self.method] = self._orig
+
+
+def phase_front_io(tmp, grid):
+    """Phase 15 (a): mmwrite the f64 Poisson with symmetric storage, mmread
+    it back through the compiled parser, bitwise equal to the source."""
+    from sprsolve_tpu_torch.utils import mmread, mmwrite
+
+    A = problems.poisson3d(grid, grid, grid, dtype=np.float64)
+    path = os.path.join(tmp, "poisson.mtx")
+    t0 = time.perf_counter()
+    mmwrite(path, A, comment="7-point Poisson, chip_smoke.py phase 15", symmetry="symmetric")
+    t_write = time.perf_counter() - t0
+    with open(path) as f:
+        header = [next(f) for _ in range(3)]
+    stored = int(header[2].split()[2])
+    n = grid ** 3
+    if header[0].split() != ["%%MatrixMarket", "matrix", "coordinate", "real", "symmetric"] \
+            or stored != (A.nnz + n) // 2:
+        raise AssertionError(f"mmwrite: header {header}")
+    t0 = time.perf_counter()
+    B = mmread(path)
+    t_read = time.perf_counter() - t0
+    if not (B.shape == A.shape and B.data.dtype == torch.float64
+            and all(torch.equal(getattr(B, k), getattr(A, k))
+                    for k in ("data", "indices", "indptr"))):
+        raise AssertionError("mmread: the CSR read back differs from the one written")
+    log("front", entry="io", rows=n, nnz=A.nnz, stored_entries=stored,
+        file_bytes=os.path.getsize(path), mmwrite_s=f"{t_write:.3f}",
+        mmread_s=f"{t_read:.3f}", bitwise_equal=True)
+    return A, path
+
+
+def phase_front_info(path, grid):
+    """Phase 15 (b): ``info`` through main() and as ``python -m``."""
+    n = grid ** 3
+    rc, text, wall = run_cli(["info", path])
+    p = subprocess.run([sys.executable, "-m", "sprsolve_tpu_torch", "info", path], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    want = (f"{n} x {n}", "distinct diagonals 7")
+    if rc != 0 or p.returncode != 0 or not all(w in text for w in want) \
+            or p.stdout != text:
+        raise AssertionError(f"info: rc {rc}/{p.returncode}, {text!r} / {p.stdout!r} "
+                             f"{p.stderr[-2000:]}")
+    log("front", entry="info", rows=n, diagonals=7, main_wall_s=f"{wall:.3f}",
+        subprocess="same output")
+
+
+def solve_counts(method: str, its: int) -> dict:
+    """The launches of ``solve()`` on a PaddedDIA: MINRES K1 once (r₀), K3
+    and K4 its + 1 times; BiCGStab with the folded Jacobi K1 once (r₀), K2
+    twice per iteration."""
+    if method == "minres":
+        return {"dia_spmv": 1, "dia_dot": its + 1, "orth_norm": its + 1}
+    return {"dia_spmv": 1, "dia_wdot": 2 * its}
+
+
+def phase_front_solve(dev, tmp, A, path, timed):
+    """Phase 15 (c): ``solve`` from the file in f64 (auto → MINRES, and
+    BiCGStab + Jacobi, tol 1e-8) and with --f32 (tol 1e-4), each with exact
+    launch counts, its true residual and the written x; with ``timed``, the
+    f64 pair's prepared times and idle shares."""
+    b = poisson_rhs(A).astype(np.float64)
+    bpath = os.path.join(tmp, "b.npy")
+    np.save(bpath, b)
+    runs = (("f64 auto", [], 1e-8, "minres", 1e-6),
+            ("f64 bicgstab+jacobi", ["--method", "bicgstab", "--precond", "jacobi"], 1e-8,
+             "bicgstab + jacobi", 1e-6),
+            ("f32 auto", ["--f32"], 1e-4, "minres", 1e-3),
+            ("f32 bicgstab+jacobi", ["--method", "bicgstab", "--precond", "jacobi", "--f32"],
+             1e-4, "bicgstab + jacobi", 1e-3))
+    for tag, extra, tol, head, res_max in runs:
+        xpath = os.path.join(tmp, "x.npy")
+        argv = (["solve", path, "--rhs", bpath, "--tol", repr(tol), "--max-iter",
+                 str(CLI_MAX_ITER), "--out", xpath] + extra + device_argv(dev))
+        pd.reset_launch_counts()
+        rc, text, wall = run_cli(argv)
+        _sync(dev)
+        counts = launch_counts()
+        got_head, its, status, relres = cli_report(text)
+        x = np.load(xpath)
+        res = true_residual(A, torch.as_tensor(x), b)
+        want_dt = np.float64 if tag.startswith("f64") else np.float32
+        if not (rc == 0 and status == "CONVERGED" and got_head == head
+                and res < res_max and relres < res_max and x.dtype == want_dt):
+            raise AssertionError(f"cli {tag}: rc {rc}, {text!r}, true residual {res:.3e}")
+        expect_counts(f"cli {tag}", counts, **solve_counts(head.split()[0], its))
+        log("front", entry=f"cli solve ({tag})", method=head, iterations=its, tol=tol,
+            true_residual=res, wall_s=f"{wall:.3f}",
+            **{f"{k}_launches": v for k, v in counts.items() if v})
+        if timed and tag.startswith("f64"):
+            front_solve_times(dev, A, b, head, tol, its)
+
+
+def front_solve_times(dev, A, b, head, tol, its):
+    """The CLI's f64 solve through ``prepare()`` on the same system: three
+    timed solves, each in the CLI's count, and one profiled (idle share)."""
+    method, M = ("minres", None) if head == "minres" else ("bicgstab", "jacobi")
+    handle = spt.prepare(A, method=method, M=M, tol=tol, max_iter=CLI_MAX_ITER,
+                         **entry_kw(dev))
+    bd = torch.as_tensor(b, device=dev)
+    wall, walls, _, _ = timed_solves(handle, bd, its, f"prepare(f64 {head})")
+    prof = idle_share(handle, bd, names=REAL_KERNELS)
+    extra = {} if prof is None else dict(
+        device_busy_ms=f"{prof[1]:.4f}", idle_share=f"{prof[2]:.4f}",
+        hand_kernels_ms=f"{prof[3]:.4f}",
+        device_us_per_iteration=f"{prof[1] / max(its, 1) * 1e3:.3f}")
+    log("front", entry=f"prepare(f64 {head})", iterations=its, wall_s_median=f"{wall:.4f}",
+        walls_s=",".join(f"{w:.4f}" for w in walls),
+        per_iteration_ms=f"{wall / max(its, 1) * 1e3:.4f}", **extra)
+
+
+def phase_front_complex(dev, grid):
+    """Phase 15 (d): the damped complex-symmetric Poisson in c128 (A + 0.5i·I,
+    in memory) through the complex solve() routes at tol 1e-12: auto +
+    Jacobi → COCG (K5 its + 1, which no other route gives),
+    CS-MINRES with 1/|d| (K5 once, K6 its + 1), and scipy_compat.bicgstab
+    on the scipy matrix with the complex Jacobi (K5 once, K7 2·its)."""
+    import scipy.sparse as sps
+
+    from sprsolve_tpu_torch import scipy_compat
+
+    P = problems.poisson3d(grid, grid, grid)
+    data = P.data.numpy().astype(np.complex128)
+    data[P.indices.numpy() == P.row_ids.numpy()] += 0.5j
+    arrays = (data, P.indices.numpy(), P.indptr.numpy())
+    n = P.shape[0]
+    Z = CSR.from_arrays(*arrays, shape=(n, n))
+    r = np.random.default_rng(SEED + 6).standard_normal(n)
+    b = r + 0.25j * r
+    kw = dict(tol=COMPLEX_TOL, max_iter=3000, **entry_kw(dev))
+    runs = {
+        "auto": (lambda: spt.solve(Z, b, method="auto", M="jacobi", **kw), None,
+                 lambda k: {"dia_complex_spmv": k + 1}),
+        "cs_minres": (lambda: spt.solve(Z, b, method="cs_minres", M="jacobi", **kw), None,
+                      lambda k: {"dia_complex_spmv": 1, "dia_complex_dot": k + 1}),
+        "scipy_compat.bicgstab": (
+            lambda: scipy_compat.bicgstab(sps.csr_matrix(arrays, shape=(n, n)), b,
+                                          rtol=COMPLEX_TOL, maxiter=3000, M="jacobi",
+                                          **entry_kw(dev)),
+            "bicgstab", lambda k: {"dia_complex_spmv": 1, "dia_complex_wdot": 2 * k}),
+    }
+    for tag, (run, recorded_method, want) in runs.items():
+        if recorded_method is None:
+            (x, info), c, wall = run_counted(run, dev)
+            its, ok = int(info.iterations), bool(info.converged)
+        else:
+            with recording_solver(recorded_method) as rec:
+                (x, code), c, wall = run_counted(run, dev)
+            its, ok = rec[-1], code == 0
+        res = complex_true_residual(arrays, (n, n), x, b)
+        if not (ok and res < 1e-9 and x.dtype == torch.complex128):
+            raise AssertionError(f"c128 {tag}: converged {ok}, true residual {res:.3e}")
+        expect_counts(f"c128 {tag}", c, **want(its))
+        log("front", entry=f"c128 {tag}", iterations=its, tol=COMPLEX_TOL,
+            true_residual=res, wall_s=f"{wall:.3f}",
+            **{f"{k}_launches": v for k, v in c.items() if v})
+    return Z, arrays
+
+
+def phase_front_scipy(dev, A, grid):
+    """Phase 15 (e): scipy_compat's cg and minres on the f64 Poisson and
+    gmres on the f64 convection-diffusion system, as scipy.sparse matrices:
+    info 0 and x within 1e-6 of scipy.sparse.linalg's own at the same rtol;
+    cg with a too-small maxiter gives that maxiter as its info, as scipy's
+    does."""
+    import scipy.sparse as sps
+    import scipy.sparse.linalg as spla
+
+    from sprsolve_tpu_torch import scipy_compat
+
+    def scipy_of(m):
+        return sps.csr_matrix((m.data.numpy(), m.indices.numpy(), m.indptr.numpy()),
+                              shape=m.shape)
+
+    S = scipy_of(A)
+    C = scipy_of(problems.convection_diffusion3d(grid, grid, grid, peclet=20.0,
+                                                 dtype=np.float64))
+    b = poisson_rhs(A).astype(np.float64)
+    for name, M in (("cg", S), ("minres", S), ("gmres", C)):
+        _sync(dev)
+        t0 = time.perf_counter()
+        pd.reset_launch_counts()
+        x, code = getattr(scipy_compat, name)(M, b, rtol=SCIPY_RTOL, **entry_kw(dev))
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        xs, code_s = getattr(spla, name)(M, b, rtol=SCIPY_RTOL)
+        wall_s = time.perf_counter() - t0
+        xh = x.cpu().numpy()
+        err = float(np.linalg.norm(xh - xs) / np.linalg.norm(xs))
+        if not (code == 0 and code_s == 0 and xh.dtype == np.float64 and err < 1e-6):
+            raise AssertionError(f"scipy_compat.{name}: info {code} (scipy {code_s}), "
+                                 f"relative distance to scipy's x {err:.3e}")
+        log("front", entry=f"scipy_compat.{name}", rtol=SCIPY_RTOL, info=code,
+            rel_diff_vs_scipy=f"{err:.3e}", wall_s=f"{wall:.3f}",
+            scipy_wall_s=f"{wall_s:.3f}",
+            **{f"{k}_launches": v for k, v in counts.items() if v})
+    x, code = scipy_compat.cg(S, b, rtol=SCIPY_RTOL, maxiter=5, **entry_kw(dev))
+    _, code_s = spla.cg(S, b, rtol=SCIPY_RTOL, maxiter=5)
+    if not code == code_s == 5:
+        raise AssertionError(f"scipy_compat.cg(maxiter=5): info {code}, scipy's {code_s}")
+    log("front", entry="scipy_compat.cg(maxiter=5)", info=code, scipy_info=code_s)
+
+
+def grid_outputs(op, x, w, dinv, bps):
+    """Every dot-kernel output of ``op`` at ``blocks_per_sm`` ``bps``: K3 and
+    K2 (fold with w = x; w without fold), or K6 (both forms) and K7 (fold
+    with w = x; w without fold)."""
+    o, h = op.offsets, op.h
+    if op.dtype.is_complex:
+        br, bi = op.re.bands, op.im.bands
+        return (*pd.dia_complex_dot(br, bi, x, o, h, False, bps),
+                *pd.dia_complex_dot(br, bi, x, o, h, True, bps),
+                *pd.dia_complex_wdot(br, bi, x, None, dinv, o, h, bps),
+                *pd.dia_complex_wdot(br, bi, x, w, None, o, h, bps))
+    return (*pd.dia_dot(op.bands, x, o, h, bps),
+            *pd.dia_wdot(op.bands, x, None, dinv, o, h, bps),
+            *pd.dia_wdot(op.bands, x, w, None, o, h, bps))
+
+
+def phase_front_tuning(dev, tmp, A, Z):
+    """Phase 15 (f): tune_padded_dia and tune_complex_padded_dia on the f64
+    Poisson and the c128 damped Poisson, the cache in ``tmp``: each
+    candidate's µs printed, every output bitwise the same at every
+    candidate, and a fresh operator takes the cached grid."""
+    from sprsolve_tpu_torch.utils import tune_complex_padded_dia, tune_padded_dia
+
+    rng = np.random.default_rng(SEED + 9)
+    old = os.environ.get("SPRSOLVE_TUNE_CACHE")
+    os.environ["SPRSOLVE_TUNE_CACHE"] = os.path.join(tmp, "autotune.json")
+    try:
+        for kind, m, tune, cls in (
+                ("dia", DIA.from_csr(A, device="cpu"), tune_padded_dia, spt.PaddedDIA),
+                ("cdia", DIA.from_csr(Z, device="cpu"), tune_complex_padded_dia,
+                 spt.ComplexPaddedDIA)):
+            t0 = time.perf_counter()
+            op = tune(m, verbose=True, device=dev)
+            wall = time.perf_counter() - t0
+            mk = lambda: op.pad_vec(torch.as_tensor(
+                rng.standard_normal(op.n) + (1j * rng.standard_normal(op.n)
+                                             if kind == "cdia" else 0)).to(op.dtype).to(dev))
+            x, w = mk(), mk()
+            dinv = op.jacobi_precond().diag_inv
+            ref = grid_outputs(op, x, w, dinv, None)
+            for bps in tuning.GRID_CANDIDATES:
+                got = grid_outputs(op, x, w, dinv, bps)
+                if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                    raise AssertionError(f"{kind}: blocks_per_sm={bps} changes an output")
+            fresh = cls.from_dia(m, device=dev)
+            if fresh.dot_blocks_per_sm != op.dot_blocks_per_sm \
+                    or op.dot_blocks_per_sm not in tuning.GRID_CANDIDATES:
+                raise AssertionError(f"{kind}: tuned {op.dot_blocks_per_sm}, a fresh "
+                                     f"operator takes {fresh.dot_blocks_per_sm}")
+            grid = pd.persistent_grid(op.n_pad, op.dtype, pd._sm_count(dev.index or 0)
+                                      if torch.device(dev).type == "cuda" else 1,
+                                      op.dot_blocks_per_sm)
+            log("front", entry=f"tune ({kind}, {op.dtype})", winner_blocks_per_sm=
+                op.dot_blocks_per_sm, winner_grid=grid, sweep_s=f"{wall:.3f}",
+                outputs_bitwise_equal_over=",".join(map(str, tuning.GRID_CANDIDATES)),
+                fresh_operator_takes_cache=True)
+    finally:
+        if old is None:
+            os.environ.pop("SPRSOLVE_TUNE_CACHE", None)
+        else:
+            os.environ["SPRSOLVE_TUNE_CACHE"] = old
+
+
+def phase_front_timing(dev, tmp, grid, k1_stats):
+    """Phase 15 (g): ``timing.spmv_report`` of K1 on the f32 Poisson, its
+    roofline share within 5% of phase 3's own (phase 3's bound over phase
+    3's graph-replayed timer, run here), and a Chrome trace written by
+    ``timing.trace``."""
+    from sprsolve_tpu_torch.utils import timing
+
+    A = problems.poisson3d(grid, grid, grid)
+    op = spt.PaddedDIA.from_dia(DIA.from_csr(A, device="cpu"), device=dev)
+    x = op.pad_vec(torch.as_tensor(np.random.default_rng(SEED + 10).standard_normal(op.n),
+                                   dtype=torch.float32, device=dev))
+    call = lambda v: pd.dia_spmv(op.bands, v, op.offsets, op.h)
+    t = timing.time_fn(call, x)
+    rep = timing.spmv_report(t, A.nnz, timing.dia_bytes(
+        op.n, len(op.offsets), itemsize=4, band_itemsize=op.bands.element_size()), device=dev)
+    with timing.trace(os.path.join(tmp, "trace")) as trace_path:
+        call(x)
+    if not os.path.getsize(trace_path) > 0:
+        raise AssertionError("timing.trace wrote no trace")
+    fields = dict(report=repr(str(rep)), seconds=f"{t:.9f}", trace_bytes=os.path.getsize(
+        trace_path))
+    if torch.device(dev).type == "cuda":
+        # the rate an unlisted card's share would divide by
+        fields["copy_bytes_per_s"] = f"{timing.copy_bytes_per_s(dev):.4e}"
+    if k1_stats is not None:
+        # phase 3's bytes bound over phase 3's timer, run here on these
+        # inputs: the card's state drifts over the script's minutes
+        ms = device_ms(lambda: call(x))
+        share3 = k1_stats["bound_ms"] / ms
+        if not abs(rep.roofline_fraction - share3) <= 0.05 * share3:
+            raise AssertionError(f"spmv_report: roofline share {rep.roofline_fraction:.4f}, "
+                                 f"phase 3's {share3:.4f}")
+        fields.update(roofline_share=f"{rep.roofline_fraction:.4f}",
+                      phase3_share=f"{share3:.4f}", phase3_timer_ms=f"{ms:.5f}",
+                      phase3_ms=f"{k1_stats['ms']:.5f}")
+    log("front", entry="timing.spmv_report(K1)", **fields)
+
+
+def phase_front_kernels(dev, A, Z, z_arrays):
+    """Phase 15 (h): K1-K4 on the f64 Poisson and K5-K7 on the c128 damped
+    Poisson at this slice's shapes: graph-replayed warm and cold times, the
+    plain versions', the bounds and torch.mv on the same CSR (f64, c128)."""
+    rng = np.random.default_rng(SEED + 11)
+    op = spt.PaddedDIA.from_dia(DIA.from_csr(A, device="cpu"), device=dev)
+    assert op.bands.dtype == torch.float64
+    mk = lambda: op.pad_vec(torch.as_tensor(rng.standard_normal(op.n), dtype=torch.float64,
+                                            device=dev))
+    real_kernel_stats(op, mk(), op.jacobi_precond().diag_inv, mk, csr=A,
+                      tag="poisson100_f64")
+    opz = spt.ComplexPaddedDIA.from_csr(Z, device=dev)
+    assert opz.re.bands.dtype == opz.im.bands.dtype == torch.float64
+    mkz = lambda: opz.pad_vec(torch.complex(
+        *(torch.as_tensor(rng.standard_normal(opz.n), dtype=torch.float64, device=dev)
+          for _ in range(2))))
+    complex_kernel_stats(opz, mkz(), mkz(), opz.jacobi_precond().diag_inv,
+                         csr_arrays=z_arrays, tag="damped_c128")
+
+
+def phase_front(dev, grid=GRID, timed=True, k1_stats=None):
+    """Phase 15: the front ends (Matrix Market IO, the CLI, the complex
+    routes and scipy_compat in f64/c128, the grid autotune, the timing
+    harness) on the 1M-row Poisson."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        A, path = phase_front_io(tmp, grid)
+        phase_front_info(path, grid)
+        phase_front_solve(dev, tmp, A, path, timed)
+        Z, z_arrays = phase_front_complex(dev, grid)
+        phase_front_scipy(dev, A, grid)
+        phase_front_tuning(dev, tmp, A, Z)
+        phase_front_timing(dev, tmp, grid, k1_stats)
+        if timed:
+            phase_front_kernels(dev, A, Z, z_arrays)
+    log("front", seconds=f"{time.perf_counter() - t0:.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -2859,6 +3295,7 @@ def main() -> int:
     phase_layouts(dev)
     phase_krylov(dev)
     launches["dia_spmm"] = phase_eigen(dev)
+    phase_front(dev, k1_stats=stats["dia_spmv"])
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -26,6 +26,11 @@ The eigensolvers — ``lobpcg``, ``shift_invert_eigs`` (MINRES on a
 ``ShiftedOperator``) and ``rational_filter_eigs`` — run their block
 applies on K1b, the column-batched K1, with lockstep block MINRES and
 COCG inside; the last two lay out a CSR on the CUDA device by default.
+A banded float64 or complex128 matrix runs the same kernels in its own
+dtype.  The front ends: ``scipy_compat`` (scipy.sparse.linalg's
+conventions), ``python -m sprsolve_tpu_torch info|solve|eig``, Matrix
+Market ``utils.mmread``/``mmwrite``, ``utils.timing``, the dot kernels'
+grid autotune (``utils.tune_padded_dia``) and ``examples/``.
 """
 
 from . import debug, errors, precond, vecalg

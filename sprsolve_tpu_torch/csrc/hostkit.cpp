@@ -1,19 +1,20 @@
 // Host toolkit of sprsolve_tpu_torch: the graph and factorization passes
 // that run once per operator, at setup, on the CPU.
 //
-// The port's own copy of sprsolve_tpu/native/hostkit.cpp (lines 27-330):
+// The port's own copy of sprsolve_tpu/native/hostkit.cpp (lines 27-357):
 // ILU(0)/IC(0), first-fit coloring, pattern symmetrization, reverse
-// Cuthill-McKee, the COO sort permutation, and the bandwidth and
-// diagonal counts that decide a layout.  One change: rcm_order sorts each
-// node's new neighbours with std::stable_sort, so equal degrees keep their
-// scan order on every standard library (the reference's std::sort is
-// stable only on ranges of 16 or fewer, where libstdc++ uses insertion
-// sort).  The Matrix Market parser is not carried.
+// Cuthill-McKee, the COO sort permutation, the bandwidth and diagonal
+// counts that decide a layout, and the Matrix Market coordinate parser.
+// One change: rcm_order sorts each node's new neighbours with
+// std::stable_sort, so equal degrees keep their scan order on every
+// standard library (the reference's std::sort is stable only on ranges of
+// 16 or fewer, where libstdc++ uses insertion sort).
 //
 // Plain C ABI, bound with ctypes by sprsolve_tpu_torch/native.py, which
 // builds this file with g++ at first use.
 
 #include <algorithm>
+#include <charconv>
 #include <cmath>
 #include <complex>
 #include <cstdint>
@@ -116,6 +117,28 @@ int64_t ic0_impl(int64_t n, const int64_t* indptr, const int32_t* indices,
     values[diag[i]] = T(std::sqrt(d));
   }
   return 0;
+}
+
+// Matrix Market tokenizer: skip blanks, newlines and '%' comment lines,
+// then read one number with std::from_chars (locale-independent, unlike
+// strtod: a comma-decimal LC_NUMERIC would cut "3.14" at the dot).
+inline const char* mm_skip(const char* p, const char* end) {
+  for (;;) {
+    while (p < end && (*p == ' ' || *p == '\t' || *p == '\r' || *p == '\n'))
+      ++p;
+    if (p < end && *p == '%') {
+      while (p < end && *p != '\n') ++p;
+      continue;
+    }
+    return p;
+  }
+}
+template <typename T>
+inline const char* mm_number(const char* p, const char* end, T* out) {
+  p = mm_skip(p, end);
+  if (p < end && *p == '+') ++p;  // from_chars rejects a leading '+'
+  auto res = std::from_chars(p, end, *out);
+  return (res.ec == std::errc() && res.ptr != p) ? res.ptr : nullptr;
 }
 
 }  // namespace
@@ -302,6 +325,30 @@ int64_t csr_count_diagonals(int64_t n, const int64_t* indptr,
       }
     }
   return count;
+}
+
+// Matrix Market coordinate-entry parser: reads nnz "row col [val [imag]]"
+// records from the text after the size line, skipping blank and
+// '%'-comment lines.  field: 0 = pattern, 1 = real/integer, 2 = complex.
+// Rows and columns come back 0-based.  Returns the number of entries
+// parsed (nnz on success), or -1 on a malformed record or an early end.
+int64_t mm_parse_coord(const char* text, int64_t len, int64_t nnz,
+                       int32_t field, int64_t* rows, int64_t* cols,
+                       double* re, double* im) {
+  const char* p = text;
+  const char* end = text + len;
+  for (int64_t k = 0; k < nnz; ++k) {
+    long long r, c;
+    if (!(p = mm_number(p, end, &r))) return -1;
+    if (!(p = mm_number(p, end, &c))) return -1;
+    rows[k] = (int64_t)r - 1;
+    cols[k] = (int64_t)c - 1;
+    if (field >= 1) {
+      if (!(p = mm_number(p, end, &re[k]))) return -1;
+      if (field == 2 && !(p = mm_number(p, end, &im[k]))) return -1;
+    }
+  }
+  return nnz;
 }
 
 }  // extern "C"

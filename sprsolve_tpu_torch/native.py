@@ -5,8 +5,9 @@ the JAX package): ``csrc/hostkit.cpp``, compiled with g++ at first use and
 bound with ctypes, with a plain NumPy/Python version of every function
 beside it.  The entry points (``symmetrize_pattern``, ``greedy_color``,
 ``rcm_order``, ``coo_sort_perm``, ``csr_bandwidth``,
-``csr_count_diagonals``, ``ilu0``, ``ic0``) always run the compiled code;
-the ``*_plain`` versions are what the tests hold them against.
+``csr_count_diagonals``, ``ilu0``, ``ic0``, ``mm_parse_coord``) always run
+the compiled code; the ``*_plain`` versions are what the tests hold them
+against.
 
 The library goes to ``build/hostkit/`` at the root of the checkout (listed
 in ``.gitignore``), named by a digest of the source and the flags, and is
@@ -68,6 +69,7 @@ def build() -> Path:
 _I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _I32P = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
 _I64 = ctypes.c_int64
+_F64P = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _FACTOR_SUFFIX = {np.dtype(np.float32): "f32", np.dtype(np.float64): "f64",
                   np.dtype(np.complex64): "c64", np.dtype(np.complex128): "c128"}
 _SIGNATURES = {
@@ -77,6 +79,8 @@ _SIGNATURES = {
     "coo_sort_perm": ([_I64, _I64, _I32P, _I32P, _I64P], None),
     "csr_bandwidth": ([_I64, _I64P, _I32P], _I64),
     "csr_count_diagonals": ([_I64, _I64P, _I32P], _I64),
+    "mm_parse_coord": ([ctypes.c_char_p, _I64, _I64, ctypes.c_int32, _I64P, _I64P,
+                        _F64P, _F64P], _I64),
     **{f"{kind}_{sfx}": ([_I64, _I64P, _I32P, ctypes.c_void_p], _I64)
        for kind in ("ilu0", "ic0") for sfx in _FACTOR_SUFFIX.values()},
 }
@@ -193,6 +197,30 @@ def ic0(n: int, indptr, indices, values) -> np.ndarray:
     Raises ``ZeroDivisionError`` with the 0-based row of a non-positive
     pivot or a missing diagonal."""
     return _factor("ic0", n, indptr, indices, values)
+
+
+def _mm_check(got: int, nnz: int) -> None:
+    if got != nnz:
+        raise ValueError(f"malformed Matrix Market data: expected {nnz} entries, "
+                         f"parsed {max(got, 0)}")
+
+
+def mm_parse_coord(text: bytes, nnz: int, field: int):
+    """Parse the ``nnz`` coordinate records of a Matrix Market file's body
+    (the text after the size line; blank and ``%`` lines skipped).
+
+    ``field``: 0 pattern, 1 real/integer, 2 complex. Returns ``(rows, cols,
+    re, im)``: 0-based int64 indices and float64 values, ``re`` empty for a
+    pattern file and ``im`` empty unless complex. Raises ValueError on a
+    malformed record or an early end."""
+    if field not in (0, 1, 2):
+        raise ValueError(f"field must be 0, 1 or 2, got {field}")
+    rows = np.empty(nnz, dtype=np.int64)
+    cols = np.empty(nnz, dtype=np.int64)
+    re = np.empty(nnz if field >= 1 else 0, dtype=np.float64)
+    im = np.empty(nnz if field == 2 else 0, dtype=np.float64)
+    _mm_check(load().mm_parse_coord(text, len(text), nnz, field, rows, cols, re, im), nnz)
+    return rows, cols, re, im
 
 
 # --- plain versions ----------------------------------------------------------
@@ -336,3 +364,26 @@ def ic0_plain(n: int, indptr, indices, values) -> np.ndarray:
             raise ZeroDivisionError(i)
         values[diag[i]] = np.sqrt(d)
     return values
+
+
+def mm_parse_coord_plain(text: bytes, nnz: int, field: int):
+    """:func:`mm_parse_coord` with ``np.loadtxt``: the first ``2 + field``
+    fields of the first ``nnz`` records (``%`` lines skipped), read as
+    float64."""
+    import io
+
+    ncols = 2 + field
+    try:
+        a = np.loadtxt(io.StringIO(text.decode()), comments="%", ndmin=2,
+                       usecols=range(ncols))
+    except ValueError as e:
+        raise ValueError(f"malformed Matrix Market data: {e}") from e
+    if a.size == 0:
+        a = a.reshape(0, ncols)
+    _mm_check(min(a.shape[0], nnz), nnz)
+    a = a[:nnz]
+    rows = a[:, 0].astype(np.int64) - 1
+    cols = a[:, 1].astype(np.int64) - 1
+    re = a[:, 2].copy() if field >= 1 else np.empty(0, np.float64)
+    im = a[:, 3].copy() if field == 2 else np.empty(0, np.float64)
+    return rows, cols, re, im

@@ -21,10 +21,15 @@ from .padded_dia import _VCODE, ROW_TILE, check_layout, launch_env
 
 
 def orth_norm_plain(a: torch.Tensor, vold: torch.Tensor, v: torch.Tensor,
-                    beta, alpha):
-    """K4 in plain PyTorch: (a − β·v_old − α·v, its sum of squares)."""
-    vn = a - beta * vold - alpha * v
-    return vn, torch.sum(vn * vn)
+                    beta, alpha, h: int = 0):
+    """K4 in plain PyTorch: (a − β·v_old − α·v, its sum of squares over the
+    rows past the halo ``h``). v₊ is the two ``axpy`` of the unfused
+    Lanczos step (``addcmul``), and the sum skips the zero halo as the
+    kernel does, so a padded operator's MINRES on the CPU rounds as a flat
+    one's (``DIA``) does."""
+    vn = torch.addcmul(torch.addcmul(a, vold, -beta), v, -alpha)
+    body = vn[h: vn.shape[0] - h]
+    return vn, torch.sum(body * body)
 
 
 def _coefficient(c, like: torch.Tensor) -> torch.Tensor:
@@ -46,7 +51,7 @@ def orth_norm(a: torch.Tensor, vold: torch.Tensor, v: torch.Tensor, beta, alpha,
     check_layout(n_pad, h, a, vold, v)
     beta, alpha = _coefficient(beta, a), _coefficient(alpha, a)
     if a.device.type == "cpu":
-        return orth_norm_plain(a, vold, v, beta, alpha)
+        return orth_norm_plain(a, vold, v, beta, alpha, h)
     lib, stream = launch_env(a)
     out = torch.empty_like(a)
     partials = torch.empty(n_pad // ROW_TILE, dtype=a.dtype, device=a.device)

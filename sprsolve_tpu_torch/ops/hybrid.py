@@ -5,9 +5,10 @@ entries (a constraint coupling, a periodic stitch) multiply the diagonal
 count past every banded threshold.  :class:`HybridDIA` keeps the offsets
 that earn their stream as a banded core — a ``PaddedDIA`` behind a
 :class:`~sprsolve_tpu_torch.multigrid.FlatViewOperator` (kernel K1) for
-float32, a ``DIA`` otherwise — and spills the rest to a row-sorted COO
-sidecar applied with ``index_add_`` (float atomics on a GPU: the order of
-duplicate rows' sums, and so the last bits, may change from call to call).
+float32 and float64, a ``DIA`` otherwise — and spills the rest to a
+row-sorted COO sidecar applied with ``index_add_`` (float atomics on a
+GPU: the order of duplicate rows' sums, and so the last bits, may change
+from call to call).
 ``optimize()`` prices the sidecar per element and routes here only when
 the split wins.
 """
@@ -83,7 +84,7 @@ class HybridDIA:
         (default ``max(4096, nnz // 100)``): the pattern is then not
         "banded plus a few couplings", and other layouts should serve it."""
         from ..multigrid import FlatViewOperator
-        from .padded_dia import PaddedDIA
+        from .padded_dia import REAL_DTYPES, PaddedDIA
 
         if max_outliers is None:
             max_outliers = max(4096, m.nnz // 100)
@@ -101,7 +102,7 @@ class HybridDIA:
         core_csr = CSR.from_arrays(data[kept], cols[kept], indptr, m.shape)
         dev = m.device if device is None else torch.device(device)
         dia = DIA.from_csr(core_csr, max_diags=max(max_diags, n_bands), device="cpu")
-        if prefer_kernels and dia.dtype == torch.float32:
+        if prefer_kernels and dia.dtype in REAL_DTYPES:
             core = FlatViewOperator(op=PaddedDIA.from_dia(dia, device=dev))
         else:
             core = DIA(bands=dia.bands.to(dev), offsets=dia.offsets, shape=dia.shape)

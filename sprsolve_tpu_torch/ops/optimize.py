@@ -4,9 +4,9 @@ Counterpart of ``sprsolve_tpu/ops/optimize.py:67-302`` (the inspector half
 of MKL's inspector-executor flow): the pattern is analysed once on the host,
 and every SpMV then runs in the chosen layout.  In order:
 
-1. At most ``max_diags`` distinct diagonals: a float32 matrix becomes a
-   :class:`PaddedDIA` (kernels K1-K4), a complex64 one a
-   :class:`ComplexPaddedDIA` (K5-K7), any other (or with
+1. At most ``max_diags`` distinct diagonals: a float32 or float64 matrix
+   becomes a :class:`PaddedDIA` (kernels K1-K4), a complex64 or complex128
+   one a :class:`ComplexPaddedDIA` (K5-K7), any other (or with
    ``prefer_kernels=False``) a :class:`DIA` (torch ops).
 2. Otherwise RCM-reorder and count again: a matrix banded after RCM takes
    the same layouts inside a :class:`Reordered` wrapper (the permutations
@@ -24,9 +24,10 @@ and every SpMV then runs in the chosen layout.  In order:
 The analysis (diagonal counts, RCM) runs on the compiled host toolkit
 (:mod:`..native`).  The BSR apply and the hybrid's sidecar are torch ops,
 as the JAX package computes them with XLA ops, not Pallas kernels.  A
-banded float64 or complex128 matrix takes ``DIA`` as in the JAX package;
-it reaches the kernels when the padded operator is built directly
-(``ROADMAP.md`` Queue 1 item 5).
+banded float64 or complex128 matrix takes the kernels too, in its own
+dtype: the JAX package sends it to XLA's DIA only because its TPU kernels
+have no f64 lowering (``sprsolve_tpu/ops/optimize.py:152-155``), and the
+CUDA kernels have no such limit.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from .. import native
 from ..sparse.bsr import BSR, ComplexBSR
 from ..sparse.containers import CSR, DIA, ELL, _host, reorder_rcm
 from .hybrid import HybridDIA, split_offsets
-from .padded_dia import ComplexPaddedDIA, PaddedDIA
+from .padded_dia import COMPLEX_DTYPES, REAL_DTYPES, ComplexPaddedDIA, PaddedDIA
 from .reordered import Reordered
 
 # block sizes the BSR cost model tries (those of the JAX package)
@@ -85,11 +86,11 @@ def count_diagonals(m: CSR) -> int:
 
 
 def _dia_operator(m: CSR, max_diags: int, prefer_kernels: bool, device):
-    """The banded fast path: f32 → PaddedDIA (kernels K1-K4), c64 →
+    """The banded fast path: f32/f64 → PaddedDIA (kernels K1-K4), c64/c128 →
     ComplexPaddedDIA (K5-K7), else (or without ``prefer_kernels``) DIA."""
-    if prefer_kernels and m.dtype == torch.complex64:
+    if prefer_kernels and m.dtype in COMPLEX_DTYPES:
         return ComplexPaddedDIA.from_csr(m, device=device)
-    if prefer_kernels and m.dtype == torch.float32:
+    if prefer_kernels and m.dtype in REAL_DTYPES:
         dia = DIA.from_csr(m, max_diags=max_diags, device="cpu")
         return PaddedDIA.from_dia(dia, device=device)
     return DIA.from_csr(m, max_diags=max_diags, device=device)
@@ -145,7 +146,7 @@ def candidates_of(m: CSR, perm, n_diags: int, tag: str, *, max_diags: int,
         nd_core, n_out = _hybrid_stats(m, max_diags)
         cap = max(4096, nnz // 100)
         if 0 < n_out <= cap:
-            kernel_core = prefer_kernels and m.dtype == torch.float32
+            kernel_core = prefer_kernels and m.dtype in REAL_DTYPES
             eff_core = COSTS["eff_padded_dia" if kernel_core else "eff_dia"]
             score = ((nd_core + 2) * n * itemsize / nnz / eff_core
                      + COSTS["scatter_bytes_eq"] * n_out / nnz)

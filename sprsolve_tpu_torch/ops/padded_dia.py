@@ -74,8 +74,9 @@ _BAND_DTYPES = {
 }
 _VCODE = {torch.float32: 0, torch.float64: 1, torch.complex64: 0, torch.complex128: 1}
 _BCODE = {torch.float32: 0, torch.float64: 0, torch.bfloat16: 1, torch.int8: 2}
-_REAL = (torch.float32, torch.float64)
-_COMPLEX = (torch.complex64, torch.complex128)
+# the vector dtypes the kernels take: real (K1-K4, K1b) and complex (K5-K7)
+REAL_DTYPES = (torch.float32, torch.float64)
+COMPLEX_DTYPES = (torch.complex64, torch.complex128)
 
 
 def layout(n: int, offsets, itemsize: int) -> Tuple[int, int]:
@@ -117,17 +118,23 @@ def dia_wdot_plain(bands: torch.Tensor, x: torch.Tensor,
                    w: Optional[torch.Tensor], dinv: Optional[torch.Tensor],
                    offsets, h: int):
     """K2 in plain PyTorch: (y = A·u, wᵀy, yᵀy) with u = dinv ⊙ x when dinv is
-    given, else u = x; w = None takes w from the raw x."""
+    given, else u = x; w = None takes w from the raw x. The dots sum the
+    body rows only, as the kernel does (see :func:`dia_dot_plain`)."""
     u = x if dinv is None else x * dinv
     y = dia_spmv_plain(bands, u, offsets, h)
     wv = x if w is None else w
-    return y, torch.sum(wv * y), torch.sum(y * y)
+    body = slice(h, h + bands.shape[1])
+    yb = y[body]
+    return y, torch.sum(wv[body] * yb), torch.sum(yb * yb)
 
 
 def dia_dot_plain(bands: torch.Tensor, x: torch.Tensor, offsets, h: int):
-    """K3 in plain PyTorch: (y = A·x, xᵀy)."""
+    """K3 in plain PyTorch: (y = A·x, xᵀy). The dot sums the body rows only,
+    as the kernel does: the zero halo would shift ``torch.sum``'s grouping,
+    and a flat operator's dot (``DIA``) rounds as this one does."""
     y = dia_spmv_plain(bands, x, offsets, h)
-    return y, torch.sum(x * y)
+    body = slice(h, h + bands.shape[1])
+    return y, torch.sum(x[body] * y[body])
 
 
 def _plane_sums(bre, bim, ur, ui, offsets, h):
@@ -177,7 +184,7 @@ def dia_complex_wdot_plain(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor
 
 # --- kernel wrappers --------------------------------------------------------
 def check_layout(n_pad: int, h: int, x: torch.Tensor, *vecs, bands=(),
-                 dtypes=_REAL) -> None:
+                 dtypes=REAL_DTYPES) -> None:
     """Validate the vectors a kernel takes: of one of ``dtypes``, flat, of
     the layout ``(h + n_pad + h,)`` with whole row tiles, of one dtype, and
     with the ``bands`` on one device, contiguous and not lazily conjugated
@@ -207,7 +214,7 @@ def _check(planes, x: torch.Tensor, offsets, h: int, *vecs) -> int:
     """Validate what the DIA kernels take; ``planes`` is ``(bands,)`` for
     real vectors, or the pair of band planes (re, im) for complex ones.
     Returns n_pad."""
-    dtypes = _COMPLEX if len(planes) == 2 else _REAL
+    dtypes = COMPLEX_DTYPES if len(planes) == 2 else REAL_DTYPES
     if x.dtype not in dtypes:
         names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
         raise TypeError(f"vectors must be {names}, got {x.dtype}")
@@ -235,7 +242,7 @@ def _check_block(bands: torch.Tensor, X: torch.Tensor, offsets, h: int) -> int:
     device, with bands that serve its dtype. Returns n_pad."""
     if X.dim() != 2 or X.shape[1] < 1:
         raise ValueError(f"a block must be (rows, m ≥ 1), got {tuple(X.shape)}")
-    if X.dtype not in _REAL or bands.dtype not in _BAND_DTYPES[X.dtype]:
+    if X.dtype not in REAL_DTYPES or bands.dtype not in _BAND_DTYPES[X.dtype]:
         raise TypeError(f"{bands.dtype} bands and {X.dtype} blocks: K1b takes real "
                         "blocks (a complex block goes as its interleaved planes)")
     if bands.dim() != 2 or len(offsets) != bands.shape[0] or len(offsets) > MAX_DIAGS:
@@ -301,13 +308,26 @@ DOT_BLOCKS_PER_SM = {torch.float32: 8, torch.float64: 4,
 _dot_scratch = {}        # (device, stream handle) → zeroed uint8 tensor
 
 
-def persistent_grid(n_pad: int, vdtype: torch.dtype, sm_count: int) -> int:
+def persistent_grid(n_pad: int, vdtype: torch.dtype, sm_count: int,
+                    blocks_per_sm: Optional[int] = None) -> int:
     """Blocks of one dot-kernel launch (K2/K3 for real ``vdtype``, K6/K7 for
-    complex): one per tile, at most the blocks that share an SM times the
-    SM count (one wave); each block walks the tiles blockIdx, + grid, ...
-    The dots do not depend on it: the kernel sums per-tile partials."""
+    complex): one per tile, at most ``blocks_per_sm`` (default: the blocks
+    that share an SM, :data:`DOT_BLOCKS_PER_SM`) times the SM count; each
+    block walks the tiles blockIdx, + grid, ... The dots do not depend on
+    it: the kernel sums per-tile partials in tile order. ``blocks_per_sm``
+    is the run-time knob :mod:`~sprsolve_tpu_torch.utils.tuning` tunes."""
     tile = COMPLEX_DOT_TILE if vdtype.is_complex else DOT_TILE
-    return max(1, min(-(-n_pad // tile), DOT_BLOCKS_PER_SM[vdtype] * sm_count))
+    bps = DOT_BLOCKS_PER_SM[vdtype] if blocks_per_sm is None else blocks_per_sm
+    return max(1, min(-(-n_pad // tile), bps * sm_count))
+
+
+def check_blocks_per_sm(blocks_per_sm: Optional[int]) -> Optional[int]:
+    """``blocks_per_sm`` as an int, or None; raises ValueError below 1."""
+    if blocks_per_sm is None:
+        return None
+    if int(blocks_per_sm) != blocks_per_sm or blocks_per_sm < 1:
+        raise ValueError(f"dot_blocks_per_sm must be a positive integer, got {blocks_per_sm!r}")
+    return int(blocks_per_sm)
 
 
 def dot_scratch(device: torch.device, stream: int, n_pad: int) -> torch.Tensor:
@@ -379,20 +399,23 @@ def dia_spmm(bands: torch.Tensor, X: torch.Tensor, offsets, h: int) -> torch.Ten
 
 
 def dia_wdot(bands: torch.Tensor, x: torch.Tensor, w: Optional[torch.Tensor],
-             dinv: Optional[torch.Tensor], offsets, h: int):
+             dinv: Optional[torch.Tensor], offsets, h: int,
+             blocks_per_sm: Optional[int] = None):
     """K2: (y = A·u, wᵀy, yᵀy), u = dinv ⊙ x when ``dinv`` is given.
 
     ``w=None`` takes w from the raw x (one stream fewer). One launch: the
     kernel sums its per-tile partials itself, in tile order, into a
     ``(2,)`` tensor whose 0-d views come back; the dots depend on n_pad
-    alone, not on the grid, the card or the band storage. Replaces
-    ``_dia_wdot_kernel`` (``sprsolve_tpu/ops/pallas_spmv.py:159``)."""
+    alone, not on the grid (:func:`persistent_grid` of ``blocks_per_sm``),
+    the card or the band storage. Replaces ``_dia_wdot_kernel``
+    (``sprsolve_tpu/ops/pallas_spmv.py:159``)."""
     vecs = [v for v in (w, dinv) if v is not None]
     n_pad = _check((bands,), x, offsets, h, *vecs)
     if x.device.type == "cpu":
         return dia_wdot_plain(bands, x, w, dinv, offsets, h)
     lib, codes, offs, stream = _launch_args((bands,), x, offsets)
-    grid = persistent_grid(n_pad, x.dtype, _sm_count(x.device.index))
+    grid = persistent_grid(n_pad, x.dtype, _sm_count(x.device.index),
+                           check_blocks_per_sm(blocks_per_sm))
     y = torch.empty_like(x)
     out = torch.empty(2, dtype=x.dtype, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -408,16 +431,19 @@ def dia_wdot(bands: torch.Tensor, x: torch.Tensor, w: Optional[torch.Tensor],
     return y, wd, yd
 
 
-def dia_dot(bands: torch.Tensor, x: torch.Tensor, offsets, h: int):
+def dia_dot(bands: torch.Tensor, x: torch.Tensor, offsets, h: int,
+            blocks_per_sm: Optional[int] = None):
     """K3: (y = A·x, xᵀy) in the padded layout (zero halo), with x the raw
     SpMV input. One launch: the kernel sums its per-tile partials itself,
-    in tile order, into the 0-d dot. Replaces ``_dia_dot_kernel``
+    in tile order, into the 0-d dot, whatever the grid
+    (:func:`persistent_grid` of ``blocks_per_sm``). Replaces ``_dia_dot_kernel``
     (``sprsolve_tpu/ops/pallas_spmv.py:140``)."""
     n_pad = _check((bands,), x, offsets, h)
     if x.device.type == "cpu":
         return dia_dot_plain(bands, x, offsets, h)
     lib, codes, offs, stream = _launch_args((bands,), x, offsets)
-    grid = persistent_grid(n_pad, x.dtype, _sm_count(x.device.index))
+    grid = persistent_grid(n_pad, x.dtype, _sm_count(x.device.index),
+                           check_blocks_per_sm(blocks_per_sm))
     y = torch.empty_like(x)
     d = torch.empty((), dtype=x.dtype, device=x.device)
     scratch = dot_scratch(x.device, stream, n_pad)
@@ -452,18 +478,21 @@ def dia_complex_spmv(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
 
 
 def dia_complex_dot(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
-                    offsets, h: int, conj_x: bool = False):
+                    offsets, h: int, conj_x: bool = False,
+                    blocks_per_sm: Optional[int] = None):
     """K6: (y, conj(x)ᵀy) with y = A·x, or y = A·conj(x) when ``conj_x``.
 
     One launch: the kernel sums its per-tile partials itself, in tile order,
-    into the 0-d complex dot; it depends on n_pad alone, not on the grid,
-    the card or the plane storage. Replaces ``_dia_complex_dot_kernel``
+    into the 0-d complex dot; it depends on n_pad alone, not on the grid
+    (:func:`persistent_grid` of ``blocks_per_sm``), the card or the plane
+    storage. Replaces ``_dia_complex_dot_kernel``
     (``sprsolve_tpu/ops/pallas_spmv.py:262``)."""
     n_pad = _check((bre, bim), x, offsets, h)
     if x.device.type == "cpu":
         return dia_complex_dot_plain(bre, bim, x, offsets, h, conj_x)
     lib, codes, offs, stream = _launch_args((bre, bim), x, offsets)
-    grid = persistent_grid(n_pad, x.dtype, _sm_count(x.device.index))
+    grid = persistent_grid(n_pad, x.dtype, _sm_count(x.device.index),
+                           check_blocks_per_sm(blocks_per_sm))
     y = torch.empty_like(x)
     d = torch.empty((), dtype=x.dtype, device=x.device)
     scratch = dot_scratch(x.device, stream, n_pad)
@@ -479,20 +508,22 @@ def dia_complex_dot(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
 
 def dia_complex_wdot(bre: torch.Tensor, bim: torch.Tensor, x: torch.Tensor,
                      w: Optional[torch.Tensor], dinv: Optional[torch.Tensor],
-                     offsets, h: int):
+                     offsets, h: int, blocks_per_sm: Optional[int] = None):
     """K7: (y = A·u, conj(w)ᵀy, ‖y‖²), u = dinv ⊙ x when ``dinv`` is given
     (a complex diagonal of the vectors' dtype), else u = x.
 
     ``w=None`` takes w from the raw x. One launch: the kernel sums its
     per-tile partials itself, in tile order, into a ``(2,)`` complex tensor
-    whose 0-d views come back (‖y‖² with a zero imaginary part). Replaces
+    whose 0-d views come back (‖y‖² with a zero imaginary part); the grid
+    is :func:`persistent_grid` of ``blocks_per_sm``. Replaces
     ``_dia_complex_wdot_kernel`` (``sprsolve_tpu/ops/pallas_spmv.py:343``)."""
     vecs = [v for v in (w, dinv) if v is not None]
     n_pad = _check((bre, bim), x, offsets, h, *vecs)
     if x.device.type == "cpu":
         return dia_complex_wdot_plain(bre, bim, x, w, dinv, offsets, h)
     lib, codes, offs, stream = _launch_args((bre, bim), x, offsets)
-    grid = persistent_grid(n_pad, x.dtype, _sm_count(x.device.index))
+    grid = persistent_grid(n_pad, x.dtype, _sm_count(x.device.index),
+                           check_blocks_per_sm(blocks_per_sm))
     y = torch.empty_like(x)
     out = torch.empty(2, dtype=x.dtype, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -526,13 +557,24 @@ def reset_launch_counts() -> None:
         wrapper.launches = 0
 
 
+def _tuned(kind: str, dtype, nbands: int, n: int, device) -> Optional[int]:
+    """The persisted dot-kernel ``blocks_per_sm`` of this shape class on
+    ``device`` (:mod:`~sprsolve_tpu_torch.utils.tuning`), or None."""
+    from ..utils import tuning
+
+    ent = tuning.lookup(kind, dtype, nbands, n, device)
+    return None if ent is None else ent["blocks_per_sm"]
+
+
 # --- the operator -----------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class PaddedDIA:
     """DIA re-laid-out for the kernels (built once per operator).
 
     ``bands`` is ``(D, n_pad)``, possibly stored narrower than ``vdtype``;
-    vectors are flat ``(h + n_pad + h,)`` with zero halo and tail."""
+    vectors are flat ``(h + n_pad + h,)`` with zero halo and tail.
+    ``dot_blocks_per_sm`` sets the grid of K2/K3 (:func:`persistent_grid`;
+    None: the kernels' default)."""
 
     bands: torch.Tensor
     offsets: Tuple[int, ...]
@@ -540,6 +582,7 @@ class PaddedDIA:
     h: int
     shape: Tuple[int, int]
     vdtype: torch.dtype
+    dot_blocks_per_sm: Optional[int] = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -573,12 +616,28 @@ class PaddedDIA:
         return bands
 
     @staticmethod
-    def from_dia(m: DIA, narrow: bool = True, device=None):
-        """The padded operator of ``m``; complex bands give a
-        :class:`ComplexPaddedDIA`."""
+    def from_dia(m: DIA, narrow: bool = True, device=None,
+                 dot_blocks_per_sm: Optional[int] = None):
+        """The padded operator of ``m``, on ``device`` (default: ``m``'s);
+        complex bands give a :class:`ComplexPaddedDIA`.
+
+        ``dot_blocks_per_sm`` given sets K2/K3's grid; else the persisted
+        winner of :func:`~sprsolve_tpu_torch.utils.tuning.tune_padded_dia`
+        for this shape class and device sets it, where there is one, else
+        the kernels' default."""
         bands = _host(m.bands)
         if np.iscomplexobj(bands):
-            return ComplexPaddedDIA.from_dia(m, narrow=narrow, device=device)
+            return ComplexPaddedDIA.from_dia(m, narrow=narrow, device=device,
+                                             dot_blocks_per_sm=dot_blocks_per_sm)
+        dev = m.device if device is None else torch.device(device)
+        bps = check_blocks_per_sm(dot_blocks_per_sm)
+        if bps is None:
+            bps = _tuned("dia", bands.dtype, len(m.offsets), m.shape[0], dev)
+        return PaddedDIA._build(m, narrow, dev, bps)
+
+    @staticmethod
+    def _build(m: DIA, narrow: bool, dev: torch.device, dot_blocks_per_sm):
+        bands = _host(m.bands)
         if bands.dtype not in (np.float32, np.float64):
             raise TypeError(f"bands must be float32 or float64, got {bands.dtype}")
         if len(m.offsets) > MAX_DIAGS:
@@ -590,11 +649,11 @@ class PaddedDIA:
         t = torch.from_numpy(padded)
         if narrow:
             t = PaddedDIA._narrow_bands(t)
-        dev = m.device if device is None else torch.device(device)
         return PaddedDIA(bands=t.to(dev), offsets=tuple(m.offsets), n=n, h=h,
                          shape=tuple(m.shape),
                          vdtype=torch.float32 if bands.dtype == np.float32
-                         else torch.float64)
+                         else torch.float64,
+                         dot_blocks_per_sm=dot_blocks_per_sm)
 
     # --- padded-layout vector helpers ---------------------------------------
     def pad_vec(self, x: torch.Tensor) -> torch.Tensor:
@@ -641,7 +700,7 @@ class PaddedDIA:
             y = self.matvec(x2)
             return y, conj_dot(w2, y), conj_dot(y, y)
         return dia_wdot(self.bands, x2, None if w2 is x2 else w2, None,
-                        self.offsets, self.h)
+                        self.offsets, self.h, self.dot_blocks_per_sm)
 
     def matvec_wdot_prec(self, x2: torch.Tensor, w2: torch.Tensor,
                          dinv2: torch.Tensor):
@@ -650,7 +709,7 @@ class PaddedDIA:
             y = self.matvec(x2 * dinv2)
             return y, conj_dot(w2, y), conj_dot(y, y)
         return dia_wdot(self.bands, x2, None if w2 is x2 else w2, dinv2,
-                        self.offsets, self.h)
+                        self.offsets, self.h, self.dot_blocks_per_sm)
 
     def matvec_dot(self, x2: torch.Tensor):
         """(A·x, xᵀ(A·x)) in one pass (K3) — the ``mkl_sparse_?_dotmv``
@@ -658,7 +717,7 @@ class PaddedDIA:
         if x2.is_complex():
             y = self.matvec(x2)
             return y, conj_dot(x2, y)
-        return dia_dot(self.bands, x2, self.offsets, self.h)
+        return dia_dot(self.bands, x2, self.offsets, self.h, self.dot_blocks_per_sm)
 
     def orth_norm(self, a2, vold2, v2, beta, alpha):
         """The fused Lanczos step (K4): (v₊ = a − β·v_old − α·v, Σv₊²) in one
@@ -710,11 +769,14 @@ class ComplexPaddedDIA:
     ``n_pad``; each narrows on its own (int8/bf16/f32 for a complex64
     matrix, f64 for complex128). Vectors stay flat complex tensors of the
     planes' padded layout, and the kernels read them interleaved, so a
-    complex solve needs no per-iteration split into planes. (The TPU's VMEM
-    re-fit of the block geometry has no counterpart.)"""
+    complex solve needs no per-iteration split into planes.
+    ``dot_blocks_per_sm`` sets the grid of K6/K7 (:func:`persistent_grid`;
+    None: the kernels' default). (The TPU's VMEM re-fit of the block
+    geometry has no counterpart.)"""
 
     re: PaddedDIA
     im: PaddedDIA
+    dot_blocks_per_sm: Optional[int] = None
 
     @property
     def shape(self):
@@ -749,24 +811,35 @@ class ComplexPaddedDIA:
         return self.re.vdtype.to_complex()
 
     @staticmethod
-    def from_dia(m: DIA, narrow: bool = True, device=None) -> "ComplexPaddedDIA":
+    def from_dia(m: DIA, narrow: bool = True, device=None,
+                 dot_blocks_per_sm: Optional[int] = None) -> "ComplexPaddedDIA":
+        """The two-plane operator of ``m``, on ``device`` (default: ``m``'s).
+        ``dot_blocks_per_sm`` given sets K6/K7's grid; else the persisted
+        winner of :func:`~sprsolve_tpu_torch.utils.tuning.tune_complex_padded_dia`
+        sets it, where there is one, else the kernels' default."""
         bands = _host(m.bands)
         if not np.iscomplexobj(bands) or bands.dtype not in (np.complex64, np.complex128):
             raise TypeError(f"bands must be complex64 or complex128, got {bands.dtype}")
-        dev = m.device if device is None else device
-        plane = lambda b: PaddedDIA.from_dia(
+        dev = m.device if device is None else torch.device(device)
+        bps = check_blocks_per_sm(dot_blocks_per_sm)
+        if bps is None:
+            bps = _tuned("cdia", bands.dtype, len(m.offsets), m.shape[0], dev)
+        plane = lambda b: PaddedDIA._build(
             DIA(bands=torch.from_numpy(np.ascontiguousarray(b)), offsets=m.offsets,
-                shape=m.shape), narrow=narrow, device=dev)
-        return ComplexPaddedDIA(re=plane(bands.real), im=plane(bands.imag))
+                shape=m.shape), narrow, dev, None)
+        return ComplexPaddedDIA(re=plane(bands.real), im=plane(bands.imag),
+                                dot_blocks_per_sm=bps)
 
     @staticmethod
-    def from_csr(m, narrow: bool = True, device=None) -> "ComplexPaddedDIA":
+    def from_csr(m, narrow: bool = True, device=None,
+                 dot_blocks_per_sm: Optional[int] = None) -> "ComplexPaddedDIA":
         """Build from a CSR: bands extracted on the host, each plane narrowed
         on its own (``pallas_spmv.py:884-905``)."""
         bands, offsets = DIA.arrays_from_csr(m)
         dia = DIA(bands=torch.from_numpy(bands), offsets=offsets, shape=m.shape)
         return ComplexPaddedDIA.from_dia(dia, narrow=narrow,
-                                         device=m.device if device is None else device)
+                                         device=m.device if device is None else device,
+                                         dot_blocks_per_sm=dot_blocks_per_sm)
 
     # --- padded-layout vector helpers ---------------------------------------
     def pad_vec(self, x: torch.Tensor) -> torch.Tensor:
@@ -786,19 +859,21 @@ class ComplexPaddedDIA:
     def matvec_dot(self, x2: torch.Tensor):
         """(A·x, conj(x)ᵀ(A·x)) in one pass (K6) — MINRES's α on a
         Hermitian matrix."""
-        return dia_complex_dot(*self._planes(), x2, self.offsets, self.h)
+        return dia_complex_dot(*self._planes(), x2, self.offsets, self.h,
+                               blocks_per_sm=self.dot_blocks_per_sm)
 
     def matvec_conj_dot(self, x2: torch.Tensor):
         """(A·conj(x), conj(x)ᵀ(A·conj(x))) in one pass (K6 with ``conj_x``)
         — the CS-MINRES Saunders step: the conjugation is a sign fold in the
         kernel, so no conj pass and no dot pass remain."""
-        return dia_complex_dot(*self._planes(), x2, self.offsets, self.h, conj_x=True)
+        return dia_complex_dot(*self._planes(), x2, self.offsets, self.h, conj_x=True,
+                               blocks_per_sm=self.dot_blocks_per_sm)
 
     def matvec_wdot(self, x2: torch.Tensor, w2: torch.Tensor):
         """(A·x, conj(w)ᵀ(A·x), ‖A·x‖²) in one pass (K7). ``w2 is x2``,
         decided by identity as in the JAX package, drops the w stream."""
         return dia_complex_wdot(*self._planes(), x2, None if w2 is x2 else w2, None,
-                                self.offsets, self.h)
+                                self.offsets, self.h, self.dot_blocks_per_sm)
 
     def matvec_wdot_cprec(self, x2: torch.Tensor, w2: torch.Tensor,
                           dinv2: torch.Tensor):
@@ -806,7 +881,7 @@ class ComplexPaddedDIA:
         (A·u, conj(w)ᵀ(A·u), ‖A·u‖²) in the same pass. ``dinv2`` is a complex
         diagonal of the vectors' dtype in this layout."""
         return dia_complex_wdot(*self._planes(), x2, None if w2 is x2 else w2, dinv2,
-                                self.offsets, self.h)
+                                self.offsets, self.h, self.dot_blocks_per_sm)
 
     def diagonal_padded(self) -> torch.Tensor:
         return torch.complex(self.re.diagonal_padded(), self.im.diagonal_padded())

@@ -398,6 +398,10 @@ def test_import_leaves_jax_out():
         "import sprsolve_tpu_torch.solvers.lobpcg, sprsolve_tpu_torch.solvers.eigs\n"
         "import sprsolve_tpu_torch.solvers.rational, sprsolve_tpu_torch.debug\n"
         "import sprsolve_tpu_torch.ops.operator, sprsolve_tpu_torch.sparse.containers\n"
+        "import sprsolve_tpu_torch.scipy_compat, sprsolve_tpu_torch.__main__\n"
+        "import sprsolve_tpu_torch.utils.io, sprsolve_tpu_torch.utils.timing\n"
+        "import sprsolve_tpu_torch.examples.demo, sprsolve_tpu_torch.examples.tour\n"
+        "import sprsolve_tpu_torch.examples.eigen_tour\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'sprsolve_tpu'))\n"
         "assert not bad, bad\n"

@@ -132,13 +132,17 @@ def test_scipy_dense_and_reference_builders_agree():
 
 
 def test_optimize_routes_banded_like_jax():
-    """f32 banded → PaddedDIA (the kernels), f64 → DIA, as optimize.py:67-75."""
+    """f32 banded → PaddedDIA (the kernels), as optimize.py:67-75; f64 →
+    PaddedDIA too in the port (the JAX package's DIA: its TPU kernels have
+    no f64), and DIA with prefer_kernels=False."""
     A32 = tprob.poisson3d(6, 6, 6)
     op = tsp.optimize(A32, device="cpu")
     assert isinstance(op, tsp.PaddedDIA) and op.bands.dtype == torch.int8
     assert isinstance(jsp.optimize(jprob.poisson3d(6, 6, 6)), jsp.PaddedDIA)
     A64 = tprob.grid_laplacian_dirichlet((10, 10))
-    assert type(tsp.optimize(A64, device="cpu")) is tsp.DIA
+    op64 = tsp.optimize(A64, device="cpu")
+    assert type(op64) is tsp.PaddedDIA and op64.bands.dtype == torch.float64
+    assert type(tsp.optimize(A64, prefer_kernels=False, device="cpu")) is tsp.DIA
     assert type(jsp.optimize(jprob.grid_laplacian_dirichlet((10, 10)))) is jsp.DIA
 
 

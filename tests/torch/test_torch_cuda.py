@@ -129,7 +129,7 @@ def test_cuda_k3_k4_match_plain(name, cuda):
     alpha = torch.tensor(-1.3, dtype=dt, device=cuda)
     _dirty(x)
     vn, ss = op.orth_norm(x, vold, v, beta, alpha)
-    vn_r, ss_r = fused.orth_norm_plain(x, vold, v, beta, alpha)
+    vn_r, ss_r = fused.orth_norm_plain(x, vold, v, beta, alpha, op.h)
     scale = x.abs() + 0.7 * vold.abs() + 1.3 * v.abs()
     assert bool(((vn - vn_r).abs() <= 8 * EPS[dt] * scale).all())
     assert _zero_halo(op, vn)
@@ -1020,3 +1020,113 @@ def test_cuda_phase14_exact_launch_counts_at_16(case, monkeypatch, cuda):
     monkeypatch.setattr(smoke, "SI_INNER_MAX_ITER", 60)
     fn = getattr(smoke, f"phase_eigen_{case}")
     fn(cuda, grid=16, **({} if case == "shifted" else {"timed": False}))
+
+
+def _grid_outputs(op, x, w, dinv, bps):
+    """Every output of the dot kernels of ``op`` at ``blocks_per_sm`` ``bps``."""
+    o, h = op.offsets, op.h
+    if op.dtype.is_complex:
+        br, bi = op.re.bands, op.im.bands
+        return (*pd.dia_complex_dot(br, bi, x, o, h, False, bps),
+                *pd.dia_complex_dot(br, bi, x, o, h, True, bps),
+                *pd.dia_complex_wdot(br, bi, x, None, dinv, o, h, bps),
+                *pd.dia_complex_wdot(br, bi, x, w, None, o, h, bps),
+                *pd.dia_complex_wdot(br, bi, x, w, dinv, o, h, bps))
+    return (*pd.dia_dot(op.bands, x, o, h, bps),
+            *pd.dia_wdot(op.bands, x, None, dinv, o, h, bps),
+            *pd.dia_wdot(op.bands, x, w, None, o, h, bps),
+            *pd.dia_wdot(op.bands, x, w, dinv, o, h, bps),
+            *pd.dia_wdot(op.bands, x, None, None, o, h, bps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64, np.complex64, np.complex128])
+def test_cuda_every_tuned_grid_gives_the_same_bits(dtype, cuda, tmp_path, monkeypatch):
+    """K2/K3 (f32, f64) and K6/K7 (c64, c128) at every candidate grid of the
+    autotune give bitwise the same y and dots; the tuned operator's grid is
+    one of them and a fresh operator takes it from the cache."""
+    from sprsolve_tpu_torch.utils import tuning
+
+    monkeypatch.setenv("SPRSOLVE_TUNE_CACHE", str(tmp_path / "autotune.json"))
+    base = problems.poisson3d(40, 40, 40)     # 64 000 rows: 63 K2/K3 tiles
+    data = base.data.numpy().astype(dtype)
+    if np.iscomplexobj(data):
+        data[base.indices.numpy() == base.row_ids.numpy()] += 0.5j
+    A = tsp.CSR.from_arrays(data, base.indices, base.indptr, base.shape)
+    m = DIA.from_csr(A, device="cpu")
+    tune = tuning.tune_complex_padded_dia if np.iscomplexobj(data) else tuning.tune_padded_dia
+    op = tune(m, iters=5, device=cuda)
+    assert op.dot_blocks_per_sm in tuning.GRID_CANDIDATES
+    assert type(op).from_dia(m, device=cuda).dot_blocks_per_sm == op.dot_blocks_per_sm
+    rng = np.random.default_rng(3)
+    mk = lambda: op.pad_vec(torch.as_tensor(
+        rng.standard_normal(op.n) + (1j * rng.standard_normal(op.n) if op.dtype.is_complex
+                                     else 0)).to(op.dtype).to(cuda))
+    x, w = mk(), mk()
+    dinv = op.jacobi_precond().diag_inv
+    ref = _grid_outputs(op, x, w, dinv, None)
+    for bps in (*tuning.GRID_CANDIDATES, 16, 64):
+        got = _grid_outputs(op, x, w, dinv, bps)
+        assert all(torch.equal(g, r) for g, r in zip(got, ref)), bps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f64_minres", "f64_bicgstab", "c128_cocg", "c128_cs_minres",
+                                  "c128_bicgstab"])
+def test_cuda_f64_and_c128_solve_reaches_the_kernels(case, cuda):
+    """solve() on a banded f64 (c128) CSR runs the f64 (c128) kernels, with
+    the launch counts of its route, and agrees with the CPU run."""
+    base = problems.poisson3d(24, 24, 24, dtype=np.float64)
+    data = base.data.numpy()
+    if case.startswith("c128"):
+        data = data.astype(np.complex128)
+        data[base.indices.numpy() == base.row_ids.numpy()] += 0.5j
+    A = tsp.CSR.from_arrays(data, base.indices, base.indptr, base.shape)
+    r = np.random.default_rng(4).standard_normal(A.shape[0])
+    b = r + 0.25j * r if case.startswith("c128") else r
+    method = {"f64_minres": "minres", "f64_bicgstab": "bicgstab", "c128_cocg": "auto",
+              "c128_cs_minres": "cs_minres", "c128_bicgstab": "bicgstab"}[case]
+    M = None if case == "f64_minres" else "jacobi"
+    op = tsp.optimize(A, device=cuda)
+    assert isinstance(op, tsp.ComplexPaddedDIA if case.startswith("c128") else tsp.PaddedDIA)
+    pd.reset_launch_counts()
+    x, info = tsp.solve(A, b, method=method, M=M, tol=1e-10, max_iter=2000, device=cuda)
+    torch.cuda.synchronize()
+    n = int(info.iterations)
+    want = {"f64_minres": {"dia_spmv": 1, "dia_dot": n + 1, "orth_norm": n + 1},
+            "f64_bicgstab": {"dia_spmv": 1, "dia_wdot": 2 * n},
+            "c128_cocg": {"dia_complex_spmv": n + 1},
+            "c128_cs_minres": {"dia_complex_spmv": 1, "dia_complex_dot": n + 1},
+            "c128_bicgstab": {"dia_complex_spmv": 1, "dia_complex_wdot": 2 * n}}[case]
+    got = {k: getattr(fused if k == "orth_norm" else pd, k).launches
+           for k in ("dia_spmv", "dia_wdot", "dia_dot", "orth_norm", "dia_complex_spmv",
+                     "dia_complex_dot", "dia_complex_wdot")}
+    assert got == {**dict.fromkeys(got, 0), **want}
+    assert info.converged and x.dtype == torch.as_tensor(b).dtype
+    xc, info_c = tsp.solve(A, b, method=method, M=M, tol=1e-10, max_iter=2000, device="cpu")
+    assert abs(n - int(info_c.iterations)) <= max(3, -(-int(info_c.iterations) // 4))
+    np.testing.assert_allclose(x.cpu().numpy(), xc.numpy(), rtol=0,
+                               atol=1e-7 * float(np.abs(xc.numpy()).max()))
+
+
+@pytest.mark.cuda
+def test_cuda_compiled_mm_parser_on_a_million_entries(cuda, tmp_path):
+    """The compiled Matrix Market parser on a 1M-entry coordinate file:
+    bitwise the NumPy parser's, and mmread's CSR the written one."""
+    from sprsolve_tpu_torch import native
+    from sprsolve_tpu_torch.utils import mmread, mmwrite
+
+    rng = np.random.default_rng(9)
+    n, nnz = 200_000, 1_000_000
+    rows, cols = rng.integers(0, n, nnz), rng.integers(0, n, nnz)
+    A = tsp.CSR.from_coo(tsp.COO(data=rng.standard_normal(nnz), row=rows, col=cols,
+                                 shape=(n, n)))
+    path = tmp_path / "a.mtx"
+    mmwrite(path, A)
+    text = path.read_text()
+    body = text.split("\n", 2)[2].encode()
+    got = native.mm_parse_coord(body, A.nnz, 1)
+    want = native.mm_parse_coord_plain(body, A.nnz, 1)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    B = mmread(path)
+    assert all(torch.equal(getattr(B, k), getattr(A, k)) for k in ("data", "indices", "indptr"))

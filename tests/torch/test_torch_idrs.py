@@ -128,9 +128,16 @@ def test_complex_system(jax_p):
     assert abs(info.iterations - int(ij.iterations)) <= _band(int(ij.iterations))
 
 
-def test_solve_with_jacobi_matches_jax(jax_p):
+def test_solve_with_jacobi_matches_jax(monkeypatch):
     tA, jA, b = _dirichlet((16, 16))
     kw = dict(method="idrs", M="jacobi", tol=1e-12, max_iter=3000, s=4)
+    # solve() runs the port on the f64 PaddedDIA, the JAX package on XLA's
+    # DIA: the port's shadow space is JAX's (n, s) P with zero halo and tail
+    # rows, the same projections in the padded layout
+    op = tsp.optimize(tA, device="cpu")
+    assert isinstance(op, tsp.PaddedDIA)
+    monkeypatch.setattr(tidrs, "_shadow_space", lambda n, s, dtype, device: op.pad_block(
+        _jax_shadow_space(op.n, s, dtype, device)))
     x, info = tsp.solve(tA, b, device="cpu", **kw)
     xj, ij = jsp.solve(jA, b, **kw)
     info.raise_if_error()

@@ -1,6 +1,6 @@
 """Cross tests of the port's LOBPCG against the JAX package's (mirrors
-``tests/test_lobpcg.py``; ``scipy_compat`` is ROADMAP Queue 1 item 12 and
-is left out): the dense-eigh oracle, the largest pairs, Chebyshev
+``tests/test_lobpcg.py``; ``scipy_compat`` is held in
+``test_torch_scipy_compat.py``): the dense-eigh oracle, the largest pairs, Chebyshev
 preconditioning, a complex Hermitian block, the status at a short budget,
 the 3k < n guard, the padded layout on the plain K1b, the guard buffer and
 its clamp, and the multigrid preconditioner.

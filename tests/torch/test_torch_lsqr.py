@@ -1,6 +1,6 @@
 """Cross tests of the port's LSQR and adjoint surface against the JAX
 package's: the cases of ``tests/test_lsqr.py`` (all but the scipy-compat
-wrapper, which is ``ROADMAP.md`` Queue 1 item 12), each run through both.
+wrapper, held in ``test_torch_scipy_compat.py``), each run through both.
 
 Ground truth is NumPy dense linear algebra, to the tolerances of the JAX
 test (atol 1e-8 for consistent systems, 1e-7 for least squares); the two

@@ -1,7 +1,7 @@
 """Cross tests of the port's shift-invert eigensolver against the JAX
 package's (mirrors ``tests/test_shift_invert.py``, and the FGMRES-inner
-case of ``tests/test_rational_filter.py``; ``scipy_compat.eigsh`` is
-ROADMAP Queue 1 item 12 and is left out): nearest-σ pairs against dense
+case of ``tests/test_rational_filter.py``; ``scipy_compat.eigsh`` is held
+in ``test_torch_scipy_compat.py``): nearest-σ pairs against dense
 ``eigh``, the one-sided modes, a degenerate 2-D cluster, the padded layout
 through the plain K1b, ``InvertedOperator`` (a single MINRES and the
 lockstep block MINRES), the FGMRES inner method with a nonlinear M, and

@@ -188,6 +188,29 @@ Phases, each printing lines of its own:
    share, and a trace from ``timing.trace``; (h) K1-K4 on the f64 Poisson
    and K5-K7 on the c128 damped Poisson: warm, cold, plain, bound and
    ``torch.mv`` on the same CSR.
+16. dist    — the distributed layer (``sprsolve_tpu_torch.parallel``) at
+   full width: (a) phase 4's Jacobi-BiCGStab on ``DistPaddedDIA`` through
+   ``distributed_solve`` on one rank under NCCL: converged, true residual
+   below 1e-3, the count within max(3, ⌈its/4⌉) of phase 4's, K1 1 + the
+   restarts and K2 2·its, all-reduces 2 + 4·its + the restarts, one
+   halo call per SpMV, one all-gather; ms per iteration of the solver on
+   the rank's part beside phase 4's prepared ms (the group layer's own
+   cost) and µs per all-reduce of a CUDA scalar. (b) Two spawned ranks
+   under gloo, both on cuda:0, 500,224 rows each: Jacobi-BiCGStab (K1,
+   K2), MINRES (K3, K4) and Jacobi-CG (K3) on the f32 Poisson, COCG
+   (K5), CS-MINRES with 1/|d| (K5, K6 ``conj_x``) and BiCGStab with the
+   complex Jacobi (K5, K7) on phase 9's damped c64 Poisson, each through
+   ``distributed_solve`` with every rank's launch counts exact, one halo
+   exchange of 2·h entries per SpMV launch, the count within the band of
+   phase 4's, 6's or 9's, every rank's x the same bits and the true
+   residual below 1e-3; ms per iteration and gloo's µs per all-reduce of
+   a CUDA scalar (two ranks share one card: no scaling figure). (c) On
+   each rank, K1-K7 on its window (the last rank's with its padded tail)
+   against the plain versions with phase 3's tolerances, K2/K3 y bitwise
+   K1's and K6/K7 y bitwise K5's, halos zero. (d) Jacobi-BiCGStab on
+   ``HaloDIA`` and ``AllGatherELL`` at 32³ (one halo exchange per SpMV,
+   or one all-gather), and ``ca_cg`` (s = 4, Jacobi folded) on
+   ``MPKDIA`` with one exchange per s-step block.
 
 The line before the last is a JSON object with one entry per kernel (K1-K7
 and K1b, each with its warm ``ms`` and its ``cold_ms``; K1b's launches are
@@ -1077,6 +1100,7 @@ def phase_slice(dev):
     log("slice", entry="prepare", iterations=its, wall_s_median=f"{wall:.4f}",
         walls_s=",".join(f"{w:.4f}" for w in walls),
         per_iteration_ms=f"{wall / its * 1e3:.4f}", true_residual=res2)
+    RUN_COUNTS.update(bicgstab_jacobi=its, bicgstab_jacobi_ms=wall / its * 1e3)
     return launches
 
 
@@ -1151,6 +1175,7 @@ def phase_symmetric(dev):
             + (", M='jacobi')" if "M" in kw else ")"), iterations=n,
             recurrence_residual=float(info.residual), true_residual=res,
             **{f"{k}_launches": v for k, v in c.items()})
+    RUN_COUNTS.update(minres=its["minres"], cg_jacobi=its["cg"])
 
     bd = torch.as_tensor(b, device=dev)
     kernel_op = spt.PaddedDIA.from_dia(DIA.from_csr(A, device="cpu"), device=dev)
@@ -1334,6 +1359,7 @@ def phase_complex(dev):
             raise AssertionError(f"complex {name}: launch counts {c}, expected "
                                  f"(K5, K6, K7) = {want} and no K1-K4")
         launches[kernel], its[name] = c[kernel], n
+        RUN_COUNTS[f"complex_{name}"] = n
         log("complex", entry=f"solve(method={kw['method']!r}, M='jacobi')",
             route={"auto": "cocg"}.get(name, name), iterations=n,
             recurrence_residual=float(info.residual), true_residual=res,
@@ -3248,6 +3274,516 @@ def phase_front(dev, grid=GRID, timed=True, k1_stats=None):
     log("front", seconds=f"{time.perf_counter() - t0:.2f}")
 
 
+# --- phase 16: the distributed layer -----------------------------------------
+# the counts of the single-card solves that phase 16 is held to: phase 4's
+# Jacobi-BiCGStab, phase 6's MINRES and Jacobi-CG, phase 9's complex solves
+RUN_COUNTS = {}
+DIST_WORLD = 2          # ranks of phase 16 (b)-(d), every one on cuda:0
+DIST_TIMEOUT_S = 420    # the whole of (b)-(d) in its processes
+DIST_GRID = 32          # (d)'s torch-op layouts: the 32³ Poisson
+
+
+def dist_counts():
+    """The communication counters: ``{name: (calls, bytes)}``."""
+    from sprsolve_tpu_torch.parallel import comm
+
+    return comm.counts()
+
+
+def dist_store(tmp: str) -> str:
+    return "file://" + os.path.join(tmp, "store")
+
+
+def dist_check_solve(tag, info, c, want, comm_counts, h, itemsize, sides, its_ref=None):
+    """The gates of one distributed solve: CONVERGED, every kernel's launches
+    as ``want`` (kernel → count; the rest 0), one halo exchange per SpMV
+    launch that sends h entries to each of the rank's ``sides`` neighbours,
+    and the count within the band of the single-card solve's ``its_ref``."""
+    n = int(info.iterations)
+    if not info.converged:
+        raise AssertionError(f"{tag}: {info}")
+    expect = dict.fromkeys(KERNELS, 0)
+    expect.update(want)
+    if c != expect:
+        raise AssertionError(f"{tag}: launch counts {c}, expected {expect}")
+    spmvs = sum(v for k, v in c.items() if k not in ("orth_norm", "dia_spmm"))
+    calls, nbytes_ = comm_counts["halo_exchange"]
+    if calls != spmvs or nbytes_ != spmvs * sides * h * itemsize:
+        raise AssertionError(f"{tag}: {calls} halo exchanges sending {nbytes_} B for {spmvs} "
+                             f"SpMVs (h={h}, {itemsize} B, {sides} neighbours)")
+    if its_ref is not None and abs(n - its_ref) > parity_band(its_ref):
+        raise AssertionError(f"{tag}: {n} iterations against {its_ref} on one card")
+    return n
+
+
+def dist_call_us(fn, reps=200):
+    """µs per call of ``fn`` over ``reps`` back-to-back calls (after one
+    warm call), the card synchronised before and after."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def dist_local_system(A, rhs, M, g, dev):
+    """``(operator, rhs, {"M": ...})`` of this rank, laid out as
+    ``distributed_solve`` lays them out (a flat M re-laid with zero pads):
+    the solver alone can then be timed on them."""
+    from sprsolve_tpu_torch import parallel as par
+
+    if M is not None and M.diag_inv.shape[0] != A.padded_len:
+        M = type(M)(diag_inv=A.pad_vec(M.diag_inv))
+    specs = par.make_solver_specs(A, M)[0]
+    op_l = par.local_part(A, specs[0], g, dev)
+    b_l = par.local_part(A.pad_vec(torch.as_tensor(rhs)), 0, g, dev)
+    return op_l, b_l, ({} if M is None else {"M": par.local_part(M, specs[3], g, dev)})
+
+
+def phase_dist_nccl(dev):
+    """Phase 16 (a): Jacobi-BiCGStab on the 1M-row Poisson through
+    ``distributed_solve`` on one rank under NCCL, against phase 4."""
+    import torch.distributed as dist
+
+    from sprsolve_tpu_torch import parallel as par
+    from sprsolve_tpu_torch.parallel import comm
+
+    A = problems.poisson3d(GRID, GRID, GRID)
+    dia = DIA.from_csr(A, device="cpu")
+    b = poisson_rhs(A)
+    its4, ms4 = RUN_COUNTS["bicgstab_jacobi"], RUN_COUNTS["bicgstab_jacobi_ms"]
+    with tempfile.TemporaryDirectory() as tmp:
+        backend = "nccl" if dev.type == "cuda" else "gloo"   # gloo: a CPU rehearsal
+        dist.init_process_group(backend, init_method=dist_store(tmp), rank=0, world_size=1)
+        try:
+            g = dist.group.WORLD
+            op = par.DistPaddedDIA.from_dia(dia, 1)
+            M = spt.DiagPrecond.new(dia.diagonal())
+            pd.reset_launch_counts()
+            comm.reset_counts()
+            x, info = par.distributed_solve(spt.bicgstab, op, b, M=M, tol=1e-4, max_iter=400,
+                                            device=dev)
+            torch.cuda.synchronize()
+            c, cc = launch_counts(), dist_counts()
+            res = true_residual(A, x, b)
+            its = dist_check_solve("dist nccl bicgstab", info, c,
+                                   {"dia_spmv": c["dia_spmv"], "dia_wdot": 2 * int(info.iterations)},
+                                   cc, op.h, 4, 0, its4)
+            restarts = c["dia_spmv"] - 1
+            if not (res < 1e-3 and x.shape == (A.shape[0],) and bool(torch.isfinite(x).all())
+                    and c["dia_spmv"] >= 1):
+                raise AssertionError(f"dist nccl: true residual {res:.3e}, {c}")
+            if cc["all_reduce_sum"][0] != 2 + 4 * its + restarts or cc["all_gather_rows"][0] != 1:
+                raise AssertionError(f"dist nccl: collectives {cc} for {its} iterations")
+            # the group layer's own cost: the solver on the rank's part, timed
+            op_l, b_l, kw = dist_local_system(op, b, M, g, dev)
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, inf = spt.bicgstab(op_l, b_l, tol=1e-4, max_iter=400, group=g, **kw)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if int(inf.iterations) != its:
+                    raise AssertionError(f"dist nccl: a timed solve took {inf.iterations}")
+            ms = statistics.median(walls) / its * 1e3
+            one = torch.ones((), device=dev)
+            comm.all_reduce_sum(one, g)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(200):
+                comm.all_reduce_sum(one, g)
+            torch.cuda.synchronize()
+            ar_us = (time.perf_counter() - t0) / 200 * 1e6
+            # where the group layer's time goes: per call, 200 calls each
+            u = b_l * kw["M"].diag_inv
+            win = op_l.window(u)
+            win_us = dist_call_us(lambda: op_l.window(u))
+            k2_us = dist_call_us(lambda: pd.dia_wdot(op_l.bands, win, b_l, None,
+                                                      op_l.offsets, op_l.h))
+            mvw_us = dist_call_us(lambda: op_l.matvec_wdot(u, b_l))
+            # and the host's ops over one solve (CPU activity only: the loop is host-bound)
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU]) as prof:
+                spt.bicgstab(op_l, b_l, tol=1e-4, max_iter=400, group=g, **kw)
+                torch.cuda.synchronize()
+            ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+            host_us = sum(e.self_cpu_time_total for e in ops) / its
+            log("dist", part="a", host_ops_us_per_iteration=f"{host_us:.1f}",
+                top=";".join(f"{e.key}:{e.count / its:.1f}x:{e.self_cpu_time_total / its:.1f}us"
+                             for e in ops[:10]))
+            log("dist", part="a", backend=backend, ranks=1, solver="bicgstab+jacobi",
+                iterations=its, phase4_iterations=its4, true_residual=res,
+                K1_launches=c["dia_spmv"], K2_launches=c["dia_wdot"],
+                all_reduce_calls=cc["all_reduce_sum"][0],
+                all_reduce_calls_per_iteration=f"{(cc['all_reduce_sum'][0] - 2 - restarts) / its:.1f}",
+                halo_exchanges=cc["halo_exchange"][0], per_iteration_ms=f"{ms:.4f}",
+                phase4_prepared_per_iteration_ms=f"{ms4:.4f}",
+                group_layer_ms_per_iteration=f"{ms - ms4:.4f}",
+                all_reduce_us_cuda_scalar=f"{ar_us:.2f}", window_us=f"{win_us:.2f}",
+                k2_on_window_us=f"{k2_us:.2f}", matvec_wdot_us=f"{mvw_us:.2f}",
+                four_all_reduces_two_windows_ms=f"{(4 * ar_us + 2 * win_us) / 1e3:.4f}")
+        finally:
+            dist.destroy_process_group()
+
+
+def _dist_solves(rank, g, dev, dia, damped, ref):
+    """Phase 16 (b) on one rank: the real and complex solves at full width,
+    each with its launch and halo counts checked; x's bits kept for the
+    parent (rank 0 returns x itself, for the true residual)."""
+    import hashlib
+
+    from sprsolve_tpu_torch import parallel as par
+    from sprsolve_tpu_torch.parallel import comm
+
+    op = par.DistPaddedDIA.from_dia(dia, DIST_WORLD)
+    cop = par.DistComplexPaddedDIA.from_dia(damped, DIST_WORLD)
+    n = dia.shape[0]
+    b = np.random.default_rng(SEED + 2).standard_normal(n).astype(np.float32)
+    r = np.random.default_rng(SEED + 6).standard_normal(n).astype(np.float32)
+    bz = (r + 0.25j * r).astype(np.complex64)
+    Mj = spt.DiagPrecond.new(dia.diagonal())
+    runs = {   # name → (solver, operator, rhs, M, expected launches of its counts, ref)
+        "bicgstab": (spt.bicgstab, op, b, Mj,
+                     lambda c, k: {"dia_spmv": c["dia_spmv"], "dia_wdot": 2 * k},
+                     ref["bicgstab_jacobi"]),
+        "minres": (spt.minres, op, b, None,
+                   lambda c, k: {"dia_spmv": 1, "dia_dot": k + 1, "orth_norm": k + 1},
+                   ref["minres"]),
+        "cg": (spt.cg, op, b, Mj, lambda c, k: {"dia_spmv": 1, "dia_dot": k},
+               ref["cg_jacobi"]),
+        "cocg": (spt.cocg, cop, bz, cop.jacobi_precond(),
+                 lambda c, k: {"dia_complex_spmv": k + 1}, ref["complex_auto"]),
+        "cs_minres": (spt.cs_minres, cop, bz, cop.abs_jacobi_precond(),
+                      lambda c, k: {"dia_complex_spmv": 1, "dia_complex_dot": k + 1},
+                      ref["complex_cs_minres"]),
+        "complex_bicgstab": (spt.bicgstab, cop, bz, cop.jacobi_precond(),
+                             lambda c, k: {"dia_complex_spmv": c["dia_complex_spmv"],
+                                           "dia_complex_wdot": 2 * k},
+                             ref["complex_bicgstab"]),
+    }
+    out = {}
+    for name, (solver, A, rhs, M, want, its_ref) in runs.items():
+        pd.reset_launch_counts()
+        comm.reset_counts()
+        x, info = par.distributed_solve(solver, A, rhs, M=M, tol=1e-4, max_iter=1000,
+                                        group=g, device=dev)
+        torch.cuda.synchronize()
+        c, cc = launch_counts(), dist_counts()
+        k = int(info.iterations)
+        item = 8 if rhs.dtype == np.complex64 else 4
+        dist_check_solve(f"dist rank {rank} {name}", info, c, want(c, k), cc, op.h, item,
+                         (rank > 0) + (rank < DIST_WORLD - 1), its_ref)
+        if cc["all_gather_rows"][0] != 1:
+            raise AssertionError(f"dist rank {rank} {name}: {cc['all_gather_rows'][0]} all-gathers")
+        if name in ("bicgstab", "complex_bicgstab"):
+            # ‖b‖, ‖r₀‖, 4 an iteration, 1 a restart; each restart 1 SpMV
+            restarts = c["dia_spmv" if name == "bicgstab" else "dia_complex_spmv"] - 1
+            if cc["all_reduce_sum"][0] != 2 + 4 * k + restarts:
+                raise AssertionError(f"dist rank {rank} {name}: {cc['all_reduce_sum'][0]} "
+                                     f"all-reduces for {k} iterations, {restarts} restarts")
+        if not (bool(torch.isfinite(x).all()) and x.shape == (n,)
+                and x.dtype == torch.as_tensor(rhs).dtype):
+            raise AssertionError(f"dist rank {rank} {name}: x {x.shape} {x.dtype}")
+        # the rank's solve timed on its own part (all ranks in step)
+        op_l, b_l, kw = dist_local_system(A, rhs, M, g, dev)
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, inf = solver(op_l, b_l, tol=1e-4, max_iter=1000, group=g, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[name] = {"its": k, "converged": bool(info.converged),
+                     "sha": hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest(),
+                     "x": x.cpu().numpy() if rank == 0 else None,
+                     "launches": {kk: v for kk, v in c.items() if v}, "comm": cc,
+                     "ms_per_iteration": wall / max(int(inf.iterations), 1) * 1e3,
+                     "timed_its": int(inf.iterations)}
+    # gloo's all-reduce of a 0-d CUDA tensor
+    one = torch.ones((), device=dev)
+    comm.all_reduce_sum(one, g)
+    torch.distributed.barrier()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        comm.all_reduce_sum(one, g)
+    torch.cuda.synchronize()
+    out["all_reduce_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    return out
+
+
+def _dist_kernels(rank, g, dev, dia, damped):
+    """Phase 16 (c) on one rank: K1-K7 on the rank's window (the last
+    rank's with its padded tail) against their plain versions, with phase
+    3's tolerances; K2/K3 y bitwise K1's and K6 y bitwise K5's on the same
+    window; the halos zero."""
+    from sprsolve_tpu_torch import parallel as par
+
+    op = par.DistPaddedDIA.from_dia(dia, DIST_WORLD)
+    cop = par.DistComplexPaddedDIA.from_dia(damped, DIST_WORLD)
+    rng = np.random.default_rng(SEED + 16)
+    errs = dict.fromkeys(KERNELS, 0.0)
+    ol = par.local_part(op, op.pspec(), g, dev)
+    mk = lambda: par.local_part(op.pad_vec(torch.as_tensor(
+        rng.standard_normal(op.n).astype(np.float32))), 0, g, dev)
+    x, w, v = mk(), mk(), mk()
+    xw = ol.window(x)
+    b, o, h = ol.bands, ol.offsets, ol.h
+
+    def halo0(t, tag):
+        if bool(t[:h].any() or t[h + ol.r_local:].any()):
+            raise AssertionError(f"{tag}: halo not zero")
+
+    scale = pd.dia_spmv_plain(b.to(torch.float32).abs(), xw.abs(), o, h).max()
+    y1 = pd.dia_spmv(b, xw, o, h)
+    errs["dia_spmv"] = check_close("shard K1", y1, pd.dia_spmv_plain(b, xw, o, h), scale,
+                                   Y_RTOL[torch.float32])
+    halo0(y1, "shard K1")
+    y3, d3 = pd.dia_dot(b, xw, o, h)
+    yr, dr = pd.dia_dot_plain(b, xw, o, h)
+    errs["dia_dot"] = check_close("shard K3", y3, yr, scale, Y_RTOL[torch.float32])
+    check_close("shard K3 dot", d3, dr, (xw * yr).abs().sum(), DOT_RTOL[torch.float32])
+    for wv in (w, None):
+        y2, wd, yd = pd.dia_wdot(b, xw, wv, None, o, h)
+        yr, wdr, ydr = pd.dia_wdot_plain(b, xw, wv, None, o, h)
+        errs["dia_wdot"] = max(errs["dia_wdot"], check_close("shard K2", y2, yr, scale,
+                                                             Y_RTOL[torch.float32]))
+        check_close("shard K2 wy", wd, wdr, ((xw if wv is None else wv) * yr).abs().sum(),
+                    DOT_RTOL[torch.float32])
+        check_close("shard K2 yy", yd, ydr, ydr, DOT_RTOL[torch.float32])
+        if not torch.equal(y2, y1):
+            raise AssertionError("shard K2: y is not K1's bit for bit")
+    if not torch.equal(y3, y1):
+        raise AssertionError("shard K3: y is not K1's bit for bit")
+    beta, alpha = torch.tensor(0.7, device=dev), torch.tensor(-1.3, device=dev)
+    vn, sq = ol.orth_norm(x, w, v, beta, alpha)
+    vr, sqr = fused.orth_norm_plain(x, w, v, beta, alpha, h)
+    errs["orth_norm"] = check_close("shard K4", vn, vr, (x.abs() + 0.7 * w.abs()
+                                                         + 1.3 * v.abs()).max(),
+                                    Y_RTOL[torch.float32])
+    check_close("shard K4 sum", sq, sqr, sqr, DOT_RTOL[torch.float32])
+    halo0(vn, "shard K4")
+
+    cl = par.local_part(cop, cop.pspec(), g, dev)
+    mkc = lambda: par.local_part(cop.pad_vec(torch.as_tensor(
+        (rng.standard_normal(op.n) + 1j * rng.standard_normal(op.n)).astype(np.complex64))),
+        0, g, dev)
+    z, zw_ = mkc(), mkc()
+    zw = cl.re.window(z)
+    bre, bim = cl.re.bands, cl.im.bands
+    absb = (bre.to(torch.float32).abs() + bim.to(torch.float32).abs())
+    cscale = pd.dia_spmv_plain(absb, zw.abs(), o, h).max()
+    y5 = pd.dia_complex_spmv(bre, bim, zw, o, h)
+    errs["dia_complex_spmv"] = check_close(
+        "shard K5", y5, pd.dia_complex_spmv_plain(bre, bim, zw, o, h), cscale,
+        Y_RTOL[torch.float32])
+    halo0(y5, "shard K5")
+    for conj_x in (False, True):
+        y6, d6 = pd.dia_complex_dot(bre, bim, zw, o, h, conj_x)
+        yr, dr = pd.dia_complex_dot_plain(bre, bim, zw, o, h, conj_x)
+        errs["dia_complex_dot"] = max(errs["dia_complex_dot"], check_close(
+            f"shard K6 conj_x={conj_x}", y6, yr, cscale, Y_RTOL[torch.float32]))
+        check_close("shard K6 dot", d6, dr, (zw.abs() * yr.abs()).sum(),
+                    DOT_RTOL[torch.float32])
+        u = torch.conj_physical(zw) if conj_x else zw
+        if not torch.equal(y6, pd.dia_complex_spmv(bre, bim, u, o, h)):
+            raise AssertionError("shard K6: y is not K5's bit for bit")
+    for wv in (zw_, None):
+        y7, wd, yd = pd.dia_complex_wdot(bre, bim, zw, wv, None, o, h)
+        yr, wdr, ydr = pd.dia_complex_wdot_plain(bre, bim, zw, wv, None, o, h)
+        errs["dia_complex_wdot"] = max(errs["dia_complex_wdot"], check_close(
+            "shard K7", y7, yr, cscale, Y_RTOL[torch.float32]))
+        check_close("shard K7 wy", wd, wdr, ((zw if wv is None else wv).abs() * yr.abs()).sum(),
+                    DOT_RTOL[torch.float32])
+        check_close("shard K7 yy", yd, ydr, ydr.abs(), DOT_RTOL[torch.float32])
+        if not torch.equal(y7, y5):
+            raise AssertionError("shard K7: y is not K5's bit for bit")
+    torch.cuda.synchronize()
+    errs.pop("dia_spmm")
+    return {"errs": errs, "r_local": ol.r_local, "h": h,
+            "tail_rows": DIST_WORLD * ol.r_local - op.n if rank == DIST_WORLD - 1 else 0}
+
+
+def _dist_layouts(rank, g, dev):
+    """Phase 16 (d) on one rank: Jacobi-BiCGStab on HaloDIA and AllGatherELL
+    and ``ca_cg`` (s = 4) on MPKDIA at 32³, with their exchanges counted."""
+    import functools
+
+    from sprsolve_tpu_torch import parallel as par
+    from sprsolve_tpu_torch.parallel import comm
+
+    tcacg = importlib.import_module("sprsolve_tpu_torch.solvers.ca_cg")
+    A = problems.poisson3d(DIST_GRID, DIST_GRID, DIST_GRID)
+    dia = DIA.from_csr(A, device="cpu")
+    b = np.random.default_rng(SEED + 3).standard_normal(A.shape[0]).astype(np.float32)
+    M = spt.DiagPrecond.new(dia.diagonal())
+    out = {}
+    for name, op in (("halo_dia", dia), ("allgather_ell", A)):
+        pd.reset_launch_counts()
+        comm.reset_counts()
+        x, info = par.distributed_solve(spt.bicgstab, op, b, M=M, tol=1e-4, max_iter=400,
+                                        group=g, device=dev)
+        cc, its = dist_counts(), int(info.iterations)
+        res = true_residual(A, x, b)
+        spmvs = 1 + 2 * its
+        ok = (cc["halo_exchange"][0] == spmvs and cc["all_gather_rows"][0] == 1) \
+            if name == "halo_dia" else \
+            (cc["halo_exchange"][0] == 0 and cc["all_gather_rows"][0] == spmvs + 1)
+        if not (info.converged and res < 1e-3 and ok and not any(launch_counts().values())):
+            raise AssertionError(f"dist {name}: {info}, residual {res:.3e}, {cc}")
+        out[name] = {"its": its, "res": res, "comm": cc}
+    per_block, inner = [], tcacg.basis_block
+
+    def counted(*a, **k):
+        before = comm.halo_exchange.calls
+        V = inner(*a, **k)
+        per_block.append(comm.halo_exchange.calls - before)
+        return V
+
+    A_s, b_s, _, unfold = tcacg.fold_jacobi(A, b)
+    tcacg.basis_block = counted
+    try:
+        x, info = par.distributed_solve(
+            functools.partial(spt.ca_cg, s=4, bounds=spt.gershgorin_bounds(A_s)),
+            A_s.to_dia(), b_s.numpy(), tol=1e-4, max_iter=400, group=g, device=dev, mpk_s=4)
+    finally:
+        tcacg.basis_block = inner
+    res = true_residual(A, unfold(x.cpu()), b)
+    if not (info.converged and res < 1e-3 and per_block and set(per_block) == {1}):
+        raise AssertionError(f"dist ca_cg mpk: {info}, residual {res:.3e}, "
+                             f"exchanges per block {per_block}")
+    out["ca_cg_mpk"] = {"its": int(info.iterations), "res": res, "blocks": len(per_block)}
+    return out
+
+
+def _dist_rank(rank, dev, store, out_dir, ref):
+    """One rank of phase 16 (b)-(d): a gloo group with every rank on ``dev``
+    (cuda:0), the results pickled into ``out_dir``. Rank 0 loads the kernel
+    library before the others."""
+    import datetime
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=store, rank=rank, world_size=DIST_WORLD,
+                            timeout=datetime.timedelta(seconds=180))
+    res = {}
+    try:
+        if rank == 0 and cuda:
+            _cuda_build.load()
+        dist.barrier()
+        if cuda:
+            _cuda_build.load()
+        g = dist.group.WORLD
+        bands = np.load(os.path.join(out_dir, "bands.npz"))
+        dia = DIA(bands=torch.from_numpy(bands["real"]), offsets=tuple(bands["offsets"]),
+                  shape=(int(bands["n"]),) * 2)
+        damped = DIA(bands=torch.from_numpy(bands["damped"]), offsets=dia.offsets,
+                     shape=dia.shape)
+        res["solves"] = _dist_solves(rank, g, dev, dia, damped, ref)
+        res["kernels"] = _dist_kernels(rank, g, dev, dia, damped)
+        res["layouts"] = _dist_layouts(rank, g, dev)
+    except Exception:   # reported by the parent, which fails the phase
+        res["error"] = traceback.format_exc()
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+        dist.destroy_process_group()
+
+
+def phase_dist_gloo(dev):
+    """Phase 16 (b)-(d): two gloo ranks on cuda:0 (spawned), 500k rows each."""
+    import pickle
+
+    A = problems.poisson3d(GRID, GRID, GRID)
+    dia = DIA.from_csr(A, device="cpu")
+    damped = damped_dia()
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "bands.npz"), real=dia.bands.numpy(),
+                 damped=damped.bands.numpy(), offsets=np.array(dia.offsets), n=A.shape[0])
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_dist_rank, args=(r, dev, dist_store(tmp), tmp, RUN_COUNTS))
+                 for r in range(DIST_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            for p in procs:
+                p.join(timeout=max(1.0, DIST_TIMEOUT_S - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        wall = time.perf_counter() - t0
+        results = []
+        for r, p in enumerate(procs):
+            path = os.path.join(tmp, f"rank{r}.pkl")
+            if p.exitcode != 0 or not os.path.exists(path):
+                raise AssertionError(f"dist rank {r} exited {p.exitcode}")
+            with open(path, "rb") as f:
+                results.append(pickle.load(f))
+    for r, res in enumerate(results):
+        if "error" in res:
+            raise AssertionError(f"dist rank {r}:\n{res['error']}")
+    arrays = damped_csr_arrays()
+    b = poisson_rhs(A)
+    r_ = np.random.default_rng(SEED + 6).standard_normal(A.shape[0]).astype(np.float32)
+    bz = (r_ + 0.25j * r_).astype(np.complex64)
+    for name, s0 in results[0]["solves"].items():
+        if name == "all_reduce_us":
+            continue
+        if any(res["solves"][name]["sha"] != s0["sha"] for res in results):
+            raise AssertionError(f"dist {name}: the ranks' x differ")
+        x = torch.as_tensor(s0["x"])
+        res_ = (complex_true_residual(arrays, A.shape, x, bz) if x.is_complex()
+                else true_residual(A, x, b))
+        if not res_ < 1e-3:
+            raise AssertionError(f"dist {name}: true residual {res_:.3e}")
+        for r, res in enumerate(results):
+            s = res["solves"][name]
+            log("dist", part="b", backend="gloo", ranks=DIST_WORLD, rank=r, solver=name,
+                iterations=s["its"], true_residual=res_,
+                **{f"{k}_launches": v for k, v in s["launches"].items()},
+                halo_exchanges=s["comm"]["halo_exchange"][0],
+                halo_bytes_sent_per_exchange=s["comm"]["halo_exchange"][1]
+                // max(s["comm"]["halo_exchange"][0], 1),
+                all_reduce_calls=s["comm"]["all_reduce_sum"][0],
+                per_iteration_ms=f"{s['ms_per_iteration']:.4f}", x_bits="identical")
+    for r, res in enumerate(results):
+        log("dist", part="b", rank=r, gloo_all_reduce_us_cuda_scalar=
+            f"{res['solves']['all_reduce_us']:.2f}")
+        k = res["kernels"]
+        log("dist", part="c", rank=r, r_local=k["r_local"], h=k["h"],
+            padded_tail_rows=k["tail_rows"],
+            **{f"{name}_max_abs_err": f"{e:.3e}" for name, e in k["errs"].items()},
+            result="K1-K7 on the rank's window within phase 3's tolerances; K2/K3 y bitwise "
+            "K1's, K6/K7 y bitwise K5's; halos zero")
+        for name, s in res["layouts"].items():
+            log("dist", part="d", rank=r, layout=name, iterations=s["its"],
+                true_residual=s["res"], **({"blocks": s["blocks"],
+                                            "exchanges_per_block": 1} if "blocks" in s else
+                                           {"halo_exchanges": s["comm"]["halo_exchange"][0],
+                                            "all_gathers": s["comm"]["all_gather_rows"][0]}))
+    log("dist", part="b-d", wall_s=f"{wall:.2f}",
+        note="two ranks share one card: correctness and launch counts, not scaling")
+
+
+def phase_dist(dev):
+    """Phase 16: the distributed layer (a) on one NCCL rank, (b)-(d) on two
+    gloo ranks sharing the card."""
+    t0 = time.perf_counter()
+    phase_dist_nccl(dev)
+    phase_dist_gloo(dev)
+    log("dist", seconds=f"{time.perf_counter() - t0:.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -3296,6 +3832,7 @@ def main() -> int:
     phase_krylov(dev)
     launches["dia_spmm"] = phase_eigen(dev)
     phase_front(dev, k1_stats=stats["dia_spmv"])
+    phase_dist(dev)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

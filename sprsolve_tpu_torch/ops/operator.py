@@ -8,6 +8,10 @@ Counterpart of ``sprsolve_tpu/ops/operator.py`` (the reference's
 inside the SpMV pass, and ``matvec_conj_dot`` (K6) takes CS-MINRES's
 Saunders step in one pass; every other operator composes the matvec with
 separate dots, with the same result.
+
+The helpers take ``group=`` (the JAX package's ``axis_name``): a fused
+kernel returns *local* partials, and the helper sums them over the group's
+ranks in one collective call (``sprsolve_tpu/ops/operator.py:37-86``).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Protocol, Tuple, runtime_checkable
 
 import torch
 
-from ..vecalg import conj, conj_dot
+from ..vecalg import conj, conj_dot, group_sum
 
 
 @runtime_checkable
@@ -33,7 +37,7 @@ class LinearOperator(Protocol):
         ...
 
 
-def mv_conj_dot(A, x: torch.Tensor):
+def mv_conj_dot(A, x: torch.Tensor, group=None):
     """(y = A·conj(x), conj(x)ᵀy) — the CS-MINRES Saunders step
     (``src/cs_minres.rs:99-103``), in one pass on an operator with
     ``matvec_conj_dot`` (K6 folds the conjugation into the accumulation),
@@ -41,30 +45,41 @@ def mv_conj_dot(A, x: torch.Tensor):
     product of conj(x) with y, which is ``conj_dot(x, y)``."""
     fn = getattr(A, "matvec_conj_dot", None)
     if fn is not None:
-        return fn(x)
+        y, d = fn(x)
+        return y, group_sum(d, group)
     y = A.matvec(conj(x))
-    return y, conj_dot(x, y)
+    return y, conj_dot(x, y, group)
 
 
-def mv_wdot(A, x: torch.Tensor, w: torch.Tensor):
+def mv_wdot(A, x: torch.Tensor, w: torch.Tensor, group=None):
     """(y = A·x, conj(w)·y), the dot taken inside the SpMV pass when the
     operator provides ``matvec_wdot``."""
     fn = getattr(A, "matvec_wdot", None)
     if fn is not None:
         y, wd, _ = fn(x, w)
-        return y, wd
+        return y, group_sum(wd, group)
     y = A.matvec(x)
-    return y, conj_dot(w, y)
+    return y, conj_dot(w, y, group)
 
 
-def mv_wdot2(A, x: torch.Tensor, w: torch.Tensor):
+def mv_wdot2(A, x: torch.Tensor, w: torch.Tensor, group=None):
     """(y = A·x, conj(w)·y, conj(y)·y) — both of BiCGStab's post-SpMV
-    reductions in the SpMV pass where the operator supports it."""
+    reductions in the SpMV pass where the operator supports it; with a
+    group, both partials go in one collective call."""
     fn = getattr(A, "matvec_wdot", None)
     if fn is not None:
-        return fn(x, w)
+        y, wd, yd = fn(x, w)
+        return (y, *_pair_sum(wd, yd, group))
     y = A.matvec(x)
-    return y, conj_dot(w, y), conj_dot(y, y)
+    return (y, *_pair_sum(torch.sum(torch.conj(w) * y), torch.sum(torch.conj(y) * y), group))
+
+
+def _pair_sum(a: torch.Tensor, b: torch.Tensor, group):
+    """``(a, b)`` summed over ``group`` in one collective call (as they
+    are for ``group=None``)."""
+    if group is None:
+        return a, b
+    return tuple(group_sum(torch.stack([a, b]), group).unbind())
 
 
 def _fold(A, M):
@@ -79,7 +94,7 @@ def _fold(A, M):
     return None
 
 
-def mv_prec_wdot(A, M, x: torch.Tensor, w: torch.Tensor):
+def mv_prec_wdot(A, M, x: torch.Tensor, w: torch.Tensor, group=None):
     """(u = M⁻¹·x, y = A·u, conj(w)·y), a diagonal M folded into the SpMV
     input where the operator supports ``matvec_wdot_prec`` (a real
     diagonal) or ``matvec_wdot_cprec`` (a complex one).
@@ -90,21 +105,21 @@ def mv_prec_wdot(A, M, x: torch.Tensor, w: torch.Tensor):
     fold = _fold(A, M)
     if fold is not None:
         y, wd, _ = fold(x, w, M.diag_inv)
-        return x * M.diag_inv, y, wd
+        return x * M.diag_inv, y, group_sum(wd, group)
     u = M.matvec(x)
-    y, wd = mv_wdot(A, u, w)
+    y, wd = mv_wdot(A, u, w, group)
     return u, y, wd
 
 
-def mv_prec_wdot2(A, M, x: torch.Tensor, w: torch.Tensor):
+def mv_prec_wdot2(A, M, x: torch.Tensor, w: torch.Tensor, group=None):
     """(u = M⁻¹·x, y = A·u, conj(w)·y, conj(y)·y) — the second-half variant
     of :func:`mv_prec_wdot`."""
     fold = _fold(A, M)
     if fold is not None:
         y, wd, yd = fold(x, w, M.diag_inv)
-        return x * M.diag_inv, y, wd, yd
+        return (x * M.diag_inv, y, *_pair_sum(wd, yd, group))
     u = M.matvec(x)
-    y, wd, yd = mv_wdot2(A, u, w)
+    y, wd, yd = mv_wdot2(A, u, w, group)
     return u, y, wd, yd
 
 

@@ -30,7 +30,7 @@ import torch
 from .errors import InvalidPreconditioner, ZeroDiagonalElem
 from .sparse.bsr import full_precision_bmm
 from .sparse.containers import CSR, _host
-from .vecalg import conj_dot, real_dtype
+from .vecalg import conj_dot, real_dtype, sqrt_exact
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +111,7 @@ def real_abs_jacobi(op) -> DiagPrecond:
     if hasattr(op, "diagonal_padded"):
         if hasattr(op, "re"):
             dr, di = op.re.diagonal_padded(), op.im.diagonal_padded()
-            d = torch.sqrt(dr * dr + di * di)
+            d = sqrt_exact(dr * dr + di * di)
         else:
             d = op.diagonal_padded().abs()
         one = torch.ones((), dtype=d.dtype, device=d.device)
@@ -505,7 +505,9 @@ class InnerSolvePrecond:
     (possibly padded) operator the outer solve runs on, so the vector
     layouts agree: ``solve()`` and ``prepare()`` then pass the object
     through as it is (``M.A is op``), and on a ``PaddedDIA`` an inner CG
-    runs K3.  ``inner_M`` preconditions the inner solve itself.
+    runs K3.  ``inner_M`` preconditions the inner solve itself.  ``group``
+    (``sprsolve_tpu/precond.py:658``) runs the inner solve on a process
+    group, for an outer solve row-partitioned on it.
     """
 
     A: object
@@ -513,6 +515,7 @@ class InnerSolvePrecond:
     method: str = "cg"
     iters: int = 8
     inner_tol: float = 0.0
+    group: object = None
 
     @property
     def shape(self):
@@ -538,9 +541,9 @@ class InnerSolvePrecond:
 
     def matvec(self, r: torch.Tensor) -> torch.Tensor:
         z, _info = self._solver()(self.A, r, M=self.inner_M, tol=self.inner_tol,
-                                  max_iter=self.iters)
+                                  max_iter=self.iters, group=self.group)
         return z
 
     def matvec_dot(self, r: torch.Tensor):
         z = self.matvec(r)
-        return z, conj_dot(r, z)
+        return z, conj_dot(r, z, self.group)

@@ -43,6 +43,7 @@ def bicgstab(
     tol,
     max_iter,
     record_residuals: bool = False,
+    group=None,
 ):
     """Solve A·x = b with BiCGStab. Returns ``(x, SolveInfo)``.
 
@@ -50,10 +51,13 @@ def bicgstab(
     approximation of A⁻¹, e.g. :class:`~sprsolve_tpu_torch.precond.DiagPrecond`).
     ``record_residuals=True`` also returns the relative residual after each
     iteration, a ``(max_iter + 1,)`` tensor that is NaN past the last one.
+    ``group`` (a ``torch.distributed`` process group) makes every reduction
+    a sum over its ranks: b, x0 and x are this rank's rows of a
+    row-partitioned system (``parallel.distributed_solve``).
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
-    check_shapes(A, b, x0)
+    check_shapes(A, b, x0, group)
     if M is None:
         M = IdentityOperator(b.shape[0])
 
@@ -71,7 +75,7 @@ def bicgstab(
 
         # r = A·x − b ; r0 = r (src/bicg_stab.rs:72-79)
         r = axpy(-one, b, A.matvec(x0))
-        r0_norm = norm2(r)
+        r0_norm = norm2(r, group)
         if record_residuals:
             hist[0] = r0_norm / rhs_norm
         if bool(r0_norm <= tol2):
@@ -80,7 +84,7 @@ def bicgstab(
         def restart_values(x):
             # the ρ-breakdown restart recompute (src/bicg_stab.rs:131-145)
             r_r = axpy(-one, b, A.matvec(x))
-            rn = norm2(r_r)
+            rn = norm2(r_r, group)
             rho_r = (rn * rn).to(T)
             return r_r, rho_r, rho_r.real * eps * eps
 
@@ -89,15 +93,15 @@ def bicgstab(
         r0_norm_tol = (r0_norm * eps) ** 2
         rho = (r0_norm * r0_norm).to(T)
         p = r
-        y, v, r0v = mv_prec_wdot(A, M, p, r0)
+        y, v, r0v = mv_prec_wdot(A, M, p, r0, group)
         alpha = rho / r0v
         s = axpy(-alpha, v, r)
-        z, t, st_, tt = mv_prec_wdot2(A, M, s, s)
+        z, t, st_, tt = mv_prec_wdot2(A, M, s, s, group)
         w = torch.where(tt.real > 0, st_.conj() / tt, zero)
         x = axpy(-w, z, axpy(-alpha, y, x0))
         r = axpy(-w, t, s)
-        rho_next = conj_dot(r0, r)
-        r_norm = norm2(r)
+        rho_next = conj_dot(r0, r, group)
+        r_norm = norm2(r, group)
         its, status, res = 1, Status.RUNNING, None
         ok = None            # breakdown predicate of the last step (none for the first)
         x_prev = r_norm_prev = None
@@ -128,17 +132,17 @@ def bicgstab(
             beta = (rho / rho_old) * (alpha / w)
             # p = r + β·(p − ω·v), MKL-axpby form (src/bicg_stab.rs:153-156)
             p = axpy(one, r, axpby(-beta * w, v, beta, p))
-            y, v, r0v = mv_prec_wdot(A, M, p, r0)
+            y, v, r0v = mv_prec_wdot(A, M, p, r0, group)
             ok = r0v.abs() > 0
             alpha = rho / torch.where(ok, r0v, one)
             s = axpy(-alpha, v, r)
-            z, t, st_, tt = mv_prec_wdot2(A, M, s, s)
+            z, t, st_, tt = mv_prec_wdot2(A, M, s, s, group)
             w = torch.where(tt.real > 0, st_.conj() / tt, zero)
             x_prev, r_norm_prev = x, r_norm
             x = axpy(-w, z, axpy(-alpha, y, x))
             r = axpy(-w, t, s)
-            rho_next = conj_dot(r0, r)
-            r_norm = norm2(r)
+            rho_next = conj_dot(r0, r, group)
+            r_norm = norm2(r, group)
             its += 1
 
         if status == Status.RUNNING:
@@ -151,5 +155,5 @@ def bicgstab(
                 hist[its] = res
         return x, make_info(its, res, status)
 
-    x, info = with_zero_rhs_guard(b, x0, main)
+    x, info = with_zero_rhs_guard(b, x0, main, group)
     return (x, info, hist) if record_residuals else (x, info)

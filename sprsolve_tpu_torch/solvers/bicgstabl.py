@@ -44,20 +44,22 @@ def bicgstabl(
     tol,
     max_iter,
     record_residuals: bool = False,
+    group=None,
 ):
     """Solve A·x = b with BiCGStab(ℓ). Returns ``(x, SolveInfo)``.
 
     ``info.iterations`` counts cycles of 2ℓ operator applications;
     ``max_iter`` bounds cycles. ``record_residuals=True`` also returns the
     relative residual at the top of each cycle, a ``(max_iter + 1,)`` tensor
-    that is NaN past the last.
+    that is NaN past the last. ``group`` makes every reduction a sum over
+    its ranks (b, x0 and x are this rank's rows; ``parallel.distributed_solve``).
     """
     l = int(l)
     if l < 1:
         raise ValueError(f"bicgstabl needs l >= 1, got {l}")
     if x0 is None:
         x0 = torch.zeros_like(b)
-    check_shapes(A, b, x0)
+    check_shapes(A, b, x0, group)
     if M is None:
         M = IdentityOperator(b.shape[0])
 
@@ -78,7 +80,7 @@ def bicgstabl(
         us = [u] + [None] * l
         # ρ₁ of the first step is a fresh dot; later ones come fused from the
         # r-matvec of the step before
-        rho1 = conj_dot(rt, rs[0])
+        rho1 = conj_dot(rt, rs[0], group)
 
         # ---- BiCG half: ℓ steps
         for j in range(l):
@@ -87,13 +89,13 @@ def bicgstabl(
             rho0_n = rho1
             us_n = [axpy(-beta, us[i], rs[i]) for i in range(j + 1)]
             # u_{j+1} = A·M·u_j with γ = ⟨r̃₀, u_{j+1}⟩ in the same pass
-            _, u_next, gamma = mv_prec_wdot(A, M, us_n[j], rt)
+            _, u_next, gamma = mv_prec_wdot(A, M, us_n[j], rt, group)
             step_ok = step_ok & (gamma.abs() > brk_tol)
             alpha_n = rho0_n / torch.where(step_ok, gamma, one)
             uall = us_n + [u_next]
             rs_n = [axpy(-alpha_n, uall[i + 1], rs[i]) for i in range(j + 1)]
             # r_{j+1} = A·M·r_j; its dot is the next step's ρ₁
-            _, r_next, rho1_n = mv_prec_wdot(A, M, rs_n[j], rt)
+            _, r_next, rho1_n = mv_prec_wdot(A, M, rs_n[j], rt, group)
             ok_step = alive & step_ok
             for i in range(j + 1):
                 us[i] = torch.where(ok_step, us_n[i], us[i])
@@ -115,12 +117,12 @@ def bicgstabl(
         rm = list(rs)
         for j in range(1, l + 1):
             for i in range(1, j):
-                tau[i][j] = conj_dot(rm[i], rm[j]) / sigma[i]
+                tau[i][j] = conj_dot(rm[i], rm[j], group) / sigma[i]
                 rm[j] = axpy(-tau[i][j], rm[i], rm[j])
-            sigma[j] = conj_dot(rm[j], rm[j])
+            sigma[j] = conj_dot(rm[j], rm[j], group)
             mr_ok = mr_ok & (sigma[j].abs() > brk_tol)
             sigma[j] = torch.where(mr_ok, sigma[j], one)
-            gamma_p[j] = conj_dot(rm[j], rm[0]) / sigma[j]
+            gamma_p[j] = conj_dot(rm[j], rm[0], group) / sigma[j]
 
         gamma = [None] * (l + 1)
         gamma[l] = gamma_p[l]
@@ -157,7 +159,7 @@ def bicgstabl(
 
         # true residual of the warm start; the loop solves (A∘M)·z = r_init
         r = axpy(-one, A.matvec(x0), b)
-        r_norm = norm2(r)
+        r_norm = norm2(r, group)
         above, below = torch.stack([r_norm > tol2, r_norm <= tol2]).tolist()
         if below:
             if hist_len:
@@ -174,7 +176,7 @@ def bicgstabl(
                 hist[its] = r_norm / rhs_norm
             z, r, u_mr, rho0_c, alpha_c, omega_c, completed = cycle(
                 z, r, u, rt, rho0, alpha, omega, brk_tol)
-            r_norm = norm2(r)
+            r_norm = norm2(r, group)
             # the cycle's one host read
             done, above, below = torch.stack(
                 [completed, r_norm > tol2, r_norm <= tol2]).tolist()
@@ -202,5 +204,5 @@ def bicgstabl(
         x = axpy(one, M.matvec(z), x0)  # x = x0 + M·z
         return x, make_info(its, res, status), hist
 
-    x, info, hist = _guard3(b, x0, main, hist_len, rdt)
+    x, info, hist = _guard3(b, x0, main, hist_len, rdt, group)
     return (x, info, hist) if record_residuals else (x, info)

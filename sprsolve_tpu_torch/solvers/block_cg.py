@@ -25,7 +25,7 @@ from typing import Optional
 import torch
 
 from ..errors import SolveInfo, Status
-from ..vecalg import eps_for, full_precision_matmul, real_dtype
+from ..vecalg import eps_for, full_precision_matmul, group_sum, real_dtype
 from .common import block_apply, make_info
 
 
@@ -42,6 +42,7 @@ def block_cg(
     M=None,
     tol,
     max_iter,
+    group=None,
 ):
     """Solve SPD A·X = B for an (n, k) block of right-hand sides.
 
@@ -49,7 +50,9 @@ def block_cg(
     the columns), ``residual`` the worst per-column relative residual, and
     ``status`` CONVERGED only when every column converged.  The k×k normal
     matrix carries a jitter of ε·mean(|diag|), which keeps converged
-    columns inert as the block loses rank.
+    columns inert as the block loses rank.  ``group`` makes the column norms
+    and the Gram products sums over its ranks (B, X0 and X are this rank's
+    rows; ``parallel.distributed_solve``).
     """
     B = torch.as_tensor(B)
     if B.dim() != 2:
@@ -66,11 +69,11 @@ def block_cg(
     tiny = torch.tensor(torch.finfo(rdt).tiny, dtype=rdt, device=dev)
 
     def colnorms(R):
-        return torch.sqrt(torch.sum(R.abs() ** 2, dim=0)).to(rdt)
+        return torch.sqrt(group_sum(torch.sum(R.abs() ** 2, dim=0), group)).to(rdt)
 
     def gram(U, V):
         """(k, k) = Uᴴ·V, one full-precision product."""
-        return full_precision_matmul(U.conj().T, V)
+        return group_sum(full_precision_matmul(U.conj().T, V), group)
 
     bn = colnorms(B)
     # zero-rhs columns count as converged with x = 0 (the reference's

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 from ..errors import IncompatibleMatrixFormat, Status
-from ..vecalg import NUMPY_DTYPES, axpy, conj_dot, eps_for, full_precision_matmul, real_dtype
+from ..vecalg import (NUMPY_DTYPES, axpy, conj_dot, eps_for, full_precision_matmul, group_sum,
+                      real_dtype)
 from .ca_cg import _basis_change, _chebyshev, _kernel_layout, basis_block
 from .common import _guard3, check_shapes, make_info
 
@@ -48,6 +49,7 @@ def ca_bicgstab(
     tol,
     max_iter,
     record_residuals: bool = False,
+    group=None,
 ):
     """Solve general A·x = b with s-step BiCGStab. Returns ``(x, SolveInfo)``.
 
@@ -55,10 +57,11 @@ def ca_bicgstab(
     polynomial degree 2s).  ``basis``/``bounds`` as in
     :func:`~sprsolve_tpu_torch.solvers.ca_cg.ca_cg`.  ``iterations`` counts
     BiCGStab steps; each outer anchor adds one.  Unpreconditioned.
+    ``group`` as in :func:`~sprsolve_tpu_torch.solvers.ca_cg.ca_cg`.
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
-    check_shapes(A, b, x0)
+    check_shapes(A, b, x0, group)
     if b.dim() != 1 or _kernel_layout(A):
         raise IncompatibleMatrixFormat(
             "ca_bicgstab works on flat vectors (the basis block stacks p "
@@ -68,6 +71,13 @@ def ca_bicgstab(
         raise ValueError(f"need s >= 1, got {s}")
     basis, theta, delta = _chebyshev(basis, bounds)
     deg = 2 * s
+    if hasattr(A, "max_power") and deg > A.max_power:
+        raise ValueError(
+            f"s={s} needs matrix-powers depth 2s={deg}, exceeding the "
+            f"operator's {A.max_power} (ext={A.ext}, halo={A.halo}); "
+            f"partition with mpk_s=2*s"
+        )
+    mpk = hasattr(A, "mpk_extend") and group is not None
 
     T, dev = b.dtype, b.device
     rdt = real_dtype(T)
@@ -88,8 +98,9 @@ def ca_bicgstab(
         hist = np.full(hist_len, np.nan, dtype=npR)
 
         def block(x, r, p, rt0, rn2, rn2_anchor, rt0_tol, its, status):
-            V = basis_block(A, p, r, deg, basis, theta, delta)
-            GE = full_precision_matmul(V.conj().T, torch.cat([V, rt0[:, None]], dim=1))
+            V = basis_block(A, p, r, deg, basis, theta, delta, mpk)
+            GE = group_sum(full_precision_matmul(V.conj().T, torch.cat([V, rt0[:, None]], dim=1)),
+                           group)
             GE = GE.cpu().numpy()
             G, gh = GE[:, :t], GE[:, t].conj()
             a = np.zeros(t, npT)
@@ -146,7 +157,7 @@ def ca_bicgstab(
 
         r = axpy(-one, A.matvec(x0), b)
         x, p, rt0, its, status = x0, r, r, 0, Status.RUNNING
-        rn2 = npR(float(conj_dot(r, r).real))
+        rn2 = npR(float(conj_dot(r, r, group).real))
         rn2_anchor, rt0_tol, need_anchor = rn2, np.square(epsr) * rn2, False
         # outer anchor loop: re-anchor on the TRUE residual, r̃₀ := r, p := r
         while (status == Status.RUNNING and its < max_iter
@@ -157,7 +168,7 @@ def ca_bicgstab(
                     x, r, p, rt0, rn2, rn2_anchor, rt0_tol, its, status)
             r = axpy(-one, A.matvec(x), b)
             p = rt0 = r
-            rn2 = rn2_anchor = npR(float(conj_dot(r, r).real))
+            rn2 = rn2_anchor = npR(float(conj_dot(r, r, group).real))
             rt0_tol = np.square(epsr) * max(rn2, tiny)
             need_anchor = False
             its += 1
@@ -172,5 +183,5 @@ def ca_bicgstab(
         return (x, make_info(its, float(true_res), status),
                 torch.as_tensor(hist, device=dev))
 
-    x, info, hist = _guard3(b, x0, main, hist_len, rdt)
+    x, info, hist = _guard3(b, x0, main, hist_len, rdt, group)
     return (x, info, hist) if record_residuals else (x, info)

@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from ..errors import IncompatibleMatrixFormat, Status
-from ..vecalg import NUMPY_DTYPES, axpy, conj_dot, full_precision_matmul, real_dtype
+from ..vecalg import (NUMPY_DTYPES, axpy, conj_dot, full_precision_matmul, group_sum,
+                      real_dtype)
 from .common import _guard3, block_apply, check_shapes, make_info
 
 
@@ -114,11 +115,22 @@ def _chebyshev(basis: str, bounds):
     raise ValueError(f"unknown basis {basis!r}")
 
 
-def basis_block(A, p, r, deg: int, basis: str, theta: float, delta: float):
-    """V = [ρ₀(A)p … ρ_deg(A)p, ρ₀(A)r … ρ_{deg−1}(A)r] as (m, 2·deg + 1)."""
-    chain = [torch.stack([p, r], dim=1)]
+def basis_block(A, p, r, deg: int, basis: str, theta: float, delta: float,
+                mpk: bool = False):
+    """V = [ρ₀(A)p … ρ_deg(A)p, ρ₀(A)r … ρ_{deg−1}(A)r] as (m, 2·deg + 1).
+
+    ``mpk``: the operator is a matrix-powers
+    :class:`~sprsolve_tpu_torch.parallel.MPKDIA` on a process group; the
+    chain then runs on its extended window after ONE halo exchange
+    (``mpk_extend``), each power a local ``mpk_apply``, and the columns are
+    cut back to the rank's rows (``sprsolve_tpu/solvers/ca_cg.py:206-238``)."""
+    Z = torch.stack([p, r], dim=1)
+    if mpk:
+        chain, apply_, central = [A.mpk_extend(Z)], A.mpk_apply, A.mpk_central
+    else:
+        chain, apply_, central = [Z], (lambda X: block_apply(A, X)), (lambda v: v)
     for j in range(deg):
-        Av = block_apply(A, chain[-1])
+        Av = apply_(chain[-1])
         if basis == "monomial":
             nxt = Av
         elif j == 0:
@@ -126,6 +138,7 @@ def basis_block(A, p, r, deg: int, basis: str, theta: float, delta: float):
         else:
             nxt = (2.0 / delta) * (Av - theta * chain[-1]) - chain[-2]
         chain.append(nxt)
+    chain = [central(c) for c in chain]
     cols = [c[:, 0] for c in chain] + [c[:, 1] for c in chain[:deg]]
     return torch.stack(cols, dim=1)
 
@@ -141,6 +154,7 @@ def ca_cg(
     tol,
     max_iter,
     record_residuals: bool = False,
+    group=None,
 ):
     """Solve SPD/HPD A·x = b with s-step CG. Returns ``(x, SolveInfo)``.
 
@@ -150,11 +164,14 @@ def ca_cg(
     bounds are given).  Unpreconditioned: fold a Jacobi in with
     :func:`fold_jacobi`, or use :func:`~sprsolve_tpu_torch.solvers.cg.cg`
     with ``M``.  ``record_residuals=True`` also returns the coordinate
-    residual of each step, a ``(max_iter + 1,)`` tensor.
+    residual of each step, a ``(max_iter + 1,)`` tensor.  ``group`` makes
+    the Gram matrix and the norms sums over its ranks (b, x0 and x are this
+    rank's rows); on an ``MPKDIA`` the basis costs one halo exchange a
+    block.
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
-    check_shapes(A, b, x0)
+    check_shapes(A, b, x0, group)
     if b.dim() != 1 or _kernel_layout(A):
         raise IncompatibleMatrixFormat(
             "ca_cg works on flat vectors (the basis block stacks p and r); "
@@ -163,6 +180,12 @@ def ca_cg(
     if s < 1:
         raise ValueError(f"need s >= 1, got {s}")
     basis, theta, delta = _chebyshev(basis, bounds)
+    if hasattr(A, "max_power") and s > A.max_power:
+        raise ValueError(
+            f"s={s} exceeds the operator's matrix-powers depth "
+            f"{A.max_power} (ext={A.ext}, halo={A.halo})"
+        )
+    mpk = hasattr(A, "mpk_extend") and group is not None
 
     T, dev = b.dtype, b.device
     rdt = real_dtype(T)
@@ -181,8 +204,8 @@ def ca_cg(
         hist = np.full(hist_len, np.nan, dtype=npR)
 
         def block(x, r, p, its, status):
-            V = basis_block(A, p, r, s, basis, theta, delta)
-            G = full_precision_matmul(V.conj().T, V).cpu().numpy()
+            V = basis_block(A, p, r, s, basis, theta, delta, mpk)
+            G = group_sum(full_precision_matmul(V.conj().T, V), group).cpu().numpy()
             a = np.zeros(t, npT)
             a[0] = 1
             bv = np.zeros(t, npT)
@@ -218,7 +241,7 @@ def ca_cg(
 
         r = axpy(-one, A.matvec(x0), b)
         x, p, its, status = x0, r, 0, Status.RUNNING
-        rn2 = npR(float(conj_dot(r, r).real))
+        rn2 = npR(float(conj_dot(r, r, group).real))
         # outer re-anchor loop: the block loop exits on the COORDINATE norm
         # rᴴGr; each pass recomputes b − A·x and restarts with p = r
         while status == Status.RUNNING and its < max_iter and rn2 > tol2sq:
@@ -226,7 +249,7 @@ def ca_cg(
                 x, r, p, rn2, its, status = block(x, r, p, its, status)
             r = axpy(-one, A.matvec(x), b)
             p = r
-            rn2 = npR(float(conj_dot(r, r).real))
+            rn2 = npR(float(conj_dot(r, r, group).real))
             its += 1
         true_res = np.sqrt(rn2) / rhs_h
         converged = status == Status.RUNNING and true_res <= tol_h
@@ -239,5 +262,5 @@ def ca_cg(
         return (x, make_info(its, float(true_res), status),
                 torch.as_tensor(hist, device=dev))
 
-    x, info, hist = _guard3(b, x0, main, hist_len, rdt)
+    x, info, hist = _guard3(b, x0, main, hist_len, rdt, group)
     return (x, info, hist) if record_residuals else (x, info)

@@ -24,7 +24,7 @@ import torch
 
 from ..errors import Status
 from ..ops.operator import IdentityOperator
-from ..vecalg import axpy, conj_dot, norm2, real_dtype
+from ..vecalg import axpy, conj_dot, group_sum, norm2, real_dtype
 from .common import _guard3, check_shapes, make_info
 
 
@@ -37,6 +37,7 @@ def cg(
     tol,
     max_iter,
     record_residuals: bool = False,
+    group=None,
 ):
     """Solve SPD A·x = b with (preconditioned) CG. Returns ``(x, SolveInfo)``.
 
@@ -44,10 +45,12 @@ def cg(
     :class:`~sprsolve_tpu_torch.precond.DiagPrecond`.
     ``record_residuals=True`` also returns the relative residual at the top
     of each iteration, a ``(max_iter + 1,)`` tensor that is NaN past the last.
+    ``group`` makes every reduction a sum over its ranks (b, x0 and x are
+    this rank's rows; ``parallel.distributed_solve``).
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
-    check_shapes(A, b, x0)
+    check_shapes(A, b, x0, group)
     if M is None:
         M = IdentityOperator(b.shape[0])
 
@@ -64,25 +67,26 @@ def cg(
         hist = torch.full((hist_len,), float("nan"), dtype=rdt, device=dev)
 
         r = axpy(-one, A.matvec(x0), b)  # r = b − A·x
-        r_norm = norm2(r)
+        r_norm = norm2(r, group)
         z = M.matvec(r)
-        x, p, rz = x0, z, conj_dot(r, z)
+        x, p, rz = x0, z, conj_dot(r, z, group)
         its, status, res = 0, Status.RUNNING, None
         above, below = torch.stack([r_norm > tol2, r_norm <= tol2]).tolist()
         while its < max_iter and above:
             if hist_len:
                 hist[its] = r_norm / rhs_norm
             q, pq = A.matvec_dot(p)
+            pq = group_sum(pq, group)
             # positive-definiteness gate (cg.py:118-133)
             ok = pq.real > 0
             alpha = rz / torch.where(ok, pq, one)
             x_next = axpy(alpha, p, x)
             r = axpy(-alpha, q, r)
             z = M.matvec(r)
-            rz_next = conj_dot(r, z)
+            rz_next = conj_dot(r, z, group)
             p = axpy(rz_next / rz, p, z)  # p = z + β·p
             rz = rz_next
-            r_norm_next = norm2(r)
+            r_norm_next = norm2(r, group)
             flags = torch.stack([ok, r_norm_next > tol2, r_norm_next <= tol2]).tolist()
             if not flags[0]:
                 # BREAKDOWN keeps the previous x, count and residual
@@ -99,7 +103,7 @@ def cg(
                 hist[its] = res
         return x, make_info(its, res, status), hist
 
-    x, info, hist = _guard3(b, x0, main, hist_len, rdt)
+    x, info, hist = _guard3(b, x0, main, hist_len, rdt, group)
     return (x, info, hist) if record_residuals else (x, info)
 
 
@@ -112,6 +116,7 @@ def cg_single_sync(
     tol,
     max_iter,
     record_residuals: bool = False,
+    group=None,
 ):
     """Chronopoulos–Gear CG (``sprsolve_tpu/solvers/cg.py:179-353``): the
     same Krylov iteration as :func:`cg`, with the three dots of a step,
@@ -125,11 +130,12 @@ def cg_single_sync(
     BREAKDOWN with the previous x, count and residual; converged when the
     loop ends with ‖r‖ ≤ tol·‖b‖, else INSUFFICIENT_ITER.  Returns
     ``(x, SolveInfo)``; ``record_residuals=True`` adds the per-iteration
-    trace as :func:`cg` does.
+    trace as :func:`cg` does. ``group`` as in :func:`cg`: the stacked dots
+    are one collective call.
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
-    check_shapes(A, b, x0)
+    check_shapes(A, b, x0, group)
     if M is None:
         M = IdentityOperator(b.shape[0])
 
@@ -142,7 +148,7 @@ def cg_single_sync(
 
     def fused_dots(r, u, w):
         """(rᴴu, uᴴw, ‖r‖) from one stacked (3,) tensor."""
-        st = torch.stack([conj_dot(r, u), conj_dot(u, w), conj_dot(r, r)])
+        st = group_sum(torch.stack([conj_dot(r, u), conj_dot(u, w), conj_dot(r, r)]), group)
         return st[0], st[1], torch.sqrt(st[2].abs())
 
     def main(rhs_norm):
@@ -188,5 +194,5 @@ def cg_single_sync(
                 hist[its] = res
         return x, make_info(its, res, status), hist
 
-    x, info, hist = _guard3(b, x0, main, hist_len, rdt)
+    x, info, hist = _guard3(b, x0, main, hist_len, rdt, group)
     return (x, info, hist) if record_residuals else (x, info)

@@ -40,16 +40,19 @@ def cgs(
     tol,
     max_iter,
     record_residuals: bool = False,
+    group=None,
 ):
     """Solve general A·x = b with CGS. Returns ``(x, SolveInfo)``.
 
     ``M`` applies M⁻¹. ``record_residuals=True`` also returns the relative
     residual at the top of each iteration, a ``(max_iter + 1,)`` tensor that
     is NaN past the last (expect it to be non-monotone: that is CGS).
+    ``group`` makes every reduction a sum over its ranks (b, x0 and x are
+    this rank's rows; ``parallel.distributed_solve``).
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
-    check_shapes(A, b, x0)
+    check_shapes(A, b, x0, group)
     if M is None:
         M = IdentityOperator(b.shape[0])
 
@@ -65,7 +68,7 @@ def cgs(
         hist = torch.full((hist_len,), float("nan"), dtype=rdt, device=dev)
 
         r = axpy(-one, A.matvec(x0), b)  # r = b − A·x
-        r_norm = norm2(r)
+        r_norm = norm2(r, group)
         rt = r                           # shadow residual r̃ = r₀
         above, below = torch.stack([r_norm > tol2, r_norm <= tol2]).tolist()
         if below:
@@ -79,20 +82,20 @@ def cgs(
         while its < max_iter and above:
             if hist_len:
                 hist[its] = r_norm / rhs_norm
-            rho = conj_dot(rt, r)
+            rho = conj_dot(rt, r, group)
             ok_rho = rho.abs() > brk_tol
             beta = rho / torch.where(ok_rho, rho_prev, one)
             u = axpy(beta, q, r)
             p_new = axpy(beta, axpy(beta, p, q), u)
             v = A.matvec(M.matvec(p_new))
-            sigma = conj_dot(rt, v)
+            sigma = conj_dot(rt, v, group)
             ok = ok_rho & (sigma.abs() > brk_tol)
             alpha = rho / torch.where(ok, sigma, one)
             q_new = axpy(-alpha, v, u)
             uh = M.matvec(u + q_new)
             x_new = axpy(alpha, uh, x)
             r_new = axpy(-alpha, A.matvec(uh), r)
-            r_norm_new = norm2(r_new)
+            r_norm_new = norm2(r_new, group)
             flags = torch.stack([ok, r_norm_new > tol2, r_norm_new <= tol2]).tolist()
             if not flags[0]:
                 # BREAKDOWN keeps the previous x, count and residual
@@ -109,5 +112,5 @@ def cgs(
                 hist[its] = res
         return x, make_info(its, res, status), hist
 
-    x, info, hist = _guard3(b, x0, main, hist_len, rdt)
+    x, info, hist = _guard3(b, x0, main, hist_len, rdt, group)
     return (x, info, hist) if record_residuals else (x, info)

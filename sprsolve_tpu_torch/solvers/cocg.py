@@ -45,6 +45,7 @@ def cocg(
     tol,
     max_iter,
     record_residuals: bool = False,
+    group=None,
 ):
     """Solve complex-symmetric A·x = b with COCG. Returns ``(x, SolveInfo)``.
 
@@ -53,10 +54,12 @@ def cocg(
     ``DiagPrecond``). On a real symmetric system COCG is CG.
     ``record_residuals=True`` also returns the relative residual at the top
     of each iteration, a ``(max_iter + 1,)`` tensor that is NaN past the last.
+    ``group`` makes every reduction a sum over its ranks (b, x0 and x are
+    this rank's rows; ``parallel.distributed_solve``).
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
-    check_shapes(A, b, x0)
+    check_shapes(A, b, x0, group)
     if M is None:
         M = IdentityOperator(b.shape[0])
 
@@ -74,7 +77,7 @@ def cocg(
         hist = torch.full((hist_len,), float("nan"), dtype=rdt, device=dev)
 
         r = axpy(-one, A.matvec(x0), b)  # r = b − A·x
-        r_norm = norm2(r)
+        r_norm = norm2(r, group)
         above, below = torch.stack([r_norm > tol2, r_norm <= tol2]).tolist()
         if below:
             if hist_len:
@@ -82,7 +85,7 @@ def cocg(
             return x0, make_info(0, r_norm / rhs_norm, Status.CONVERGED), hist
 
         z = M.matvec(r)
-        rho = dot(r, z)                  # unconjugated bilinear form
+        rho = dot(r, z, group)           # unconjugated bilinear form
         brk_tol = (r_norm * eps) ** 2
         x, p = x0, z
         its, status, res = 0, Status.RUNNING, None
@@ -90,14 +93,14 @@ def cocg(
             if hist_len:
                 hist[its] = r_norm / rhs_norm
             q = A.matvec(p)
-            pq = dot(p, q)
+            pq = dot(p, q, group)
             ok = (rho.abs() > brk_tol) & (pq.abs() > brk_tol)
             alpha = rho / torch.where(ok, pq, one)
             x_next = axpy(alpha, p, x)
             r = axpy(-alpha, q, r)
             z = M.matvec(r)
-            rho_next = dot(r, z)
-            r_norm_next = norm2(r)
+            rho_next = dot(r, z, group)
+            r_norm_next = norm2(r, group)
             p = axpy(rho_next / torch.where(ok, rho, one), p, z)  # p = z + β·p
             rho = rho_next
             flags = torch.stack([ok, r_norm_next > tol2, r_norm_next <= tol2]).tolist()
@@ -115,7 +118,7 @@ def cocg(
                 hist[its] = res
         return x, make_info(its, res, status), hist
 
-    x, info, hist = _guard3(b, x0, main, hist_len, rdt)
+    x, info, hist = _guard3(b, x0, main, hist_len, rdt, group)
     return (x, info, hist) if record_residuals else (x, info)
 
 

@@ -17,37 +17,48 @@ def make_info(iterations, residual, status) -> SolveInfo:
 
 
 def with_zero_rhs_guard(b: torch.Tensor, x0: torch.Tensor,
-                        main: Callable[[torch.Tensor], tuple]):
+                        main: Callable[[torch.Tensor], tuple], group=None):
     """Reference early-out: if ‖b‖ ≤ ε, return x = 0 with Ok((0, ‖b‖))
     (``src/bicg_stab.rs:56-60``). ``main`` receives ``rhs_norm`` and returns
-    ``(x, SolveInfo)``. One host read of ‖b‖."""
-    rhs_norm = norm2(b)
+    ``(x, SolveInfo)``. One host read of ‖b‖, taken over ``group``'s ranks
+    when one is given."""
+    rhs_norm = norm2(b, group)
     if bool(rhs_norm <= eps_for(b.dtype, b.device)):
         return torch.zeros_like(x0), make_info(0, rhs_norm, Status.CONVERGED)
     return main(rhs_norm)
 
 
 def _guard3(b: torch.Tensor, x0: torch.Tensor,
-            main: Callable[[torch.Tensor], tuple], hist_len: int, rdt: torch.dtype):
+            main: Callable[[torch.Tensor], tuple], hist_len: int, rdt: torch.dtype,
+            group=None):
     """The zero-rhs guard of the three-output form ``(x, SolveInfo, hist)``
     (``sprsolve_tpu/solvers/bicgstab.py:42-56``): if ‖b‖ ≤ ε, x = 0 with
     Ok((0, ‖b‖)) and an all-NaN history of ``hist_len``. One host read."""
-    rhs_norm = norm2(b)
+    rhs_norm = norm2(b, group)
     if bool(rhs_norm <= eps_for(b.dtype, b.device)):
         return (torch.zeros_like(x0), make_info(0, rhs_norm, Status.CONVERGED),
                 torch.full((hist_len,), float("nan"), dtype=rdt, device=b.device))
     return main(rhs_norm)
 
 
-def check_shapes(A, b: torch.Tensor, x0: torch.Tensor) -> None:
+def check_shapes(A, b: torch.Tensor, x0: torch.Tensor, group=None) -> None:
     """Dimension checks — the reference's IncompatibleMatrixFormat returns
     (``src/bicg_stab.rs:44-53``).
 
     Operators with their own vector layout (``pad_vec``) take vectors of
-    ``padded_len``; every other operator takes vectors of ``A.shape[1]``."""
+    ``padded_len``; every other operator takes vectors of ``A.shape[1]``.
+    With ``group`` the operator's sizes are global and b is this rank's
+    block of one of ``group``'s equal blocks
+    (``sprsolve_tpu/solvers/common.py:44-66``)."""
     if b.dim() == 1 and getattr(A, "shape", None) is not None:
         n = A.padded_len if hasattr(A, "pad_vec") else A.shape[1]
-        if b.shape[0] != n:
+        if group is not None:
+            import torch.distributed as dist
+
+            n_global = b.shape[0] * dist.get_world_size(group)
+        else:
+            n_global = b.shape[0]
+        if n_global != n:
             raise IncompatibleMatrixFormat(
                 "Input vec dimension doesn't match the matrix size"
             )

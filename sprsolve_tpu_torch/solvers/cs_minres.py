@@ -49,16 +49,18 @@ def cs_minres(
     tol,
     max_iter,
     record_residuals: bool = False,
+    group=None,
 ):
     """Solve A·x = b for complex-symmetric A. Returns ``(x, SolveInfo)``;
     ``record_residuals=True`` also returns the relative recurrence residual
     of each iteration, a ``(max_iter,)`` tensor that is NaN past the last.
 
     ``M`` (optional) applies a real symmetric-positive M⁻¹ — see the module
-    docstring for the β² gate."""
+    docstring for the β² gate. ``group`` makes every reduction a sum over
+    its ranks (b, x0 and x are this rank's rows; ``parallel.distributed_solve``)."""
     if x0 is None:
         x0 = torch.zeros_like(b)
-    check_shapes(A, b, x0)
+    check_shapes(A, b, x0, group)
     has_precond = M is not None
 
     T, dev = b.dtype, b.device
@@ -95,9 +97,9 @@ def cs_minres(
             # the Givens sines contract the preconditioned system's residual:
             # start from, and report relative to, the M⁻¹-norm
             # (cs_minres.py:122-154)
-            beta_b2 = conj_dot(b, M.matvec(b))
+            beta_b2 = conj_dot(b, M.matvec(b), group)
             w_new = M.matvec(v_new)
-            beta_new2 = conj_dot(v_new, w_new)
+            beta_new2 = conj_dot(v_new, w_new, group)
             re_b = beta_b2.real
             bad0 = (beta_gate(beta_new2, re_b) | (re_b <= 0)
                     | (imag(beta_b2).abs() > eps * re_b))
@@ -109,7 +111,7 @@ def cs_minres(
             v_new, w_new = rscale(ts, v_new), rscale(ts, w_new)
         else:
             bad0 = torch.zeros((), dtype=torch.bool, device=dev)
-            res_norm = norm2(v_new)
+            res_norm = norm2(v_new, group)
             denom = rhs_norm
             beta_new = res_norm
             v_new = rscale(guarded_inv(beta_new), v_new)
@@ -137,17 +139,17 @@ def cs_minres(
             # A·conj(q_k) and α = conj(q_k)ᵀ(A·conj(q_k)) in one operator pass
             # (src/cs_minres.rs:99-103); preconditioned, on the M⁻¹-image w
             tvec = conj(w)                      # seeds p below
-            v_next, alpha = mv_conj_dot(A, w)
+            v_next, alpha = mv_conj_dot(A, w, group)
             v_next = axpy((-beta).to(T), v_old, v_next)
             v_next = axpy(-alpha, v, v_next)
             if has_precond:
                 w_next = M.matvec(v_next)
-                beta_next2 = conj_dot(v_next, w_next)
+                beta_next2 = conj_dot(v_next, w_next, group)
                 # the gate's noise scale is the previous β², free
                 bad = beta_gate(beta_next2, beta * beta)
                 beta_next = torch.sqrt(torch.clamp(beta_next2.real, min=0))
             else:
-                beta_next = norm2(v_next)
+                beta_next = norm2(v_next, group)
 
             # modified Givens with c / c̄ entries (src/cs_minres.rs:109-134)
             ts = guarded_inv(beta_next)
@@ -194,5 +196,5 @@ def cs_minres(
             status, res = Status.INSUFFICIENT_ITER, res_norm / denom
         return x, make_info(its, res, status), hist
 
-    x, info, hist = _guard3(b, x0, main, hist_len, rdt)
+    x, info, hist = _guard3(b, x0, main, hist_len, rdt, group)
     return (x, info, hist) if record_residuals else (x, info)

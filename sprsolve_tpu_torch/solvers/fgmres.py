@@ -30,6 +30,7 @@ def fgmres(
     max_iter,
     restart: int = 32,
     record_residuals: bool = False,
+    group=None,
 ):
     """Solve A·x = b with flexible restarted GMRES(m). Returns ``(x, info)``.
 
@@ -37,8 +38,9 @@ def fgmres(
     it need not be linear or constant across steps (any object with
     ``matvec``).  With a fixed linear ``M`` the iterates are those of
     right-preconditioned GMRES; with ``M=None`` it is plain GMRES.
+    ``group`` as in :func:`~sprsolve_tpu_torch.solvers.gmres.gmres`.
     """
     x, info, hist = arnoldi_solve(A, b, x0, M=M, tol=tol, max_iter=max_iter,
                                   restart=restart, record_residuals=record_residuals,
-                                  flexible=True)
+                                  flexible=True, group=group)
     return (x, info, hist) if record_residuals else (x, info)

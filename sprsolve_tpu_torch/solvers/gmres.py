@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from ..errors import Status
-from ..vecalg import NUMPY_DTYPES, conj_dot, full_precision_matmul, norm2, real_dtype
+from ..vecalg import (NUMPY_DTYPES, conj_dot, full_precision_matmul, group_sum, norm2,
+                      real_dtype)
 from .common import _guard3, check_shapes, make_info
 
 
@@ -63,12 +64,15 @@ def _givens(hc, j, cs, sn, h_next, tiny):
 
 
 def arnoldi_solve(A, b, x0, *, M, tol, max_iter, restart, record_residuals,
-                  flexible):
+                  flexible, group=None):
     """The shared restarted loop of :func:`gmres` (``flexible=False``) and
-    :func:`~sprsolve_tpu_torch.solvers.fgmres.fgmres` (``flexible=True``)."""
+    :func:`~sprsolve_tpu_torch.solvers.fgmres.fgmres` (``flexible=True``).
+    With ``group`` the basis rows are this rank's, the CGS2 projections and
+    norms are summed over the ranks, and every rank runs the same host
+    algebra on the same bits."""
     if x0 is None:
         x0 = torch.zeros_like(b)
-    check_shapes(A, b, x0)
+    check_shapes(A, b, x0, group)
     m = int(restart)
     if m < 1:
         raise ValueError("restart must be >= 1")
@@ -95,10 +99,10 @@ def arnoldi_solve(A, b, x0, *, M, tol, max_iter, restart, record_residuals,
 
         x = x0
         r = (b - A.matvec(x0).reshape(vshape)).reshape(size)
-        res = norm2(r) / rhs_norm
+        res = norm2(r, group) / rhs_norm
         its, status = 0, Status.RUNNING
         while status == Status.RUNNING and its < max_iter:
-            beta = norm2(r)
+            beta = norm2(r, group)
             V[0] = r / torch.maximum(beta, tiny)
             beta_h = npR(float(beta))
             g = np.zeros(m + 1, dtype=npT)
@@ -117,11 +121,11 @@ def arnoldi_solve(A, b, x0, *, M, tol, max_iter, restart, record_residuals,
                 w = A.matvec(z).reshape(size)
                 # CGS2 over the rows 0..j of the basis
                 Vj = V[: j + 1]
-                h1 = full_precision_matmul(Vj.conj(), w)
+                h1 = group_sum(full_precision_matmul(Vj.conj(), w), group)
                 w = w - full_precision_matmul(h1, Vj)
-                h2 = full_precision_matmul(Vj.conj(), w)
+                h2 = group_sum(full_precision_matmul(Vj.conj(), w), group)
                 w = w - full_precision_matmul(h2, Vj)
-                h_next = torch.sqrt(torch.clamp(conj_dot(w, w).real, min=0))
+                h_next = torch.sqrt(torch.clamp(conj_dot(w, w, group).real, min=0))
                 V[j + 1] = w / torch.maximum(h_next, tiny)
                 col = torch.cat([h1 + h2, h_next.to(T).reshape(1)]).cpu().numpy()
                 hc = np.zeros(m + 1, dtype=npT)
@@ -160,7 +164,7 @@ def arnoldi_solve(A, b, x0, *, M, tol, max_iter, restart, record_residuals,
             # the true residual at the cycle's end: CONVERGED only when it
             # passes too, and every exit reports the residual of x itself
             r = (b - A.matvec(x).reshape(vshape)).reshape(size)
-            res = norm2(r) / rhs_norm
+            res = norm2(r, group) / rhs_norm
             converged = bool(res_est <= threshold) and bool(res <= tol)
             status = (Status.CONVERGED if converged and inner_status == Status.RUNNING
                       else inner_status)
@@ -173,7 +177,7 @@ def arnoldi_solve(A, b, x0, *, M, tol, max_iter, restart, record_residuals,
             status = Status.INSUFFICIENT_ITER
         return x, make_info(its, res, status), torch.as_tensor(hist, device=dev)
 
-    return _guard3(b, x0, main, hist_len, rdt)
+    return _guard3(b, x0, main, hist_len, rdt, group)
 
 
 def gmres(
@@ -186,6 +190,7 @@ def gmres(
     max_iter,
     restart: int = 32,
     record_residuals: bool = False,
+    group=None,
 ):
     """Solve A·x = b with restarted GMRES(m). Returns ``(x, SolveInfo)``.
 
@@ -196,8 +201,10 @@ def gmres(
     :func:`~sprsolve_tpu_torch.solvers.fgmres.fgmres`.
     ``record_residuals=True`` also returns the recurrence residual after
     each step, a ``(max_iter,)`` tensor that is NaN past the last.
+    ``group`` makes every reduction a sum over its ranks (b, x0 and x are
+    this rank's rows; ``parallel.distributed_solve``).
     """
     x, info, hist = arnoldi_solve(A, b, x0, M=M, tol=tol, max_iter=max_iter,
                                   restart=restart, record_residuals=record_residuals,
-                                  flexible=False)
+                                  flexible=False, group=group)
     return (x, info, hist) if record_residuals else (x, info)

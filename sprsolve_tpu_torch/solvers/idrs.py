@@ -37,7 +37,8 @@ import torch
 
 from ..errors import Status
 from ..ops.operator import IdentityOperator
-from ..vecalg import NUMPY_DTYPES, axpy, conj_dot, full_precision_matmul, norm2, real_dtype
+from ..vecalg import (NUMPY_DTYPES, axpy, conj_dot, full_precision_matmul, group_sum, norm2,
+                      real_dtype)
 from .common import check_shapes, make_info, with_zero_rhs_guard
 
 
@@ -100,6 +101,7 @@ def idrs(
     s: int = 4,
     tol,
     max_iter,
+    group=None,
 ):
     """Solve nonsymmetric A·x = b with IDR(s). Returns ``(x, SolveInfo)``.
 
@@ -107,11 +109,14 @@ def idrs(
     BiCGStab's two per iteration. ``max_iter`` gates cycle entry: a final
     cycle may finish past it. ``M`` is a right preconditioner applied to
     each new direction; ``s`` is the shadow-space dimension (4 is the
-    standard default, 1 ≈ BiCGStab).
+    standard default, 1 ≈ BiCGStab). ``group`` makes every reduction a sum
+    over its ranks (b, x0 and x are this rank's rows); each rank draws the
+    shadow block of its own rows, a valid shadow space of the whole
+    (``sprsolve_tpu/solvers/idrs.py:144``).
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
-    check_shapes(A, b, x0)
+    check_shapes(A, b, x0, group)
     s = int(s)
     _warn_if_shadow_traffic_dominates(A, s)
     if M is None:
@@ -127,7 +132,7 @@ def idrs(
 
     def pdot(v):
         """Pᴴ·v on the host, in the solve's dtype."""
-        return full_precision_matmul(PH, v.reshape(-1)).cpu().numpy()
+        return group_sum(full_precision_matmul(PH, v.reshape(-1)), group).cpu().numpy()
 
     def col(X, c):
         """X·c for an (n, s) block and a host (s,) vector, in v's shape."""
@@ -175,8 +180,8 @@ def idrs(
             v = M.matvec(r)
             t = A.matvec(v)
             its += 1
-            tt, tr, rr = torch.stack([conj_dot(t, t), conj_dot(t, r),
-                                      conj_dot(r, r)]).cpu().numpy()
+            tt, tr, rr = group_sum(torch.stack([conj_dot(t, t), conj_dot(t, r),
+                                                conj_dot(r, r)]), group).cpu().numpy()
             tt, rr = npR(tt.real), npR(rr.real)
             ok_t = tt > 0
             safe_tt = tt if ok_t else npR(1)
@@ -194,7 +199,7 @@ def idrs(
 
         x = x0
         r = b - A.matvec(x0)
-        r_norm = npR(float(norm2(r)))
+        r_norm = npR(float(norm2(r, group)))
         its, status = 1, Status.RUNNING
         while status == Status.RUNNING and its < max_iter and r_norm > tol2:
             # a restart: fresh shadow recurrence from the current iterate
@@ -204,10 +209,10 @@ def idrs(
             om = npT(1)
             while status == Status.RUNNING and its < max_iter and r_norm > tol2:
                 x, r, om, its, status = cycle(x, r, G, U, Mm, om, its, status)
-                r_norm = npR(float(norm2(r)))
+                r_norm = npR(float(norm2(r, group)))
             # re-anchor on the TRUE residual (the recurrence one drifts)
             r = axpy(-one_t, A.matvec(x), b)
-            r_norm = npR(float(norm2(r)))
+            r_norm = npR(float(norm2(r, group)))
             its += 1
         true_res = r_norm / npR(float(rhs_norm))
         converged = status == Status.RUNNING and true_res <= tol_h
@@ -217,4 +222,4 @@ def idrs(
             status = Status.INSUFFICIENT_ITER
         return x, make_info(its, float(true_res), status)
 
-    return with_zero_rhs_guard(b, x0, main)
+    return with_zero_rhs_guard(b, x0, main, group)

@@ -39,6 +39,7 @@ def lsqr(
     tol,
     max_iter,
     record_residuals: bool = False,
+    group=None,
 ):
     """Least-squares solve of the m×n ``A``. Returns ``(x, SolveInfo)``.
 
@@ -46,7 +47,9 @@ def lsqr(
     build for a CSR). ``b`` has length m, ``x0`` and the solution length n.
     ``info.residual`` is ‖r‖/‖b‖, with the damping term when ``damp > 0``.
     ``record_residuals=True`` also returns that ratio at the top of each
-    iteration, a ``(max_iter + 1,)`` tensor that is NaN past the last."""
+    iteration, a ``(max_iter + 1,)`` tensor that is NaN past the last.
+    ``group`` makes the norms sums over its ranks: b, x0 and x are this
+    rank's rows of equal row blocks, A's and AH's sizes global."""
     if AH is None:
         if not hasattr(A, "adjoint"):
             raise IncompatibleMatrixFormat(
@@ -54,8 +57,13 @@ def lsqr(
                 "container, whose .adjoint() is built automatically)"
             )
         AH = A.adjoint()
-    m_dim, n_dim = A.shape
-    if b.dim() == 1 and b.shape[0] != m_dim:
+    world = 1
+    if group is not None:
+        import torch.distributed as dist
+
+        world = dist.get_world_size(group)
+    m_dim, n_dim = (d // world for d in A.shape)
+    if b.dim() == 1 and b.shape[0] * world != A.shape[0]:
         raise IncompatibleMatrixFormat("Input vec dimension doesn't match the matrix size")
     if x0 is not None and x0.dim() == 1 and x0.shape[0] != n_dim:
         raise IncompatibleMatrixFormat("Input and output vec dimension do not match")
@@ -74,10 +82,10 @@ def lsqr(
         x0 = torch.zeros(n_dim, dtype=T, device=dev)
 
     def normalize(vec):
-        nrm = norm2(vec)
+        nrm = norm2(vec, group)
         return vec * (one / torch.where(nrm > 0, nrm, one)), nrm
 
-    rhs_norm = norm2(b)
+    rhs_norm = norm2(b, group)
     if bool(rhs_norm <= eps):
         info = make_info(0, rhs_norm, Status.CONVERGED)
         x = torch.zeros(n_dim, dtype=T, device=dev)

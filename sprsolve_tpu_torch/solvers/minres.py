@@ -27,7 +27,7 @@ from typing import Optional
 import torch
 
 from ..errors import Status
-from ..vecalg import abs2, axpy, conj_dot, eps_for, norm2, real_dtype, rscale
+from ..vecalg import abs2, axpy, conj_dot, eps_for, group_sum, norm2, real_dtype, rscale
 from .common import _guard3, check_shapes, make_info
 
 
@@ -40,16 +40,20 @@ def minres(
     tol,
     max_iter,
     record_residuals: bool = False,
+    group=None,
 ):
     """Solve A·x = b with MINRES (A symmetric/Hermitian, may be indefinite).
 
     Like the reference, symmetry is not checked. Returns ``(x, SolveInfo)``;
     ``record_residuals=True`` also returns the relative recurrence residual
     of each iteration, a ``(max_iter,)`` tensor that is NaN past the last.
+    ``group`` makes every reduction a sum over its ranks (b, x0 and x are
+    this rank's rows; ``parallel.distributed_solve``): the fused α and
+    Σv₊² are local partials, summed here.
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
-    check_shapes(A, b, x0)
+    check_shapes(A, b, x0, group)
     has_precond = M is not None
 
     T, dev = b.dtype, b.device
@@ -83,14 +87,14 @@ def minres(
 
         # v_new = b − A·x (r₁, src/minres.rs:76-80)
         v_new = axpy(-one_t, A.matvec(x0), b)
-        res_norm = norm2(v_new)
+        res_norm = norm2(v_new, group)
         zeros = torch.zeros_like(b)
         status = Status.RUNNING
         if has_precond:
             w_new = M.matvec(v_new)
-            beta_new2 = conj_dot(v_new, w_new)
+            beta_new2 = conj_dot(v_new, w_new, group)
             # noise floor of the init dot: ε·‖r₁‖·‖M⁻¹r₁‖
-            bad0 = beta_gate(beta_new2, res_norm * norm2(w_new))
+            bad0 = beta_gate(beta_new2, res_norm * norm2(w_new, group))
             beta_new = torch.sqrt(torch.clamp(beta_new2.real, min=0))
             ts = guarded_inv(beta_new)
             v_new, w_new = rscale(ts, v_new), rscale(ts, w_new)
@@ -113,21 +117,23 @@ def minres(
 
             # α = qᴴ(A·q) fused with the SpMV (src/minres.rs:116 / :271)
             a_v, alpha = A.matvec_dot(w)
+            alpha = group_sum(alpha, group)
             if fused_orth:
                 # orthogonalisation + ‖v₊‖² in one kernel pass
                 v_next, sumsq = A.orth_norm(a_v, v_old, v, beta, alpha)
+                sumsq = group_sum(sumsq, group)
                 beta_next = torch.sqrt(sumsq)
             else:
                 v_next = axpy((-beta).to(T), v_old, a_v)
                 v_next = axpy(-alpha, v, v_next)
             if has_precond:
                 w_next = M.matvec(v_next)
-                beta_next2 = conj_dot(v_next, w_next)
+                beta_next2 = conj_dot(v_next, w_next, group)
                 # the gate's noise scale is the previous β², free
                 bad = beta_gate(beta_next2, beta * beta)
                 beta_next = torch.sqrt(torch.clamp(beta_next2.real, min=0))
             elif not fused_orth:
-                beta_next = norm2(v_next)
+                beta_next = norm2(v_next, group)
 
             # --- Givens rotation on the tridiagonal (src/minres.rs:123-148)
             ts = guarded_inv(beta_next)
@@ -174,7 +180,7 @@ def minres(
             status, res = Status.INSUFFICIENT_ITER, res_norm / rhs_norm
         return x, make_info(its, res, status), hist
 
-    x, info, hist = _guard3(b, x0, main, hist_len, rdt)
+    x, info, hist = _guard3(b, x0, main, hist_len, rdt, group)
     return (x, info, hist) if record_residuals else (x, info)
 
 

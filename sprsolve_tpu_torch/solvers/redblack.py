@@ -193,6 +193,16 @@ class MaskedGSPrecond:
         z = self.matvec(r)
         return z, conj_dot(r, z)
 
+    def pspec(self) -> "MaskedGSPrecond":
+        """The row slicing of each field for a row-partitioned solve
+        (``sprsolve_tpu/solvers/redblack.py:231-246``): the operator's own
+        spec, the diagonal and the masks on their rows (dim 0). The
+        operator must be a distributed one (``sprsolve_tpu_torch.parallel``)
+        in the layout of ``diag`` and the masks."""
+        return dataclasses.replace(
+            self, A=self.A.pspec() if hasattr(self.A, "pspec") else 0, diag=0,
+            masks=tuple(0 for _ in self.masks))
+
 
 def color_masks(colors: np.ndarray, device=None) -> Tuple[torch.Tensor, ...]:
     """One boolean mask per color class, flat layout."""

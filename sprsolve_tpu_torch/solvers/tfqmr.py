@@ -43,6 +43,7 @@ def tfqmr(
     tol,
     max_iter,
     record_residuals: bool = False,
+    group=None,
 ):
     """Solve general A·x = b with TFQMR. Returns ``(x, SolveInfo)``.
 
@@ -50,10 +51,12 @@ def tfqmr(
     iterations (two SpMVs each). ``record_residuals=True`` also returns the
     quasi-residual bound at the top of each iteration (not the true
     residual, which would cost a third SpMV), a ``(max_iter + 1,)`` tensor.
+    ``group`` makes every reduction a sum over its ranks (b, x0 and x are
+    this rank's rows; ``parallel.distributed_solve``).
     """
     if x0 is None:
         x0 = torch.zeros_like(b)
-    check_shapes(A, b, x0)
+    check_shapes(A, b, x0, group)
     if M is None:
         M = IdentityOperator(b.shape[0])
 
@@ -72,7 +75,7 @@ def tfqmr(
         hist = torch.full((hist_len,), float("nan"), dtype=rdt, device=dev)
 
         r0 = axpy(-one, A.matvec(x0), b)  # r = b − A·x
-        r_norm0 = norm2(r0)
+        r_norm0 = norm2(r0, group)
         rt = r0                            # shadow residual r̃ = r₀
         if bool(r_norm0 <= tol2):
             if hist_len:
@@ -88,7 +91,7 @@ def tfqmr(
             # value never contributes)
             shrink = (theta * theta).to(T) * eta / torch.where(alpha.abs() > tiny, alpha, one)
             D_new = axpy(shrink, D, yM)
-            theta_new = norm2(w_new) / torch.maximum(tau, tiny)
+            theta_new = norm2(w_new, group) / torch.maximum(tau, tiny)
             c = one_r / torch.sqrt(one_r + theta_new * theta_new)
             tau_new = tau * theta_new * c
             eta_new = (c * c).to(T) * alpha
@@ -102,14 +105,14 @@ def tfqmr(
         x, w, y, v, D = x0, r0, r0, Ay, torch.zeros_like(r0)
         tau, theta = r_norm0, torch.zeros((), dtype=rdt, device=dev)
         eta = torch.zeros((), dtype=T, device=dev)
-        rho, bound = conj_dot(rt, r0), r_norm0
+        rho, bound = conj_dot(rt, r0, group), r_norm0
         its, status = 0, Status.RUNNING
         above = True
         while its < max_iter and above:
             if hist_len:
                 hist[its] = bound / rhs_norm
             # --- odd half-step m = 2j+1 (Saad lines 5-12)
-            sigma = conj_dot(rt, v)
+            sigma = conj_dot(rt, v, group)
             ok_sigma = sigma.abs() > brk_tol
             alpha = rho / torch.where(ok_sigma, sigma, one)
             w1 = axpy(-alpha, Ay, w)
@@ -122,7 +125,7 @@ def tfqmr(
             w2 = axpy(-alpha, Ay1, w1)
             x2, D2, tau2, theta2, eta2, bound2 = qmr_half(
                 x1, D1, tau1, theta1, eta1, alpha, w2, yM1, 2 * its + 2)
-            rho_new = conj_dot(rt, w2)
+            rho_new = conj_dot(rt, w2, group)
             ok = ok_sigma & (rho.abs() > brk_tol)
             beta = rho_new / torch.where(ok, rho, one)
             y_odd = axpy(beta, y_even, w2)
@@ -140,7 +143,7 @@ def tfqmr(
 
         # the loop gate is Freund's bound; report (and gate CONVERGED on) the
         # true residual of the returned x
-        true_res = norm2(axpy(-one, A.matvec(x), b)) / rhs_norm
+        true_res = norm2(axpy(-one, A.matvec(x), b), group) / rhs_norm
         if status == Status.RUNNING:
             converged = bool(true_res <= tol_t)
             status = Status.CONVERGED if converged else Status.INSUFFICIENT_ITER
@@ -148,5 +151,5 @@ def tfqmr(
                 hist[its] = bound / rhs_norm
         return x, make_info(its, true_res, status), hist
 
-    x, info, hist = _guard3(b, x0, main, hist_len, rdt)
+    x, info, hist = _guard3(b, x0, main, hist_len, rdt, group)
     return (x, info, hist) if record_residuals else (x, info)

@@ -402,6 +402,8 @@ def test_import_leaves_jax_out():
         "import sprsolve_tpu_torch.utils.io, sprsolve_tpu_torch.utils.timing\n"
         "import sprsolve_tpu_torch.examples.demo, sprsolve_tpu_torch.examples.tour\n"
         "import sprsolve_tpu_torch.examples.eigen_tour\n"
+        "import sprsolve_tpu_torch.parallel, sprsolve_tpu_torch.parallel.multihost\n"
+        "import sprsolve_tpu_torch.examples.distributed_demo\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m.split('.')[0] in ('jax', 'sprsolve_tpu'))\n"
         "assert not bad, bad\n"

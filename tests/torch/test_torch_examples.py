@@ -3,7 +3,10 @@ prints what the JAX package's ``examples/demo.py`` prints (the nonzero
 pattern, A·rhs and the solution to 3 decimals; the BiCGStab count within
 the band of ``tests/test_serial_parity.py:183``), ``tour`` completes with
 every reported residual within its section's tolerance (×10), and
-``eigen_tour`` matches its dense oracle to the 8 digits it prints."""
+``eigen_tour`` matches its dense oracle to the 8 digits it prints, and
+``distributed_demo`` solves the 16³ Poisson with each row-partitioning
+strategy on 2 gloo ranks and on one device to a true residual of 1e-11,
+the counts within the band of ``tests/test_serial_parity.py:183``."""
 
 import importlib.util
 import os
@@ -13,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from sprsolve_tpu_torch.examples import demo, eigen_tour, tour
+from sprsolve_tpu_torch.examples import demo, distributed_demo, eigen_tour, tour
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -78,6 +81,19 @@ def test_eigen_tour_matches_its_oracle(capsys):
 def test_examples_need_cuda_or_a_device():
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: the default device exists")
-    for mod in (demo, tour, eigen_tour):
+    for mod in (demo, tour, eigen_tour, distributed_demo):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mod.main([])
+
+
+def test_distributed_demo_solves_with_each_strategy(capsys):
+    assert distributed_demo.main(["--device", "cpu", "--grid", "16"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0].startswith("ranks: 2 (gloo) on cpu; the 16³ Poisson, 4096 rows")
+    rows = [re.match(r"(.{28}): +(\d+) iters, true rel res (\S+)", ln) for ln in lines[1:]]
+    assert [m.group(1).strip() for m in rows] == [
+        "AllGatherELL + Jacobi", "HaloDIA + Jacobi", "DistPaddedDIA (kernels)",
+        "single-device PaddedDIA"]
+    its = [int(m.group(2)) for m in rows]
+    assert all(float(m.group(3)) <= 1e-11 for m in rows), lines
+    assert all(abs(k - its[-1]) <= max(3, -(-its[-1] // 4)) for k in its), its

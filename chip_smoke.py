@@ -118,14 +118,17 @@ Phases, each printing lines of its own:
    (e) The compiled host toolkit: ``greedy_color`` at 1M rows (2 colors,
    the plain version's on 32³), ILU(0)-BiCGStab (K1 once, K2 2·its) and
    IC(0)-MINRES (K1 once, K3 its + 1) at 1M rows with their set-up
-   seconds. (f) ``optimize(measure=True)`` on (a)'s matrix with the cache
-   in a temporary directory; a second call reads it and times nothing. (g)
+   seconds. (f) ``optimize(measure=True)`` on (a)'s scrambling of the 50³
+   Poisson (the 1M-row one's two host analyses no longer fit the time
+   limit) with the cache in a temporary directory; a second call reads it
+   and times nothing. (g)
    Every route off: a uniform random pattern → ELL with a RuntimeWarning.
    Last, the cost model's H100 constants measured in (a)-(c).
 13. krylov — the rest of the Krylov family at 1M rows, f32 (c64 in f;
    f64 and c128 in g), tol 1e-4, the launch counters reset before each
    solve and its counts required exactly, each converged below a true
-   residual of 1e-3, each timed through three prepared solves: (a) phase
+   residual of 1e-3, each timed through one prepared solve (the time
+   limit leaves no room for more): (a) phase
    8's convection-diffusion system with Jacobi: GMRES(32) through
    ``solve`` and the ``GMRES`` handle (K1 its + cycles + 1), IDR(4) (K1
    its), CGS (1 + 2·its), TFQMR (3 + 2·its) and the s-step BiCGStab on
@@ -178,7 +181,8 @@ Phases, each printing lines of its own:
    ``scipy_compat.bicgstab`` on the scipy matrix with the complex Jacobi
    (K5 1, K7 2·its, its read from the solver), true residuals below 1e-9;
    (e) ``scipy_compat`` cg and minres on the f64 Poisson and gmres on the
-   f64 convection-diffusion system as scipy matrices at rtol 1e-12: info
+   f64 convection-diffusion system as scipy matrices at rtol 1e-12, at 50³
+   (scipy's own 1M-row solves no longer fit the time limit): info
    0 and x within 1e-6 of scipy.sparse.linalg's own; cg with maxiter 5
    gives info 5, as scipy's does; (f) ``tune_padded_dia`` and
    ``tune_complex_padded_dia`` on the two operators (each candidate's µs
@@ -211,6 +215,26 @@ Phases, each printing lines of its own:
    ``HaloDIA`` and ``AllGatherELL`` at 32³ (one halo exchange per SpMV,
    or one all-gather), and ``ca_cg`` (s = 4, Jacobi folded) on
    ``MPKDIA`` with one exchange per s-step block.
+17. dist-eigen — the distributed eigensolvers (``parallel.distributed_*``
+   on ``HaloDIA``: torch ops, no kernel launched, checked), the
+   collectives of each run exactly ``de_counts`` (one halo exchange per
+   block apply; LOBPCG 6 + 9·its all-reduces, a lockstep MINRES 2 + 2 an
+   iteration, COCG 3 + 3, a filter pass 5 more). (a)-(c) on one NCCL rank
+   at the bench's widths: ``distributed_lobpcg`` on the 100³ Poisson
+   (k = 4, tol 5e-4, 80 steps, phase 14 (a)'s X0): λ₀ at least the
+   analytic bound, the count within the band of phase 14 (a)'s
+   unpreconditioned run, ms per step; ``distributed_shift_invert_eigs``
+   on 64³ (phase 14 (b)'s settings): the four λ nearest σ within tol·|λ|,
+   the residuals within tol, the lockstep iterations within the band of
+   phase 14 (b)'s; ``distributed_rational_filter_eigs``
+   on 32³ (m0 = 8): the analytic λ; ms per lockstep iteration beside
+   phase 14's; µs per all-reduce of a 12×12 Gram matrix. (d) Then two
+   spawned gloo ranks on cuda:0: LOBPCG at 32³ run until it converges
+   (to tol/5 in at most 400 steps), held CONVERGED with the four smallest
+   analytic λ (with multiplicity) within tol·|λ| and the measured
+   residuals within tol; shift-invert and the filter (m0 = 12) at 16³:
+   every rank's λ, X bits and info the same, λ held as in (a)-(c), each
+   rank's collectives exact.
 
 The line before the last is a JSON object with one entry per kernel (K1-K7
 and K1b, each with its warm ``ms`` and its ``cold_ms``; K1b's launches are
@@ -2077,7 +2101,8 @@ def phase_layouts_measure(dev, B):
                 os.environ.pop("SPRSOLVE_TUNE_CACHE", None)
             else:
                 os.environ["SPRSOLVE_TUNE_CACHE"] = prev
-    log("layouts", entry="optimize(scrambled, measure=True)", winner=ent["label"],
+    log("layouts", entry="optimize(scrambled, measure=True)", rows=B.shape[0],
+        winner=ent["label"],
         layout=layout_name(op), gnnz_s=ent["gnnz_s"], seconds=f"{t_measure:.4f}",
         cached_seconds=f"{t_cached:.4f}", key=key)
 
@@ -2111,16 +2136,23 @@ def phase_layouts_ell(dev):
         max_abs_err=f"{err:.3e}")
 
 
+MEASURE_GRID = 50   # phase 12 (f)'s scrambled Poisson
+
+
 def phase_layouts(dev):
-    """Phase 12: every layout of optimize() at 1M rows, and the H100
-    constants of its cost model."""
+    """Phase 12: every layout of optimize() at 1M rows ((f) on the
+    MEASURE_GRID³ scrambled Poisson: its two host analyses of the 1M-row
+    one took 48-84 s on the card's machine, which the script's time limit
+    no longer has room for), and the H100 constants of its cost model."""
     t0 = time.perf_counter()
-    B, eff_bsr = phase_layouts_scrambled(dev)
+    _, eff_bsr = phase_layouts_scrambled(dev)
     eff_dia, rate = phase_layouts_spiked(dev)
     eff_padded = phase_layouts_chain(dev)
     phase_layouts_complex(dev)
     phase_layouts_hostkit(dev)
-    phase_layouts_measure(dev, B)
+    A_m = problems.poisson3d(MEASURE_GRID, MEASURE_GRID, MEASURE_GRID)
+    phase_layouts_measure(dev, scramble(A_m, np.random.default_rng(SEED + 8).permutation(
+        A_m.shape[0])))
     phase_layouts_ell(dev)
     log("layouts", constants=json.dumps({
         "eff_dia": round(eff_dia, 4), "eff_bsr": round(eff_bsr, 4),
@@ -2203,25 +2235,20 @@ def krylov_check(tag, out, counts, want, res, res_max, jax_key=None, check_band=
 
 
 def krylov_times(tag, run, dev, its=None):
-    """Three timed calls of ``run`` (a prepared handle's call), each
-    converged in ``its`` iterations where given (None where the sums are
-    not fixed-order: BSR's ``index_add_`` atomics move the count by one
-    from run to run): the median wall, logged."""
-    walls, counts = [], []
-    for _ in range(3):
-        _sync(dev)
-        t0 = time.perf_counter()
-        x, info = run()[:2]
-        _sync(dev)
-        walls.append(time.perf_counter() - t0)
-        counts.append(int(info.iterations))
-        if not info.converged or (its is not None and counts[-1] != its):
-            raise AssertionError(f"{tag}: {info} (expected {its} iterations)")
-    wall = statistics.median(walls)
-    log("krylov", entry=f"timed({tag})", wall_s_median=f"{wall:.4f}",
-        walls_s=",".join(f"{w:.4f}" for w in walls),
-        iterations=",".join(map(str, counts)),
-        per_iteration_ms=f"{wall / max(statistics.median(counts), 1) * 1e3:.4f}")
+    """One timed call of ``run`` (a prepared handle's call) after the
+    checked one, converged in ``its`` iterations where given (None where
+    the sums are not fixed-order: BSR's ``index_add_`` atomics move the
+    count by one from run to run): its wall, logged."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    info = run()[1]
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    n = int(info.iterations)
+    if not info.converged or (its is not None and n != its):
+        raise AssertionError(f"{tag}: {info} (expected {its} iterations)")
+    log("krylov", entry=f"timed({tag})", wall_s=f"{wall:.4f}", iterations=n,
+        per_iteration_ms=f"{wall / max(n, 1) * 1e3:.4f}")
     return wall
 
 
@@ -2548,10 +2575,10 @@ def phase_krylov(dev, grid=GRID, timed=True):
 # --- phase 14: the eigensolvers ----------------------------------------------
 EIGS_K = 4             # pairs wanted (bench.py:860-1000)
 EIGS_TOL = 5e-4
-SI_GRID = 64           # shift-invert's Poisson (bench.py:916)
+SI_GRID = 64           # shift-invert's Poisson (bench.py:916): phase 17 (b)
 SI_MAX_ITER = 60
 SI_INNER_MAX_ITER = 600
-RF_GRID = 32           # the rational filter's Poisson (bench.py:977)
+RF_GRID = 32           # the rational filter's Poisson (bench.py:977): phase 17 (c)
 RF_INNER_MAX_ITER = 3000
 RF_NODES = 4
 RF_REFINE = 1
@@ -2709,6 +2736,8 @@ def phase_eigen_lobpcg(dev, grid=GRID, timed=True):
         iterations=int(info_u.iterations), residual=f"{float(info_u.residual):.4e}",
         lam0=f"{float(lam_u[0]):.8e}", dia_spmm_launches=c_u["dia_spmm"],
         wall_s=f"{wall_u:.4f}", note="gap-limited; printed, not asserted")
+    RUN_COUNTS["lobpcg"] = (grid, int(info_u.iterations), float(lam_u[0]),
+                            wall_u / max(int(info_u.iterations), 1) * 1e3)
     return c["dia_spmm"]
 
 
@@ -2748,6 +2777,8 @@ def phase_eigen_shift_invert(dev, grid=SI_GRID, timed=True):
               lam=",".join(f"{v:.7e}" for v in got), analytic=",".join(f"{v:.7e}" for v in want),
               nearest_within_tol=ok, nearest_with_multiplicity=exact,
               worst_measured_residual=f"{res.max():.4e}", wall_s_with_setup=f"{wall:.4f}")
+    RUN_COUNTS["shift_invert"] = (grid, its, sum(steps), (wall - (setup if timed else 0.0))
+                                  / max(sum(steps), 1) * 1e3)
     if timed:
         log("eigen", entry="timed(shift_invert_eigs)", wall_s=f"{wall:.4f}",
             setup_s=f"{setup:.4f}", ms_per_lobpcg_step=f"{(wall - setup) / its * 1e3:.4f}",
@@ -2816,6 +2847,8 @@ def phase_eigen_rational(dev, grid=RF_GRID, timed=True):
               nearest_within_tol=ok, nearest_with_multiplicity=exact,
               worst_measured_residual=f"{res.max():.4e}" if res.size else "none",
               wall_s_with_setup=f"{wall:.4f}")
+    RUN_COUNTS["rational"] = (grid, passes, sum(steps), (wall - (setup if timed else 0.0))
+                              / max(sum(steps), 1) * 1e3)
     if timed:
         log("eigen", entry="timed(rational_filter_eigs)", wall_s=f"{wall:.4f}",
             setup_s=f"{setup:.4f}",
@@ -3089,12 +3122,17 @@ def phase_front_complex(dev, grid):
     return Z, arrays
 
 
-def phase_front_scipy(dev, A, grid):
+SCIPY_GRID = 50   # phase 15 (e)'s grids
+
+
+def phase_front_scipy(dev, grid):
     """Phase 15 (e): scipy_compat's cg and minres on the f64 Poisson and
-    gmres on the f64 convection-diffusion system, as scipy.sparse matrices:
-    info 0 and x within 1e-6 of scipy.sparse.linalg's own at the same rtol;
-    cg with a too-small maxiter gives that maxiter as its info, as scipy's
-    does."""
+    gmres on the f64 convection-diffusion system, as scipy.sparse matrices,
+    at the grid³ (at most SCIPY_GRID³: scipy's own three solves of the
+    1M-row systems took 35-51 s on the card's machine, which the script's
+    time limit no longer has room for): info 0 and x within 1e-6 of
+    scipy.sparse.linalg's own at the same rtol; cg with a too-small
+    maxiter gives that maxiter as its info, as scipy's does."""
     import scipy.sparse as sps
     import scipy.sparse.linalg as spla
 
@@ -3104,6 +3142,8 @@ def phase_front_scipy(dev, A, grid):
         return sps.csr_matrix((m.data.numpy(), m.indices.numpy(), m.indptr.numpy()),
                               shape=m.shape)
 
+    grid = min(grid, SCIPY_GRID)
+    A = problems.poisson3d(grid, grid, grid, dtype=np.float64)
     S = scipy_of(A)
     C = scipy_of(problems.convection_diffusion3d(grid, grid, grid, peclet=20.0,
                                                  dtype=np.float64))
@@ -3124,7 +3164,8 @@ def phase_front_scipy(dev, A, grid):
         if not (code == 0 and code_s == 0 and xh.dtype == np.float64 and err < 1e-6):
             raise AssertionError(f"scipy_compat.{name}: info {code} (scipy {code_s}), "
                                  f"relative distance to scipy's x {err:.3e}")
-        log("front", entry=f"scipy_compat.{name}", rtol=SCIPY_RTOL, info=code,
+        log("front", entry=f"scipy_compat.{name}", grid=f"{grid}^3", rtol=SCIPY_RTOL,
+            info=code,
             rel_diff_vs_scipy=f"{err:.3e}", wall_s=f"{wall:.3f}",
             scipy_wall_s=f"{wall_s:.3f}",
             **{f"{k}_launches": v for k, v in counts.items() if v})
@@ -3198,10 +3239,14 @@ def phase_front_tuning(dev, tmp, A, Z):
             os.environ["SPRSOLVE_TUNE_CACHE"] = old
 
 
+SHARE_ROUNDS = 9   # interleaved measurements of each timer in phase 15 (g)
+
+
 def phase_front_timing(dev, tmp, grid, k1_stats):
     """Phase 15 (g): ``timing.spmv_report`` of K1 on the f32 Poisson, its
     roofline share within 5% of phase 3's own (phase 3's bound over phase
-    3's graph-replayed timer, run here), and a Chrome trace written by
+    3's graph-replayed timer, run here; each the median of SHARE_ROUNDS
+    interleaved measurements), and a Chrome trace written by
     ``timing.trace``."""
     from sprsolve_tpu_torch.utils import timing
 
@@ -3210,7 +3255,15 @@ def phase_front_timing(dev, tmp, grid, k1_stats):
     x = op.pad_vec(torch.as_tensor(np.random.default_rng(SEED + 10).standard_normal(op.n),
                                    dtype=torch.float32, device=dev))
     call = lambda v: pd.dia_spmv(op.bands, v, op.offsets, op.h)
-    t = timing.time_fn(call, x)
+    # both timers SHARE_ROUNDS times, interleaved, and their medians: one
+    # replay of 20 calls of this 8 µs kernel moves by 5-11% from one
+    # measurement to the next (the same timer, the card's state drifting)
+    ts, mss = [], []
+    for _ in range(SHARE_ROUNDS):
+        ts.append(timing.time_fn(call, x))
+        if k1_stats is not None:
+            mss.append(device_ms(lambda: call(x)))
+    t = statistics.median(ts)
     rep = timing.spmv_report(t, A.nnz, timing.dia_bytes(
         op.n, len(op.offsets), itemsize=4, band_itemsize=op.bands.element_size()), device=dev)
     with timing.trace(os.path.join(tmp, "trace")) as trace_path:
@@ -3225,7 +3278,7 @@ def phase_front_timing(dev, tmp, grid, k1_stats):
     if k1_stats is not None:
         # phase 3's bytes bound over phase 3's timer, run here on these
         # inputs: the card's state drifts over the script's minutes
-        ms = device_ms(lambda: call(x))
+        ms = statistics.median(mss)
         share3 = k1_stats["bound_ms"] / ms
         if not abs(rep.roofline_fraction - share3) <= 0.05 * share3:
             raise AssertionError(f"spmv_report: roofline share {rep.roofline_fraction:.4f}, "
@@ -3266,7 +3319,7 @@ def phase_front(dev, grid=GRID, timed=True, k1_stats=None):
         phase_front_info(path, grid)
         phase_front_solve(dev, tmp, A, path, timed)
         Z, z_arrays = phase_front_complex(dev, grid)
-        phase_front_scipy(dev, A, grid)
+        phase_front_scipy(dev, grid)
         phase_front_tuning(dev, tmp, A, Z)
         phase_front_timing(dev, tmp, grid, k1_stats)
         if timed:
@@ -3784,6 +3837,310 @@ def phase_dist(dev):
     log("dist", seconds=f"{time.perf_counter() - t0:.2f}")
 
 
+# --- phase 17: the distributed eigensolvers --------------------------------
+# (a)-(c): one NCCL rank at phase 14's widths; (d): two gloo ranks on cuda:0
+# at reduced depths (the grid³ Poisson of each driver)
+DE_GRIDS = {"lobpcg": GRID, "shift_invert": SI_GRID, "rational": RF_GRID}
+DE_GLOO_GRIDS = {"lobpcg": 32, "shift_invert": 16, "rational": 16}
+DE_LOBPCG_MAX_ITER = 80     # (a): phase 14 (a)'s unpreconditioned budget
+# (d)'s LOBPCG runs until it converges (190 steps at 32³ on one CPU rank) and
+# is held to EIGS_TOL: it aims at a fifth of that, so that the f32 rounding
+# between its own residual and the f64 one measured here cannot decide the gate
+DE_CONVERGE_TOL = EIGS_TOL / 5
+DE_CONVERGE_MAX_ITER = 400
+# the filter's subspace below 32³ (phase 14 (c)'s 8 from there up): at 16³
+# the eigenvalue nearest σ = 1 is 6-fold, and the disc must hold the whole
+# cluster with room to spare (m0 = 8 leaves none: the radius calibration
+# never settles, on one device as on two ranks)
+DE_SMALL_GRID_M0 = 12
+DE_TIMEOUT_S = 420          # the whole of (d) in its processes
+
+
+def de_counts(name: str, its: int, steps: list, passes: int) -> dict:
+    """The collectives one rank makes in a distributed eigen run, worked out
+    from the code (``tests/torch/test_torch_dist_eigen3.py`` holds them on
+    the CPU): ``{primitive: calls}``. ``its``: LOBPCG steps (summed over
+    shift-invert's ``passes``); ``steps``: the lockstep iterations of each
+    inner block solve; ``passes``: the rational filter's subspace
+    iterations. One halo exchange per block apply; LOBPCG 6 all-reduces to
+    start and 9 a step, a lockstep MINRES 2 and 2 an iteration, a lockstep
+    COCG 3 and 3, a filter pass 5 beside its node solves."""
+    if name == "lobpcg":
+        return {"all_reduce_sum": 6 + 9 * its, "halo_exchange": 1 + its, "all_gather_rows": 1}
+    if name == "shift_invert":
+        return {"all_reduce_sum": sum(2 + 2 * s for s in steps) + 6 * passes + 9 * its,
+                "halo_exchange": sum(1 + s for s in steps) + 1,
+                "all_gather_rows": passes + 1}
+    return {"all_reduce_sum": sum(3 + 3 * s for s in steps) + 5 * passes,
+            "halo_exchange": sum(1 + s for s in steps) + passes * (1 + RF_NODES * RF_REFINE),
+            "all_gather_rows": 1}
+
+
+def de_run(name: str, grid: int, dev, g=None, converge=False):
+    """One distributed eigen driver on the grid³ Poisson (f32, DIA →
+    ``HaloDIA``) with phase 14's settings (the filter's m0 from 32³ up,
+    else DE_SMALL_GRID_M0; with ``converge``, LOBPCG to DE_CONVERGE_TOL in
+    at most DE_CONVERGE_MAX_ITER steps), its inner solves recorded and
+    the counters reset just before: ``(A, lam, X, info, steps, collective
+    counts, launch counts, wall seconds)``."""
+    from sprsolve_tpu_torch import parallel as par
+    from sprsolve_tpu_torch.parallel import comm
+
+    A = problems.poisson3d(grid, grid, grid)
+    dia = DIA.from_csr(A, device="cpu")
+    kw = dict(group=g, device=dev)
+    mod = fn = None
+    if name == "lobpcg":
+        X0 = np.random.default_rng(SEED + 10).standard_normal((A.shape[0], EIGS_K)).astype(
+            np.float32)
+        tol, max_iter = ((DE_CONVERGE_TOL, DE_CONVERGE_MAX_ITER) if converge
+                         else (EIGS_TOL, DE_LOBPCG_MAX_ITER))
+        run = lambda: par.distributed_lobpcg(dia, X0=X0, tol=tol, max_iter=max_iter, **kw)
+    elif name == "shift_invert":
+        mod, fn = eigs_mod, "_minres_block"
+        run = lambda: par.distributed_shift_invert_eigs(
+            dia, EIGS_K, SIGMA, tol=EIGS_TOL, max_iter=SI_MAX_ITER,
+            inner_max_iter=SI_INNER_MAX_ITER, **kw)
+    else:
+        mod, fn = rat_mod, "_cocg_block"
+        run = lambda: par.distributed_rational_filter_eigs(
+            dia, EIGS_K, SIGMA, tol=EIGS_TOL, inner_tol=1e-3, inner_max_iter=RF_INNER_MAX_ITER,
+            m0=8 if grid >= 32 else DE_SMALL_GRID_M0, n_quad=RF_NODES,
+            inner_refine=RF_REFINE, seed=0, **kw)
+    steps = []
+    orig = recorded(mod, fn, steps) if mod is not None else None
+    pd.reset_launch_counts()
+    comm.reset_counts()
+    try:
+        _sync(dev)
+        t0 = time.perf_counter()
+        lam, X, info = run()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        if mod is not None:
+            setattr(mod, fn, orig)
+    return A, lam, X, info, steps, dist_counts(), launch_counts(), wall
+
+
+def de_check(tag, name, grid, A, lam, X, info, steps, cc, c, converge=False) -> dict:
+    """The gates of one distributed eigen run: no kernel launched (the
+    path is torch ops), finite (n, k) vectors, the collectives exactly
+    :func:`de_counts`, and λ as phase 14 holds it (LOBPCG: λ₀ at least the
+    analytic 3·(2·sin(π/(2(grid + 1))))²·(1 − tol), as Ritz values bound
+    from above; with ``converge`` also CONVERGED, the k smallest analytic
+    λ with multiplicity within tol·|λ| and the measured residuals
+    ‖A·x − λx‖/(|λ| + max|λ|) within tol; shift-invert and the filter:
+    CONVERGED, the analytic λ nearest σ within tol·|λ|, the measured
+    residuals within tol). Returns the fields to log."""
+    its = int(info.iterations)
+    if any(c.values()):
+        raise AssertionError(f"{tag}: a kernel launched on the torch-op path: {c}")
+    if not (tuple(X.shape) == (A.shape[0], lam.numel()) and lam.numel() <= EIGS_K
+            and bool(torch.isfinite(X).all()) and bool(torch.isfinite(lam).all())):
+        raise AssertionError(f"{tag}: X {tuple(X.shape)}, λ {lam}")
+    fields = {"status": spt.Status(int(info.status)).name, "iterations": its,
+              "residual": f"{float(info.residual):.4e}"}
+    passes = 2
+    if name == "lobpcg":
+        l1 = 3 * (2 * np.sin(np.pi / (2 * (grid + 1)))) ** 2
+        if not (lam.numel() == EIGS_K and float(lam[0]) >= l1 * (1 - EIGS_TOL)):
+            raise AssertionError(f"{tag}: λ₀ {float(lam[0])} below the analytic {l1}")
+        fields.update(lam=",".join(f"{v:.7e}" for v in lam.tolist()),
+                      lam0_analytic=f"{l1:.7e}")
+        if converge:
+            lh = lam.cpu().numpy()
+            res = pair_residuals(A, lam, X) / (np.abs(lh) + float(np.abs(lh).max()))
+            _, exact = match_nearest(lh, grid, 0.0, EIGS_TOL)
+            if not (exact and float(res.max()) <= EIGS_TOL
+                    and int(info.status) == int(spt.Status.CONVERGED)):
+                raise AssertionError(f"{tag}: λ {lh} against "
+                                     f"{poisson_eigs_nearest(grid, 0.0, EIGS_K)}, residuals "
+                                     f"{res}, {info}")
+            fields.update(analytic=",".join(f"{v:.7e}" for v in poisson_eigs_nearest(
+                grid, 0.0, EIGS_K)), worst_measured_residual=f"{float(res.max()):.4e}")
+    else:
+        if name == "shift_invert":
+            if len(steps) != its + passes:
+                raise AssertionError(f"{tag}: {len(steps)} inner solves for {its} steps")
+        else:
+            passes, rest = divmod(len(steps), RF_NODES * (1 + RF_REFINE))
+            if rest:
+                raise AssertionError(f"{tag}: {len(steps)} node solves, not whole passes")
+        got = np.sort(lam.cpu().numpy().astype(np.float64))
+        res = pair_residuals(A, lam, X) / np.abs(lam.cpu().numpy())
+        worst = float(res.max()) if res.size else float("inf")
+        ok, exact = match_nearest(got, grid, SIGMA, EIGS_TOL)
+        if STRICT and not (ok and got.size == EIGS_K and worst <= EIGS_TOL
+                           and int(info.status) == int(spt.Status.CONVERGED)):
+            raise AssertionError(f"{tag}: λ {got} against "
+                                 f"{poisson_eigs_nearest(grid, SIGMA, EIGS_K)}, residuals "
+                                 f"{res}, {info}")
+        fields.update(lam=",".join(f"{v:.7e}" for v in got),
+                      analytic=",".join(f"{v:.7e}" for v in poisson_eigs_nearest(
+                          grid, SIGMA, EIGS_K)),
+                      nearest_within_tol=ok, nearest_with_multiplicity=exact,
+                      worst_measured_residual=f"{worst:.4e}",
+                      lockstep_iterations=sum(steps), inner_solves=len(steps))
+        if name == "rational":
+            fields["subspace_iterations"] = passes
+    want = de_counts(name, its, steps, passes)
+    calls = {p: cc[p][0] for p in want}
+    if calls != want:
+        raise AssertionError(f"{tag}: collectives {calls}, expected {want}")
+    fields.update({f"{p}_calls": v for p, v in calls.items()})
+    return fields
+
+
+def phase_dist_eigen_nccl(dev):
+    """Phase 17 (a)-(c): each distributed eigen driver at phase 14's width
+    on one rank under NCCL (gloo off the card), beside phase 14's
+    single-device run: the counts within its band, ms per step or per
+    lockstep iteration; and the µs of one all-reduce of a 12×12 Gram
+    matrix."""
+    import torch.distributed as dist
+
+    from sprsolve_tpu_torch.parallel import comm
+
+    with tempfile.TemporaryDirectory() as tmp:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        dist.init_process_group(backend, init_method=dist_store(tmp), rank=0, world_size=1)
+        try:
+            g = dist.group.WORLD
+            for part, (name, grid) in zip("abc", DE_GRIDS.items()):
+                A, lam, X, info, steps, cc, c, wall = de_run(name, grid, dev)
+                tag = f"dist-eigen ({part}) {name}"
+                fields = de_check(tag, name, grid, A, lam, X, info, steps, cc, c)
+                its = int(info.iterations)
+                ref = RUN_COUNTS.get(name)   # phase 14's run of the same driver: (grid, ...)
+                if name == "lobpcg":
+                    fields["ms_per_step"] = f"{wall / max(its, 1) * 1e3:.4f}"
+                    if ref is not None and ref[0] == grid:
+                        if abs(its - ref[1]) > parity_band(ref[1]):
+                            raise AssertionError(f"{tag}: {its} steps against phase 14's {ref[1]}")
+                        fields.update(phase14_iterations=ref[1], phase14_lam0=f"{ref[2]:.7e}",
+                                      phase14_ms_per_step=f"{ref[3]:.4f}")
+                else:
+                    n = sum(steps)
+                    fields["ms_per_lockstep_iteration"] = f"{wall / max(n, 1) * 1e3:.4f}"
+                    if ref is not None and ref[0] == grid:
+                        if name == "shift_invert" and abs(n - ref[2]) > parity_band(ref[2]):
+                            raise AssertionError(f"{tag}: {n} lockstep iterations against "
+                                                 f"phase 14 (b)'s {ref[2]}")
+                        fields.update(phase14_lockstep_iterations=ref[2],
+                                      phase14_ms_per_lockstep_iteration=f"{ref[3]:.4f}")
+                log("dist-eigen", part=part, backend=backend, ranks=1, driver=name,
+                    grid=f"{grid}^3", wall_s=f"{wall:.4f}", **fields)
+            G = torch.ones((3 * EIGS_K, 3 * EIGS_K), device=dev)
+            log("dist-eigen", part="a-c", backend=backend,
+                all_reduce_us_gram_12x12=f"{dist_call_us(lambda: comm.all_reduce_sum(G, g)):.2f}"
+                if dev.type == "cuda" else "not measured")
+        finally:
+            dist.destroy_process_group()
+
+
+def _dist_eigen_rank(rank, dev, store, out_dir, grids):
+    """One rank of phase 17 (d): a gloo group with every rank on ``dev``,
+    each driver on its grid of ``grids`` (LOBPCG to convergence), its λ, X
+    bits (rank 0 also X), info, inner steps and counts pickled into
+    ``out_dir``."""
+    import datetime
+    import hashlib
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.set_num_threads(2)   # two ranks on the host's cores
+    dist.init_process_group("gloo", init_method=store, rank=rank, world_size=DIST_WORLD,
+                            timeout=datetime.timedelta(seconds=300))
+    res = {}
+    try:
+        for name, grid in grids.items():
+            _, lam, X, info, steps, cc, c, wall = de_run(name, grid, dev, dist.group.WORLD,
+                                                         converge=True)
+            Xh = X.cpu().numpy()
+            res[name] = {"lam": lam.cpu().numpy(), "sha": hashlib.sha256(Xh.tobytes()).hexdigest(),
+                         "X": Xh if rank == 0 else None,
+                         "info": (int(info.iterations), float(info.residual), int(info.status)),
+                         "steps": steps, "comm": cc, "launches": c, "wall": wall}
+    except Exception:   # reported by the parent, which fails the phase
+        res["error"] = traceback.format_exc()
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+        dist.destroy_process_group()
+
+
+def phase_dist_eigen_gloo(dev):
+    """Phase 17 (d): DIST_WORLD gloo ranks on ``dev`` (spawned, each given
+    DE_GLOO_GRIDS), at most DE_TIMEOUT_S (a rank still running then is
+    killed and fails the phase); every rank's λ, X bits and info the same,
+    λ as (a)-(c) hold it and LOBPCG converged, each rank's collectives as
+    :func:`de_counts`."""
+    import pickle
+
+    from sprsolve_tpu_torch.errors import SolveInfo
+
+    grids = dict(DE_GLOO_GRIDS)   # the spawned ranks import this module afresh
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_dist_eigen_rank, args=(r, dev, dist_store(tmp), tmp, grids))
+                 for r in range(DIST_WORLD)]
+        try:
+            for p in procs:
+                p.start()
+            for p in procs:
+                p.join(timeout=max(1.0, DE_TIMEOUT_S - (time.perf_counter() - t0)))
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        wall = time.perf_counter() - t0
+        results = []
+        for r, p in enumerate(procs):
+            path = os.path.join(tmp, f"rank{r}.pkl")
+            if p.exitcode != 0 or not os.path.exists(path):
+                raise AssertionError(f"dist-eigen rank {r} exited {p.exitcode}")
+            with open(path, "rb") as f:
+                results.append(pickle.load(f))
+    for r, res in enumerate(results):
+        if "error" in res:
+            raise AssertionError(f"dist-eigen rank {r}:\n{res['error']}")
+    for name, grid in grids.items():
+        s0 = results[0][name]
+        for r, res in enumerate(results):
+            s = res[name]
+            if (s["lam"].tobytes(), s["sha"], s["info"]) != (s0["lam"].tobytes(), s0["sha"],
+                                                             s0["info"]):
+                raise AssertionError(f"dist-eigen (d) {name}: rank {r} differs from rank 0")
+        A = problems.poisson3d(grid, grid, grid)
+        its, res_, status = s0["info"]
+        info = SolveInfo(iterations=its, residual=res_, status=status)
+        for r, res in enumerate(results):
+            s = res[name]
+            fields = de_check(f"dist-eigen (d) {name} rank {r}", name, grid, A,
+                              torch.as_tensor(s0["lam"]), torch.as_tensor(s0["X"]), info,
+                              s["steps"], s["comm"], s["launches"], converge=True)
+            log("dist-eigen", part="d", backend="gloo", ranks=DIST_WORLD, rank=r, driver=name,
+                grid=f"{grid}^3", wall_s=f"{s['wall']:.4f}", bits="identical", **fields)
+    log("dist-eigen", part="d", wall_s=f"{wall:.2f}",
+        note="two ranks share one card: correctness and collective counts, not scaling")
+
+
+def phase_dist_eigen(dev):
+    """Phase 17: the distributed eigensolvers, (a)-(c) on one NCCL rank,
+    then (d) on two gloo ranks sharing the card."""
+    t0 = time.perf_counter()
+    phase_dist_eigen_nccl(dev)
+    phase_dist_eigen_gloo(dev)
+    log("dist-eigen", seconds=f"{time.perf_counter() - t0:.2f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs only on a GPU",
@@ -3833,6 +4190,7 @@ def main() -> int:
     launches["dia_spmm"] = phase_eigen(dev)
     phase_front(dev, k1_stats=stats["dia_spmv"])
     phase_dist(dev)
+    phase_dist_eigen(dev)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,

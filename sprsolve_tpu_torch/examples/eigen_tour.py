@@ -9,8 +9,10 @@ which method for which eigenpairs.
   not too dense there                          -> rational_filter_eigs (a
   FEAST-style contour filter; complex-shifted COCG inner solves)
 
-(The row-partitioned forms of the JAX package wait for the port's
-distributed layer.)
+Each has a row-partitioned form over the ranks of a ``torch.distributed``
+group: ``parallel.distributed_lobpcg``, ``distributed_shift_invert_eigs``
+and ``distributed_rational_filter_eigs`` (``distributed_demo`` runs the
+first).
 
 Run: python -m sprsolve_tpu_torch.examples.eigen_tour [--device cpu]
 (default: the CUDA device)

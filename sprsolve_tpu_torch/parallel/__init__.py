@@ -9,7 +9,10 @@ exchange (banded operators) or an all-gather (any sparsity). The kernel
 operators :class:`DistPaddedDIA` and :class:`DistComplexPaddedDIA` run the
 single-GPU kernels K1-K7 on each rank's shard. Every rank calls the same
 functions (SPMD), as every device runs the body of the JAX package's
-``shard_map``. The distributed eigensolvers are not ported yet.
+``shard_map``. The distributed eigensolvers (:func:`distributed_lobpcg`,
+:func:`distributed_shift_invert_eigs`, :func:`distributed_rational_filter_eigs`)
+run the single-device ones with the same ``group=`` over the torch-op
+operators.
 """
 
 from . import comm, multihost
@@ -17,6 +20,9 @@ from .dist_operator import (
     AllGatherELL, HaloDIA, MPKDIA, partition_csr, partition_dia, partition_dia_mpk,
 )
 from .dist_padded_dia import DistComplexPaddedDIA, DistPaddedDIA
+from .eigen import (
+    distributed_lobpcg, distributed_rational_filter_eigs, distributed_shift_invert_eigs,
+)
 from .solve import distributed_solve, local_part, make_solver_specs
 
 __all__ = [
@@ -29,6 +35,9 @@ __all__ = [
     "MPKDIA",
     "partition_dia_mpk",
     "distributed_solve",
+    "distributed_lobpcg",
+    "distributed_shift_invert_eigs",
+    "distributed_rational_filter_eigs",
     "local_part",
     "make_solver_specs",
     "comm",

@@ -10,8 +10,8 @@ steps as coefficient recurrences against G with the static basis change B
 loop exits on the coordinate norm rᴴGr; an outer loop re-anchors on the
 TRUE residual b − A·x with p = r, and CONVERGED is gated on it.
 
-The JAX package's one-reduction-per-block structure matters across a mesh
-(ROADMAP item 13); on one card the basis costs about twice plain CG's
+The JAX package's one-reduction-per-block structure matters across ranks
+(``group=``, the distributed layer); on one card the basis costs about twice plain CG's
 SpMVs.  The basis block applies ``A.matmat`` where the operator has one,
 else one ``matvec`` per column (the JAX package's ``vmap``); the
 (2s+1)-sized coefficient algebra runs on the host in the solve's dtype,

@@ -121,8 +121,8 @@ def cg_single_sync(
     """Chronopoulos–Gear CG (``sprsolve_tpu/solvers/cg.py:179-353``): the
     same Krylov iteration as :func:`cg`, with the three dots of a step,
     γ = rᴴu, δ = uᴴw and ‖r‖², taken back to back as one stacked (3,)
-    tensor — the JAX package's single reduction round, kept for item 13's
-    distributed form.  s = A·p is carried by recurrence (s ← w + β·s), so
+    tensor — the JAX package's single reduction round, one all-reduce a
+    step with ``group=``.  s = A·p is carried by recurrence (s ← w + β·s), so
     each iteration applies A once, to u = M⁻¹r: one K1 on a
     :class:`~sprsolve_tpu_torch.ops.padded_dia.PaddedDIA`, K3 never.
 

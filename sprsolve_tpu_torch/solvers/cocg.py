@@ -123,7 +123,7 @@ def cocg(
 
 
 def _cocg_block(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *, M=None,
-                tol, max_iter):
+                tol, max_iter, group=None):
     """COCG on every column of an (n, m) block in lockstep: the port's
     counterpart of ``jax.vmap(cocg)``.
 
@@ -135,6 +135,11 @@ def _cocg_block(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *, M=None
     its single solve's result; a zero column takes the zero-rhs guard. One
     host read per iteration: whether any column still runs.
 
+    ``group`` (the JAX package's ``vmap(cocg, axis_name=...)``): B and X
+    hold this rank's rows, A does its own exchange, and every column
+    reduction is one all-reduce of the m partials, three a lockstep
+    iteration; every rank then reads the same ``live``.
+
     Returns ``(X, SolveInfo, steps)``: the info's fields are (m,) tensors,
     and ``steps`` counts the lockstep iterations (block applies in the
     loop).
@@ -142,7 +147,7 @@ def _cocg_block(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *, M=None
     from ..errors import SolveInfo
     from .common import block_apply, check_block, col_dot, col_norm
 
-    B, X0 = check_block(A, B, X0)
+    B, X0 = check_block(A, B, X0, group)
     T, dev = B.dtype, B.device
     rdt = real_dtype(T)
     m, max_iter = B.shape[1], int(max_iter)
@@ -152,18 +157,18 @@ def _cocg_block(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *, M=None
     RUN, DONE, BRK, OUT = (torch.tensor(int(s), device=dev) for s in (
         Status.RUNNING, Status.CONVERGED, Status.BREAKDOWN, Status.INSUFFICIENT_ITER))
 
-    rhs_norm = col_norm(B)
+    rhs_norm = col_norm(B, group)
     zero_rhs = rhs_norm <= eps
     tol2 = torch.tensor(tol, dtype=rdt, device=dev) * rhs_norm
     R = torch.addcmul(B, block_apply(A, X0), -one)   # R = B − A·X
-    r_norm = col_norm(R)
+    r_norm = col_norm(R, group)
     below = r_norm <= tol2
     status = torch.where(below, DONE, torch.full((m,), int(Status.RUNNING), device=dev))
     res = torch.where(below, r_norm / rhs_norm, torch.zeros_like(r_norm))
     its = torch.zeros(m, dtype=torch.int64, device=dev)
 
     Z = precond(R)
-    rho = col_dot(R, Z)                   # unconjugated bilinear form
+    rho = col_dot(R, Z, group)            # unconjugated bilinear form
     brk_tol = (r_norm * eps) ** 2
     X, P = X0, Z
 
@@ -179,14 +184,14 @@ def _cocg_block(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *, M=None
     while bool(live.any()):   # the iteration's one host read
         steps += 1
         Q = block_apply(A, P)
-        pq = col_dot(P, Q)
+        pq = col_dot(P, Q, group)
         ok = (rho.abs() > brk_tol) & (pq.abs() > brk_tol)
         alpha = rho / torch.where(ok, pq, one)
         X_next = torch.addcmul(X, P, alpha)
         R = torch.addcmul(R, Q, -alpha)
         Z = precond(R)
-        rho_next = col_dot(R, Z)
-        r_norm_next = col_norm(R)
+        rho_next = col_dot(R, Z, group)
+        r_norm_next = col_norm(R, group)
         P = torch.addcmul(Z, P, rho_next / torch.where(ok, rho, one))   # p = z + β·p
         rho = rho_next
         # BREAKDOWN keeps the previous x, count and residual

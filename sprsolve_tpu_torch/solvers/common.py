@@ -8,7 +8,7 @@ from typing import Callable, Optional
 import torch
 
 from ..errors import IncompatibleMatrixFormat, SolveInfo, Status
-from ..vecalg import eps_for, norm2
+from ..vecalg import eps_for, group_sum, norm2
 
 
 def make_info(iterations, residual, status) -> SolveInfo:
@@ -77,30 +77,40 @@ def block_apply(A, X: torch.Tensor) -> torch.Tensor:
     return torch.stack([A.matvec(X[:, j].contiguous()) for j in range(X.shape[1])], dim=1)
 
 
-def col_dot(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """Xⱼᵀ·Yⱼ for every column j, no conjugation: an (m,) tensor."""
-    return torch.sum(X * Y, dim=0)
+def col_dot(X: torch.Tensor, Y: torch.Tensor, group=None) -> torch.Tensor:
+    """Xⱼᵀ·Yⱼ for every column j, no conjugation: an (m,) tensor, summed
+    over ``group``'s ranks (one all-reduce of the m partials) when given."""
+    return group_sum(torch.sum(X * Y, dim=0), group)
 
 
-def col_conj_dot(X: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
-    """Xⱼᴴ·Yⱼ for every column j: an (m,) tensor."""
-    return torch.sum(torch.conj(X) * Y, dim=0)
+def col_conj_dot(X: torch.Tensor, Y: torch.Tensor, group=None) -> torch.Tensor:
+    """Xⱼᴴ·Yⱼ for every column j: an (m,) tensor, summed over ``group``."""
+    return group_sum(torch.sum(torch.conj(X) * Y, dim=0), group)
 
 
-def col_norm(X: torch.Tensor) -> torch.Tensor:
-    """‖Xⱼ‖₂ for every column j, real: an (m,) tensor."""
+def col_norm(X: torch.Tensor, group=None) -> torch.Tensor:
+    """‖Xⱼ‖₂ for every column j, real: an (m,) tensor. With ``group`` the
+    squares are summed over its ranks, then the root taken."""
     if X.is_complex():
-        return torch.sqrt(torch.sum(X.real * X.real + X.imag * X.imag, dim=0))
-    return torch.sqrt(torch.sum(X * X, dim=0))
+        return torch.sqrt(group_sum(torch.sum(X.real * X.real + X.imag * X.imag, dim=0),
+                                    group))
+    return torch.sqrt(group_sum(torch.sum(X * X, dim=0), group))
 
 
-def check_block(A, B: torch.Tensor, X0: Optional[torch.Tensor]):
+def check_block(A, B: torch.Tensor, X0: Optional[torch.Tensor], group=None):
     """``(B, X0)`` of a lockstep solve: B an (n, m) tensor whose rows match
-    ``A.shape[1]``, X0 zeros of B's shape by default."""
+    ``A.shape[1]`` (with ``group``: B holds this rank's block of one of the
+    group's equal row blocks, as :func:`check_shapes` takes b), X0 zeros of
+    B's shape by default."""
     B = torch.as_tensor(B)
     if B.dim() != 2:
         raise IncompatibleMatrixFormat("a block solve takes B of shape (n, m)")
-    if getattr(A, "shape", None) is not None and B.shape[0] != A.shape[1]:
+    rows = B.shape[0]
+    if group is not None:
+        import torch.distributed as dist
+
+        rows *= dist.get_world_size(group)
+    if getattr(A, "shape", None) is not None and rows != A.shape[1]:
         raise IncompatibleMatrixFormat("Input vec dimension doesn't match the matrix size")
     X0 = torch.zeros_like(B) if X0 is None else torch.as_tensor(X0, device=B.device)
     if X0.shape != B.shape:

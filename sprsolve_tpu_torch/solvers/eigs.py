@@ -45,13 +45,19 @@ class InvertedOperator:
     :func:`minres`, :meth:`matmat` the lockstep block MINRES on every
     column at once (one block apply of A per lockstep iteration).
     ``method="fgmres"`` (M any operator, e.g. an inner Krylov sweep):
-    :meth:`matmat` runs ``batched(fgmres)``, one solve per column."""
+    :meth:`matmat` runs ``batched(fgmres)``, one solve per column.
+
+    ``group`` (the JAX package's ``axis_name``) makes the inner solves
+    row-partitioned: A and M are this rank's parts, the vectors this
+    rank's rows, and every inner reduction a sum over the group (used by
+    :func:`~sprsolve_tpu_torch.parallel.distributed_shift_invert_eigs`)."""
 
     A: object
     M: object = None
     inner_tol: float = 1e-8
     inner_max_iter: int = 400
     method: str = "minres"
+    group: object = None
 
     @property
     def shape(self):
@@ -62,7 +68,8 @@ class InvertedOperator:
         return getattr(self.A, "dtype", None)
 
     def _kw(self):
-        return dict(M=self.M, tol=self.inner_tol, max_iter=self.inner_max_iter)
+        return dict(M=self.M, tol=self.inner_tol, max_iter=self.inner_max_iter,
+                    group=self.group)
 
     def _check_method(self):
         if self.method not in ("minres", "fgmres"):

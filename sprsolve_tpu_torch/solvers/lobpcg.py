@@ -23,32 +23,43 @@ leave the residuals stuck. The refills come from
 ``jax.random`` draws cannot be reproduced in torch, so the cross tests
 patch that one function with the JAX package's draws.
 
-The distributed form (``axis_name``, shifted CholQR2 over a mesh axis) is
-ROADMAP Queue 1 item 13 and is not ported.
+Distributed (``group=``, the JAX package's ``axis_name``): the rows of
+every block are this rank's, A does its own exchange (``HaloDIA.matmat``:
+one for the whole block), and the only other collectives are all-reduces
+of column norms and of k×k / 3k×3k Gram matrices (``vecalg.group_sum``).
+QR of the row-partitioned basis becomes shifted CholQR2 (two rounds of
+G = Σ SᴴS, Cholesky of G + σI, a triangular solve), and every rank solves
+the small eigenproblem from the same all-reduced bits, so λ and the
+``SolveInfo`` come out the same on every rank. The refills fold the rank
+into their tag, as ``fold_in(key, axis_index)`` does: the same draw on
+every rank would make the global vector block-periodic.
+:func:`~sprsolve_tpu_torch.parallel.distributed_lobpcg` is the driver.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..errors import IncompatibleMatrixFormat, Status
 from ..vecalg import full_precision_matmul as mm
-from ..vecalg import real_dtype
+from ..vecalg import group_sum, real_dtype
 from .common import block_apply, make_info
 
 
-def _col_norms(X: torch.Tensor, rdt) -> torch.Tensor:
-    return torch.sqrt(torch.sum(X.abs() ** 2, dim=0)).to(rdt)
+def _col_norms(X: torch.Tensor, rdt, group=None) -> torch.Tensor:
+    return torch.sqrt(group_sum(torch.sum(X.abs() ** 2, dim=0), group)).to(rdt)
 
 
 def _fresh_directions(tag, shape, dtype, device) -> torch.Tensor:
     """Standard-normal draws of ``shape`` (real, cast to ``dtype``) from a
     generator seeded by ``tag``: ``(0,)`` for the initial P, ``(its + 1,
     17)`` and ``(its + 1, 29)`` for the W and P refills of iteration
-    ``its`` — the ``fold_in`` path of the JAX package's keys
-    (``sprsolve_tpu/solvers/lobpcg.py:232-266``). The same tag gives the
-    same draw on one device from run to run."""
+    ``its``, each with the rank appended in a distributed solve — the
+    ``fold_in`` path of the JAX package's keys
+    (``sprsolve_tpu/solvers/lobpcg.py:63-71, 232-266``). The same tag gives
+    the same draw on one device from run to run."""
     seed = int(np.random.SeedSequence(list(tag)).generate_state(1)[0])
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -56,19 +67,22 @@ def _fresh_directions(tag, shape, dtype, device) -> torch.Tensor:
                        device=device).to(dtype)
 
 
-def _safe_colnormalize(X: torch.Tensor, tag, rdt, tiny) -> torch.Tensor:
+def _safe_colnormalize(X: torch.Tensor, tag, rdt, tiny, group=None) -> torch.Tensor:
     """Normalise the columns; a column of norm ≤ ``tiny`` is replaced by a
-    fresh normalised direction (keeps S full-rank)."""
-    nrm = _col_norms(X, rdt)
+    fresh normalised direction (keeps S full-rank). With ``group`` the
+    norms are global and the rank is folded into the draw's tag."""
+    nrm = _col_norms(X, rdt, group)
+    if group is not None:
+        tag = tuple(tag) + (dist.get_rank(group),)
     bad = nrm <= tiny
     fresh = _fresh_directions(tag, tuple(X.shape), X.dtype, X.device)
-    fresh = fresh / _col_norms(fresh, rdt)[None, :]
+    fresh = fresh / _col_norms(fresh, rdt, group)[None, :]
     Xn = X / torch.where(bad, torch.ones_like(nrm), nrm)[None, :]
     return torch.where(bad[None, :], fresh, Xn)
 
 
 def lobpcg(A, X0, *, M=None, largest: bool = False, tol: float = 1e-6,
-           max_iter: int = 200, buffer: int = 0, axis_name=None):
+           max_iter: int = 200, buffer: int = 0, group=None):
     """Compute the ``k`` smallest (or largest) eigenpairs of Hermitian ``A``.
 
     ``X0`` is the (n, k) initial block (random is fine; it is
@@ -88,11 +102,14 @@ def lobpcg(A, X0, *, M=None, largest: bool = False, tol: float = 1e-6,
     convergence rate of pair i is set by the gap to the first eigenvalue
     outside the block); clamped so that 3·(k + buffer) < n. Convergence is
     tested on, and the return holds, the wanted ``k`` pairs only.
+
+    ``group``: run row-partitioned over a ``torch.distributed`` group (the
+    JAX package's ``axis_name``; the driver is
+    :func:`~sprsolve_tpu_torch.parallel.distributed_lobpcg`). ``A`` is this
+    rank's part of a distributed operator with the global shape, ``X0``
+    and the returned X this rank's rows of one of the group's equal row
+    blocks; λ and the ``SolveInfo`` are the same on every rank.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "lobpcg(axis_name=...) is the distributed layer, ROADMAP Queue 1 item 13; "
-            "the port runs on one device")
     dev = getattr(A, "device", None)
     X0 = torch.as_tensor(X0, device=dev)
     if X0.dim() != 2:
@@ -108,13 +125,14 @@ def lobpcg(A, X0, *, M=None, largest: bool = False, tol: float = 1e-6,
         X0 = torch.cat([X0, torch.as_tensor(extra).to(X0.dtype).to(X0.device)], dim=1)
     from ..multigrid import FlatViewOperator
 
-    if hasattr(A, "pad_vec"):
+    if group is None and hasattr(A, "pad_vec"):
         # the block algebra is flat: each apply pads, runs K1b, unpads
         A = FlatViewOperator(op=A)
-    if M is not None and hasattr(M, "pad_vec"):
+    if group is None and M is not None and hasattr(M, "pad_vec"):
         M = FlatViewOperator(op=M)
     n, k = X0.shape
-    if getattr(A, "shape", None) is not None and A.shape[1] != n:
+    rows = n if group is None else n * dist.get_world_size(group)
+    if getattr(A, "shape", None) is not None and A.shape[1] != rows:
         raise IncompatibleMatrixFormat("Input vec dimension doesn't match the matrix size")
     if 3 * k >= n:
         raise IncompatibleMatrixFormat(
@@ -126,12 +144,32 @@ def lobpcg(A, X0, *, M=None, largest: bool = False, tol: float = 1e-6,
     max_iter = int(max_iter)
     half = torch.tensor(0.5, dtype=rdt, device=dev)
 
+    def orthonormalize(S):
+        if group is None:
+            return torch.linalg.qr(S).Q
+        # shifted CholQR2, the QR of a row-partitioned basis
+        # (sprsolve_tpu/solvers/lobpcg.py:185-208): each round one
+        # all-reduced Gram matrix, the same Cholesky on every rank and
+        # S ← S·L⁻ᴴ locally; the σ-shift keeps the factor finite when
+        # converged directions make S numerically rank-deficient. S·L⁻ᴴ is
+        # one product with the small inverse: a triangular solve with a
+        # million rows as right-hand sides crawls on the card
+        dim = S.shape[1]
+        eye = torch.eye(dim, dtype=T, device=dev)
+        shift = 100.0 * torch.finfo(rdt).eps
+        for _ in range(2):
+            G = group_sum(mm(S.conj().T, S), group)
+            sigma = shift * torch.real(torch.trace(G)).to(rdt) / dim
+            L = torch.linalg.cholesky(G + sigma.to(T) * eye)
+            S = mm(S, torch.linalg.solve_triangular(L, eye, upper=False).conj().T)
+        return S
+
     def rayleigh_ritz(S):
         """Orthonormalise S, project A, solve the small Hermitian problem:
         (X, λ, A·X), A·X = (A·Q)·Y reusing the projection's apply."""
-        Q = torch.linalg.qr(S).Q
+        Q = orthonormalize(S)
         AQ = block_apply(A, Q)
-        Tm = mm(Q.conj().T, AQ)
+        Tm = group_sum(mm(Q.conj().T, AQ), group)
         Tm = (Tm + Tm.conj().T) * half
         evals, V = torch.linalg.eigh(Tm)   # ascending
         if largest:
@@ -140,27 +178,29 @@ def lobpcg(A, X0, *, M=None, largest: bool = False, tol: float = 1e-6,
             lam, Y = evals[:k], V[:, :k]
         return mm(Q, Y), lam, mm(AQ, Y)
 
-    def residual_info(X_, lam_, AX_):
-        R = AX_ - X_ * lam_[None, :].to(T)
+    def residual(X_, lam_, AX_):
+        return AX_ - X_ * lam_[None, :].to(T)
+
+    def worst(R, lam_):
         scale = lam_.abs() + torch.max(lam_.abs())
-        rel = _col_norms(R, rdt) / torch.maximum(scale, tiny)
+        rel = _col_norms(R, rdt, group) / torch.maximum(scale, tiny)
         # buffer columns never gate convergence
-        return R, torch.max(rel[:k_want])
+        return torch.max(rel[:k_want])
 
     X, lam, AX = rayleigh_ritz(X0)
-    P = _safe_colnormalize(torch.zeros_like(X), (0,), rdt, tiny)
-    _, resmax = residual_info(X, lam, AX)
+    P = _safe_colnormalize(torch.zeros_like(X), (0,), rdt, tiny, group)
+    resmax = worst(residual(X, lam, AX), lam)
     its = 0
     while its < max_iter and bool(resmax > tol_t):   # the iteration's one host read
-        R, _ = residual_info(X, lam, AX)
+        R = residual(X, lam, AX)
         W = R if M is None else block_apply(M, R)
-        W = _safe_colnormalize(W, (its + 1, 17), rdt, tiny)
+        W = _safe_colnormalize(W, (its + 1, 17), rdt, tiny, group)
         S = torch.cat([X, W, P], dim=1)
         X_new, lam, AX = rayleigh_ritz(S)
-        P = _safe_colnormalize(X_new - mm(X, mm(X.conj().T, X_new)), (its + 1, 29), rdt,
-                               tiny)
+        P = _safe_colnormalize(X_new - mm(X, group_sum(mm(X.conj().T, X_new), group)),
+                               (its + 1, 29), rdt, tiny, group)
         X = X_new
-        _, resmax = residual_info(X, lam, AX)
+        resmax = worst(residual(X, lam, AX), lam)
         its += 1
 
     status = Status.CONVERGED if bool(resmax <= tol_t) else Status.INSUFFICIENT_ITER

@@ -185,7 +185,7 @@ def minres(
 
 
 def _minres_block(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *, M=None,
-                  tol, max_iter):
+                  tol, max_iter, group=None):
     """MINRES on every column of an (n, m) block in lockstep: the port's
     counterpart of ``jax.vmap(minres)``.
 
@@ -198,6 +198,11 @@ def _minres_block(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *, M=No
     column takes the zero-rhs guard. One host read per iteration: whether
     any column still runs. No fused Lanczos step (K4 takes one vector).
 
+    ``group`` (the JAX package's ``vmap(minres, axis_name=...)``): B and X
+    hold this rank's rows, A does its own exchange, and every column
+    reduction is one all-reduce of the m partials, two a lockstep
+    iteration; every rank then reads the same ``live``.
+
     Returns ``(X, SolveInfo, steps)``: the info's fields are (m,) tensors,
     as :func:`~sprsolve_tpu_torch.solvers.block_cg.batched` returns, and
     ``steps`` counts the lockstep iterations (block applies in the loop).
@@ -205,7 +210,7 @@ def _minres_block(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *, M=No
     from ..errors import SolveInfo
     from .common import block_apply, check_block, col_conj_dot, col_norm
 
-    B, X0 = check_block(A, B, X0)
+    B, X0 = check_block(A, B, X0, group)
     has_precond = M is not None
     T, dev = B.dtype, B.device
     rdt = real_dtype(T)
@@ -227,17 +232,17 @@ def _minres_block(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *, M=No
     def guarded_inv(beta):
         return torch.where(beta > 0, one_r / beta, zero_r)
 
-    rhs_norm = col_norm(B)
+    rhs_norm = col_norm(B, group)
     zero_rhs = rhs_norm <= eps
     threshold = torch.tensor(tol, dtype=rdt, device=dev) * rhs_norm
     V_new = torch.addcmul(B, block_apply(A, X0), -torch.ones((), dtype=T, device=dev))
-    res_norm = col_norm(V_new)
+    res_norm = col_norm(V_new, group)
     zeros = torch.zeros_like(B)
     status = torch.full((m,), int(Status.RUNNING), device=dev)
     if has_precond:
         W_new = block_apply(M, V_new)
-        beta_new2 = col_conj_dot(V_new, W_new)
-        bad0 = beta_gate(beta_new2, res_norm * col_norm(W_new))
+        beta_new2 = col_conj_dot(V_new, W_new, group)
+        bad0 = beta_gate(beta_new2, res_norm * col_norm(W_new, group))
         beta_new = torch.sqrt(torch.clamp(beta_new2.real, min=0))
         ts = guarded_inv(beta_new)
         V_new, W_new = V_new * ts, W_new * ts
@@ -268,17 +273,17 @@ def _minres_block(A, B: torch.Tensor, X0: Optional[torch.Tensor] = None, *, M=No
         V_old, V = V, V_new
         W = W_new if has_precond else V
         AW = block_apply(A, W)
-        alpha = col_conj_dot(W, AW)
+        alpha = col_conj_dot(W, AW, group)
         V_next = torch.addcmul(AW, V_old, (-beta).to(T))
         V_next = torch.addcmul(V_next, V, -alpha)
         if has_precond:
             W_next = block_apply(M, V_next)
-            beta_next2 = col_conj_dot(V_next, W_next)
+            beta_next2 = col_conj_dot(V_next, W_next, group)
             bad = live & beta_gate(beta_next2, beta * beta)
             beta_next = torch.sqrt(torch.clamp(beta_next2.real, min=0))
         else:
             bad = torch.zeros_like(live)
-            beta_next = col_norm(V_next)
+            beta_next = col_norm(V_next, group)
 
         ts = guarded_inv(beta_next)
         r3 = s_old * beta

@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from ..errors import IncompatibleMatrixFormat
-from ..vecalg import conj_dot
+from ..vecalg import conj_dot, group_sum
 from ..vecalg import full_precision_matmul as mm
 from .cocg import _cocg_block
 from .common import block_apply
@@ -125,11 +125,12 @@ def _gauss_semicircle(n_quad: int, aspect: float = 1.0):
     return c, d
 
 
-def _cholqr(B: torch.Tensor) -> torch.Tensor:
+def _cholqr(B: torch.Tensor, group=None) -> torch.Tensor:
     """One CholeskyQR round with a tiny trace-scaled ridge (directions the
     filter annihilated stay finite); two rounds give QR-grade
-    orthogonality."""
-    G = mm(B.T, B)
+    orthogonality. With ``group`` B is this rank's rows and the Gram matrix
+    is summed over the group (``sprsolve_tpu/parallel/eigen.py:539-553``)."""
+    G = group_sum(mm(B.T, B), group)
     eps_r = float(torch.finfo(B.dtype).eps) * 100 * torch.trace(G)
     L = torch.linalg.cholesky(G + eps_r * torch.eye(G.shape[0], dtype=B.dtype,
                                                      device=B.device))
@@ -255,16 +256,58 @@ def rational_filter_eigs(
             "rational_filter_eigs needs a real symmetric operator "
             f"(dtype {rdt}); for Hermitian complex use shift_invert_eigs")
     dev = getattr(op, "device", None)
-    cdt = torch.complex64 if rdt == torch.float32 else torch.complex128
-
-    c_np, d_np = _gauss_semicircle(int(n_quad), float(contour_aspect))
     Y0 = torch.as_tensor(np.random.default_rng(seed).standard_normal((n, m0))).to(
         dtype=rdt, device=dev)
+    if radius is None and bounds is None:
+        raise IncompatibleMatrixFormat(
+            "radius=None auto-calibration needs a CSR/CSC input (Gershgorin "
+            "seed); pass radius= for a bare operator")
+    lam_np, rel_np, V, r_best, total_inner = _subspace_iterations(
+        op, op64, Y0, sigma=sigma, radius=radius, bounds=bounds, side=side, k=k,
+        n_quad=n_quad, contour_aspect=contour_aspect, inner_tol=inner_tol,
+        inner_max_iter=inner_max_iter, inner_refine=inner_refine, tol=tol,
+        max_iter=max_iter)
+    keep = _kept(lam_np, rel_np, sigma, r_best, tol, rdt)
+    lam, X, info = _select_nearest(lam_np[keep], rel_np[keep], V.cpu().numpy()[:, keep],
+                                   sigma, side, k, tol, total_inner)
+    return lam.to(dev), X.to(dev), info
+
+
+def _ghost_threshold(tol: float, rdt) -> float:
+    """The residual above which a Ritz pair is a ghost, not an eigenpair."""
+    return max(10.0 * tol, float(np.sqrt(torch.finfo(rdt).eps)))
+
+
+def _kept(lam_np, rel_np, sigma, r_best, tol, rdt):
+    """The final selection's mask: the disc filter, with the radius that
+    produced these pairs, and the ghost filter (a Ritz value whose measured
+    residual sits orders above tol is a boundary artefact)."""
+    return (np.abs(lam_np - sigma) <= r_best) & (rel_np <= _ghost_threshold(tol, rdt))
+
+
+def _subspace_iterations(op, op64, Y0, *, sigma, radius, bounds, side, k, n_quad,
+                         contour_aspect, inner_tol, inner_max_iter, inner_refine, tol,
+                         max_iter, group=None):
+    """The filter's subspace iteration with Rayleigh–Ritz and the radius
+    calibration, shared by :func:`rational_filter_eigs` and the distributed
+    driver. ``op`` is the real operator (``op64`` its f64 copy for
+    ``inner_refine``), ``Y0`` the (rows, m0) start block. With ``group``
+    the operators are this rank's parts and the blocks this rank's rows;
+    the Gram matrices, norms and trace estimates are summed over the group
+    and every rank takes the same branches. Returns ``(λ, residuals, V,
+    radius, total inner iterations)`` of the kept pass: λ and residuals as
+    NumPy arrays, V (this rank's rows of) its Ritz block, and the radius
+    that produced them."""
+    rdt, dev = Y0.dtype, Y0.device
+    m0 = Y0.shape[1]
+    cdt = torch.complex64 if rdt == torch.float32 else torch.complex128
+    c_np, d_np = _gauss_semicircle(int(n_quad), float(contour_aspect))
     scalar = lambda v, t=rdt: torch.tensor(v, dtype=t, device=dev)
 
     def _solve_node(Yc, zr, zi):
         opz = _ComplexShifted(A=op, zr=zr, zi=zi)
-        X, info, _ = _cocg_block(opz, Yc, tol=inner_tol, max_iter=inner_max_iter)
+        X, info, _ = _cocg_block(opz, Yc, tol=inner_tol, max_iter=inner_max_iter,
+                                 group=group)
         return X, int(info.iterations.sum())
 
     def _one_node(Yc, zr, zi):
@@ -304,28 +347,26 @@ def rational_filter_eigs(
                 Q = Q + rq * torch.real(scalar(d_np[j], cdt) * Xj)
             its += itj
         Q = Q.to(rdt)
-        Qo = _cholqr(_cholqr(Q))
+        Qo = _cholqr(_cholqr(Q, group), group)
         AQ = block_apply(op, Qo)
-        H = mm(Qo.T, AQ)
+        H = group_sum(mm(Qo.T, AQ), group)
         H = 0.5 * (H + H.T)
         lam, W = torch.linalg.eigh(H)
         V = mm(Qo, W)
         R = mm(AQ, W) - V * lam[None, :]
-        rel = torch.linalg.norm(R, dim=0) / torch.clamp(lam.abs(), min=torch.finfo(rdt).tiny)
+        norms = (torch.linalg.norm(R, dim=0) if group is None
+                 else torch.sqrt(group_sum(torch.sum(R * R, dim=0), group)))
+        rel = norms / torch.clamp(lam.abs(), min=torch.finfo(rdt).tiny)
         # stochastic eigencount: E[yᵀρ(A)y] = tr ρ(A) ≈ #eigs inside the
         # disc when Y is the standard-normal block (the host loop tracks
         # when it is); drives the radius calibration
-        est = torch.sum(Y * Q) / Y.shape[1]
+        est = group_sum(torch.sum(Y * Q), group) / Y.shape[1]
         return V, lam, rel, its, est
 
     if radius is not None:
         r_cur = float(radius)
         calibrate = False
     else:
-        if bounds is None:
-            raise IncompatibleMatrixFormat(
-                "radius=None auto-calibration needs a CSR/CSC input (Gershgorin "
-                "seed); pass radius= for a bare operator")
         r_cur = max((bounds[1] - bounds[0]) * 1e-3, 1e-12)
         calibrate = True
 
@@ -337,8 +378,7 @@ def rational_filter_eigs(
     # (m0 − k) columns as the convergence buffer FEAST's rate depends on
     target = k + max(1.0, (m0 - k) / 3.0)
     calib_left = 6
-    eps_r = float(torch.finfo(rdt).eps)
-    ghost_thr = max(10.0 * tol, float(np.sqrt(eps_r)))
+    ghost_thr = _ghost_threshold(tol, rdt)
     for _ in range(int(max_iter)):
         V, lam, rel, its, est = filter_and_ritz(Y, scalar(r_cur))
         total_inner += its
@@ -379,12 +419,4 @@ def rational_filter_eigs(
             continue
         Y = V  # plain subspace iteration on the Ritz block
         y_is_random = False
-
-    lam_np, rel_np, V, r_best = best
-    # disc filter (with the radius that produced these pairs) and ghost
-    # filter: a Ritz value whose measured residual sits orders above tol is
-    # a boundary artefact, not an eigenpair
-    keep = (np.abs(lam_np - sigma) <= r_best) & (rel_np <= ghost_thr)
-    lam, X, info = _select_nearest(lam_np[keep], rel_np[keep], V.cpu().numpy()[:, keep],
-                                   sigma, side, k, tol, total_inner)
-    return lam.to(dev), X.to(dev), info
+    return best + (total_inner,)

@@ -13,6 +13,7 @@ package's side themselves. :func:`launch` starts the WORLD processes and
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import functools
@@ -379,6 +380,233 @@ def refusals(ctx):
     return out
 
 
+# --- eigen cases (the distributed eigensolvers) ------------------------------------
+def dense_of(A):
+    """The dense form of a host CSR."""
+    import scipy.sparse as sps
+
+    return sps.csr_matrix((A.data.numpy(), A.indices.numpy(), A.indptr.numpy()),
+                          shape=A.shape).toarray()
+
+
+def ramp_grid(side, lo, span):
+    """The SPD grid plus a diagonal ramp lo + span·i/n, as a DIA."""
+    dense = dense_of(spd_grid(side))
+    n = dense.shape[0]
+    dense = dense + np.diag(lo + span * np.arange(n) / n)
+    return tsp.csr_from_dense(dense).to_dia(), dense
+
+
+def between(w, i, unique=False):
+    """σ halfway between two eigenvalues of w (of its distinct values, rounded
+    to 8 digits, with ``unique``), as the JAX tests pick it."""
+    if unique:
+        w = np.unique(np.round(w, 8))
+    return float(0.5 * (w[i] + w[i + 1]))
+
+
+def jax_draws(ctx):
+    """The port's LOBPCG refills with the JAX package's per-shard draws
+    (``fold_in(key, axis_index)``) patched in, which the test wrote for this
+    rank: ``{"ROWSxK": (1 + 2·T, rows, k)}``, index 0 the tag (0, rank),
+    2i − 1 and 2i the tags (i, 17, rank) and (i, 29, rank). Returns the
+    original, to be put back."""
+    tlob = importlib.import_module("sprsolve_tpu_torch.solvers.lobpcg")
+    with np.load(os.path.join(ctx.out, f"draws_w{ctx.world}_r{ctx.rank}.npz")) as f:
+        tables = {key: f[key] for key in f.files}
+
+    def fresh(tag, shape, dtype, device):
+        assert tag[-1] == ctx.rank, tag
+        i = 0 if len(tag) == 2 else 2 * tag[0] - (tag[1] == 17)
+        return torch.as_tensor(tables[f"{shape[0]}x{shape[1]}"][i]).to(dtype).to(device)
+
+    orig, tlob._fresh_directions = tlob._fresh_directions, fresh
+    return orig
+
+
+def eig_out(lam, X, info, extra=None):
+    out = {"lam": lam.cpu().numpy(), "X": X.cpu().numpy(), "its": int(info.iterations),
+           "res": float(info.residual), "status": int(info.status)}
+    out.update(extra or {})
+    return out
+
+
+def run_eig(ctx, driver, *args, **kw):
+    """One driver call with the JAX draws, and the counters over it."""
+    tlob = importlib.import_module("sprsolve_tpu_torch.solvers.lobpcg")
+    orig = jax_draws(ctx)
+    comm.reset_counts()
+    try:
+        out = driver(*args, group=ctx.group, device="cpu", **kw)
+    finally:
+        tlob._fresh_directions = orig
+    return eig_out(*out, {"comm": comm.counts()})
+
+
+def eig_matmat(ctx):
+    """HaloDIA.matmat and AllGatherELL.matmat on 5 columns against the dense
+    product, gathered: the largest absolute error of each."""
+    A = spd_grid(16)
+    X = np.random.default_rng(1).standard_normal((256, 5))
+    want = dense_of(A) @ X
+    out = {}
+    for name, parts in (("ell", par.partition_csr(A, ctx.world)),
+                        ("dia", par.partition_dia(A.to_dia(), ctx.world))):
+        op = par.local_part(parts, parts.pspec(), ctx.group)
+        Y = comm.all_gather_rows(op.matmat(local_vec(X, ctx)), ctx.group)
+        out[name] = float(np.abs(Y.numpy() - want).max())
+    return out
+
+
+def lobpcg_ell(ctx):
+    return run_eig(ctx, par.distributed_lobpcg, spd_grid(16), 4, tol=1e-9, max_iter=400)
+
+
+def lobpcg_dia(ctx):
+    return run_eig(ctx, par.distributed_lobpcg, spd_grid(16).to_dia(), 4, tol=1e-9,
+                   max_iter=400)
+
+
+def lobpcg_largest(ctx):
+    return run_eig(ctx, par.distributed_lobpcg, spd_grid(12), 3, largest=True, tol=1e-9,
+                   max_iter=400)
+
+
+def lobpcg_jacobi(ctx):
+    A, dense = ramp_grid(12, 1.0, 9.0)
+    return run_eig(ctx, par.distributed_lobpcg, A, 3, M=tsp.DiagPrecond.new(np.diag(dense)),
+                   tol=1e-9, max_iter=400)
+
+
+def lobpcg_pad(ctx):
+    return run_eig(ctx, par.distributed_lobpcg, spd_grid(10), 4, tol=1e-9, max_iter=400)
+
+
+def si_both(ctx):
+    A = spd_grid(16)
+    sigma = between(np.linalg.eigvalsh(dense_of(A)), 5)
+    return run_eig(ctx, par.distributed_shift_invert_eigs, A, 4, sigma, tol=1e-7,
+                   max_iter=200)
+
+
+def si_side(ctx, side):
+    A = spd_grid(12)
+    sigma = between(np.linalg.eigvalsh(dense_of(A)), 3, unique=True)
+    return run_eig(ctx, par.distributed_shift_invert_eigs, A, 3, sigma, side=side, tol=1e-7,
+                   max_iter=200)
+
+
+def si_above(ctx):
+    return si_side(ctx, "above")
+
+
+def si_below(ctx):
+    return si_side(ctx, "below")
+
+
+def si_jacobi(ctx):
+    A, dense = ramp_grid(12, 2.0, 10.0)
+    sigma = between(np.linalg.eigvalsh(dense), 3)
+    return run_eig(ctx, par.distributed_shift_invert_eigs, A, 3, sigma,
+                   M_inner=tsp.DiagPrecond.new(np.abs(np.diag(dense))), tol=1e-7,
+                   max_iter=200)
+
+
+def si_prepartitioned(ctx):
+    A = spd_grid(16)
+    sigma = between(np.linalg.eigvalsh(dense_of(A)), 2, unique=True)
+    return run_eig(ctx, par.distributed_shift_invert_eigs,
+                   par.partition_dia(A.to_dia(), ctx.world), 2, sigma, tol=1e-7, max_iter=200)
+
+
+def si_pad(ctx):
+    return run_eig(ctx, par.distributed_shift_invert_eigs, spd_grid(10), 4, 1.0, tol=1e-7,
+                   max_iter=300)
+
+
+def rf_dense(ctx):
+    return run_eig(ctx, par.distributed_rational_filter_eigs, spd_grid(24), 4, 2.0, tol=1e-8,
+                   seed=1)
+
+
+def rf_refine(ctx):
+    A = spd_grid(24)
+    A32 = dataclasses.replace(A, data=A.data.to(torch.float32))
+    return run_eig(ctx, par.distributed_rational_filter_eigs, A32, 3, 2.0, tol=5e-5,
+                   inner_tol=1e-3, inner_max_iter=1500, inner_refine=2, seed=1)
+
+
+def rf_complex(ctx):
+    """The refusal of a complex operator: the exception's type name."""
+    A, _, _ = problems.complex_symmetric_grid_with_diag((8, 8))
+    try:
+        par.distributed_rational_filter_eigs(A, 2, 1.0, group=ctx.group, device="cpu")
+    except Exception as e:  # the test names the types it accepts
+        return {"raised": type(e).__name__}
+    return {"raised": None}
+
+
+def rf_radius(ctx):
+    """``max_iter=1`` from r₀ = 1e-3 of the Gershgorin width on the 24×24
+    grid at σ = 1: the kept pass and the result (the port's single-device
+    ``test_final_filter_uses_the_radius_of_the_kept_pairs`` on ranks)."""
+    trat = importlib.import_module("sprsolve_tpu_torch.solvers.rational")
+    passes, inner = [], trat._subspace_iterations
+
+    def kept(*a, **k):
+        out = inner(*a, **k)
+        passes.append((out[0], out[1], out[3]))
+        return out
+
+    trat._subspace_iterations = kept
+    try:
+        out = run_eig(ctx, par.distributed_rational_filter_eigs, spd_grid(24), 4, 1.0,
+                      tol=1e-8, seed=1, max_iter=1)
+    finally:
+        trat._subspace_iterations = inner
+    out["pass"] = passes
+    return out
+
+
+def eig_counts(ctx):
+    """The collectives of a few budget-bound steps of each driver on the
+    16×16 grid (DIA), for k = 2 and 4, with the lockstep iterations of every
+    inner solve: ``{(driver, k): {"its", "steps", "comm"}}``."""
+    teigs = importlib.import_module("sprsolve_tpu_torch.solvers.eigs")
+    trat = importlib.import_module("sprsolve_tpu_torch.solvers.rational")
+    A = spd_grid(16).to_dia()
+    out = {}
+    for k in (2, 4):
+        runs = {
+            "lobpcg": lambda: par.distributed_lobpcg(A, k, tol=1e-14, max_iter=5,
+                                                     group=ctx.group, device="cpu"),
+            "shift_invert": lambda: par.distributed_shift_invert_eigs(
+                A, k, 1.0, tol=1e-14, max_iter=2, inner_max_iter=7, group=ctx.group,
+                device="cpu"),
+            "rational": lambda: par.distributed_rational_filter_eigs(
+                A, k, 2.0, m0=k + 2, n_quad=2, radius=0.5, tol=1e-14, max_iter=2,
+                inner_max_iter=6, group=ctx.group, device="cpu"),
+        }
+        for name, run in runs.items():
+            steps = []
+            mod, fn = (teigs, "_minres_block") if name == "shift_invert" else (trat, "_cocg_block")
+            orig = getattr(mod, fn)
+
+            def rec(*a, _orig=orig, **kw):
+                X, info, n = _orig(*a, **kw)
+                steps.append(n)
+                return X, info, n
+
+            setattr(mod, fn, rec)
+            comm.reset_counts()
+            try:
+                _, _, info = run()
+            finally:
+                setattr(mod, fn, orig)
+            out[name, k] = {"its": int(info.iterations), "steps": steps, "comm": comm.counts()}
+    return out
+
+
 CASESETS = {
     "solve": ["bicgstab_ell", "bicgstab_dia", "padding_exact", "minres_complex_precond",
               "cs_minres_ell", "masked_gs", "cg_dia", "gmres_dia", "idrs_dia",
@@ -389,6 +617,10 @@ CASESETS = {
                "padded_bicgstab", "ca_cg_mpk", "counts_across_world_sizes"],
     "ops": ["spmv_rows", "fused_partials", "comm_per_iteration", "ca_cg_exchanges",
             "refusals"],
+    "eigen": ["eig_matmat", "lobpcg_ell", "lobpcg_dia", "lobpcg_largest", "lobpcg_jacobi",
+              "si_both", "si_above", "si_below", "si_jacobi", "si_prepartitioned", "rf_dense",
+              "rf_refine", "rf_complex"],
+    "eigen3": ["lobpcg_pad", "si_pad", "eig_counts", "rf_radius"],
 }
 
 
@@ -413,6 +645,20 @@ def main(argv):
 
 
 # --- the launcher (test side) ----------------------------------------------------
+@contextlib.contextmanager
+def one_rank_group(tmp: str):
+    """A gloo group of this process alone (a ``file://`` store in ``tmp``),
+    destroyed on exit: the group-of-one form of a distributed solve, in the
+    test process itself."""
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(tmp, "store"),
+                            rank=0, world_size=1)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+
 def launch(caseset: str, world: int, out: str):
     """Start WORLD ranks of ``caseset`` writing into ``out``; returns the
     processes (:func:`collect` waits for them)."""

@@ -25,7 +25,10 @@ from sprsolve_tpu_torch.errors import Status
 from sprsolve_tpu_torch.ops import padded_dia as pd
 from sprsolve_tpu_torch.solvers.cocg import _cocg_block
 from sprsolve_tpu_torch.solvers.minres import _minres_block
+from sprsolve_tpu_torch.parallel import comm
 from sprsolve_tpu_torch.utils import problems as tprob
+
+import _dist_worker
 
 torch.set_num_threads(2)
 
@@ -162,6 +165,48 @@ def test_block_cocg_breakdown_freezes_one_column():
     assert int(info.status[0]) == Status.BREAKDOWN and per[0] == 0
     assert not bool(X[:, 0].any())
     assert int(info.status[1]) == int(info.status[2]) == Status.CONVERGED
+
+
+@pytest.fixture(scope="module")
+def group1(tmp_path_factory):
+    with _dist_worker.one_rank_group(str(tmp_path_factory.mktemp("group1"))) as g:
+        yield g
+
+
+def _same_with_group(block, A, B, group, per_step, start, **kw):
+    """The block solve with ``group`` (one rank) bitwise the solve without:
+    X, every info field and the lockstep count; and the all-reduces it made
+    ``start`` + ``per_step`` a lockstep iteration, whatever the width."""
+    X, info, steps = block(A, torch.as_tensor(B), **kw)
+    comm.reset_counts()
+    Xg, info_g, steps_g = block(A, torch.as_tensor(B), group=group, **kw)
+    assert torch.equal(X, Xg) and steps == steps_g
+    for f in ("iterations", "residual", "status"):
+        assert torch.equal(getattr(info, f), getattr(info_g, f)), f
+    assert comm.counts()["all_reduce_sum"][0] == start + per_step * steps
+    return steps
+
+
+def test_block_solves_with_a_group_of_one_are_bitwise_without(group1):
+    """``_minres_block``/``_cocg_block`` with ``group=`` on a gloo group of
+    one rank give bitwise the solve without a group: every column reduction
+    goes through ``all_reduce_sum``, whose one-rank sum is the rank's own
+    partials. MINRES makes 2 all-reduces to start (4 with M: the β² gate)
+    and 2 a lockstep iteration, COCG 3 and 3."""
+    A, _ = _indefinite()
+    rng = np.random.default_rng(11)
+    B = rng.standard_normal((120, 4))
+    B[:, 1] = 0.0
+    assert _same_with_group(_minres_block, A, B, group1, 2, 2, tol=1e-10, max_iter=400) > 0
+    P = tprob.poisson3d(6, 6, 6, dtype=np.float64)
+    Bp = rng.standard_normal((216, 3))
+    _same_with_group(_minres_block, P, Bp, group1, 2, 4, M=tsp.DiagPrecond.new(P.diagonal()),
+                     tol=1e-10, max_iter=300)
+    C, dense = _complex_shifted()
+    Bc = rng.standard_normal((100, 3)) + 1j * rng.standard_normal((100, 3))
+    _same_with_group(_cocg_block, C, Bc, group1, 3, 3, tol=1e-10, max_iter=500)
+    M = tsp.ComplexDiagPrecond.new(torch.as_tensor(np.diag(dense).copy()))
+    _same_with_group(_cocg_block, C, Bc, group1, 3, 3, M=M, tol=1e-10, max_iter=500)
 
 
 @pytest.mark.parametrize("bands", ["int8", "bf16", "f32", "f64"])

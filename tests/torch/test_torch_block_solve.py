@@ -1,6 +1,6 @@
 """Cross tests of the port's block CG and ``batched`` against the JAX
 package's (mirrors ``tests/test_block_solve.py`` without its distributed
-case, which belongs to ROADMAP.md Queue 1 item 13): block CG's columns,
+case, which no cross test holds yet: ROADMAP.md Queue 3): block CG's columns,
 its shared Krylov space, Jacobi, a zero column, the breakdown, the complex
 Hermitian block, and the padded layout's per-column SpMVs; ``batched``
 BiCGStab, MINRES, COCG and CG.

@@ -6,8 +6,8 @@ and warm start, input validation, ``fold_jacobi``'s fold and unfold, the
 Jacobi fold through ``solve`` (and a ``DiagPrecond``, which the code
 refuses though the JAX package's docstring offers it), the wrong-bounds
 rollback, and ``solve``'s Gershgorin default on the unpadded layout.  The
-matrix-powers, distributed and HLO cases belong to ROADMAP.md Queue 1
-item 13.
+matrix-powers and distributed cases are in ``test_torch_dist_solve*.py``
+(``ca_cg_mpk``); the HLO case is a TPU artefact.
 
 Tolerances: f64 x to 1e-10 where the JAX package's x is the reference (its
 count within the band of ``test_serial_parity.py:183``, max(3, ⌈its/4⌉):

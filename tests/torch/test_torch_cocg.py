@@ -3,7 +3,7 @@
 complex Jacobi, COCG = CG on a real SPD system, the dense-oracle count, the
 ``solve`` route, warm start and zero rhs, the residual trace, and the
 breakdown exit.  The batched case is in ``test_torch_block_solve.py``;
-the distributed one waits for ``parallel/`` (ROADMAP.md Queue 1 item 13).
+the distributed one no cross test holds yet (ROADMAP.md Queue 3).
 
 Counts: on the complex-symmetric 8×8 grid the two packages stay in step
 (41 with the complex Jacobi and 45 without, at tol 1e-13): equal counts

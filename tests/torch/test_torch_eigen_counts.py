@@ -6,7 +6,9 @@ shift-invert's Σ(1 + lockstep iterations) over its inner block MINRES
 solves plus one, the rational filter's Σ(1 + lockstep iterations) over
 its node solves plus one per subspace iteration, and MINRES on a
 ShiftedOperator's K1 its + 2. The budgets are cut (convergence is the
-card's check, not this one's)."""
+card's check, not this one's). Phase 17's collective counts (``de_counts``)
+and its gates on a gloo group of one rank and on two spawned ranks, at
+10³ and 8³."""
 
 import importlib
 import os
@@ -53,6 +55,19 @@ def test_phase14_counts_hold_on_the_cpu(case, counters):
     out = fn(torch.device("cpu"), grid=GRID, **kw)
     if case != "shifted":
         assert out > 0
+
+
+def test_phase17_collectives_hold_on_the_cpu(counters, monkeypatch):
+    """Phase 17 as the card runs it, (a)-(c) on one gloo rank, then (d) on
+    two spawned gloo ranks, each driver at 10³ (LOBPCG) or 8³: no kernel
+    launched, every rank the same bits, each rank's collectives exactly
+    ``de_counts``, and (d)'s LOBPCG converged to the analytic λ."""
+    grids = {"lobpcg": GRID, "shift_invert": 8, "rational": 8}
+    monkeypatch.setattr(smoke, "DE_LOBPCG_MAX_ITER", 5)
+    monkeypatch.setattr(smoke, "RUN_COUNTS", {})    # no phase 14 run to compare with
+    monkeypatch.setattr(smoke, "DE_GRIDS", grids)
+    monkeypatch.setattr(smoke, "DE_GLOO_GRIDS", grids)
+    smoke.phase_dist_eigen(torch.device("cpu"))
 
 
 def test_phase14_analytic_eigenvalues():

@@ -6,7 +6,9 @@ every reported residual within its section's tolerance (×10), and
 ``eigen_tour`` matches its dense oracle to the 8 digits it prints, and
 ``distributed_demo`` solves the 16³ Poisson with each row-partitioning
 strategy on 2 gloo ranks and on one device to a true residual of 1e-11,
-the counts within the band of ``tests/test_serial_parity.py:183``."""
+the counts within the band of ``tests/test_serial_parity.py:183``, and
+finds the 2 smallest eigenvalues of the SPD 16×16 grid Laplacian with
+row-partitioned LOBPCG on the same ranks to 1e-8."""
 
 import importlib.util
 import os
@@ -90,10 +92,13 @@ def test_distributed_demo_solves_with_each_strategy(capsys):
     assert distributed_demo.main(["--device", "cpu", "--grid", "16"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert lines[0].startswith("ranks: 2 (gloo) on cpu; the 16³ Poisson, 4096 rows")
-    rows = [re.match(r"(.{28}): +(\d+) iters, true rel res (\S+)", ln) for ln in lines[1:]]
+    rows = [re.match(r"(.{28}): +(\d+) iters, true rel res (\S+)", ln) for ln in lines[1:-1]]
     assert [m.group(1).strip() for m in rows] == [
         "AllGatherELL + Jacobi", "HaloDIA + Jacobi", "DistPaddedDIA (kernels)",
         "single-device PaddedDIA"]
     its = [int(m.group(2)) for m in rows]
     assert all(float(m.group(3)) <= 1e-11 for m in rows), lines
     assert all(abs(k - its[-1]) <= max(3, -(-its[-1] // 4)) for k in its), its
+    eig = re.match(r"distributed_lobpcg k=2 +: +(\d+) iters, CONVERGED, max \|lam - dense\| "
+                   r"(\S+)$", lines[-1])
+    assert eig and float(eig.group(2)) <= 1e-8, lines[-1]

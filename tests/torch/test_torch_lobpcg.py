@@ -148,14 +148,27 @@ def test_insufficient_iterations_status(jax_draws):
     _agree(out, outj, 1e-6)
 
 
-def test_block_too_large_and_distributed_raise():
-    tA, _, _ = _spd_poisson(4)
+def test_block_too_large_and_distributed_raise(tmp_path):
+    """The 3k < n guard and the rows check, on one device and in the
+    distributed form (``group=``, here a gloo group of one rank), where X0
+    is the rank's rows of A's; the distributed form then runs (shifted
+    CholQR2 in place of QR) and finds the dense eigenvalues."""
+    import _dist_worker
+
+    tA, _, dense = _spd_poisson(4)
     with pytest.raises(IncompatibleMatrixFormat):
         tsp.lobpcg(tA, torch.zeros(16, 6, dtype=torch.float64), tol=1e-8, max_iter=10)
     with pytest.raises(IncompatibleMatrixFormat):
         tsp.lobpcg(tA, torch.zeros(15, 2, dtype=torch.float64), tol=1e-8, max_iter=10)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsp.lobpcg(tA, torch.zeros(16, 2, dtype=torch.float64), axis_name="rows")
+    with _dist_worker.one_rank_group(str(tmp_path)) as g:
+        with pytest.raises(IncompatibleMatrixFormat):
+            tsp.lobpcg(tA, torch.zeros(15, 2, dtype=torch.float64), tol=1e-8, group=g)
+        with pytest.raises(IncompatibleMatrixFormat):
+            tsp.lobpcg(tA, torch.zeros(16, 6, dtype=torch.float64), tol=1e-8, group=g)
+        X0 = torch.as_tensor(np.random.default_rng(3).standard_normal((16, 2)))
+        lam, X, info = tsp.lobpcg(tA, X0, tol=1e-9, max_iter=200, group=g)
+    info.raise_if_error()
+    np.testing.assert_allclose(lam.numpy(), np.linalg.eigvalsh(dense)[:2], atol=1e-7)
 
 
 def test_padded_kernel_operator_runs_k1b(jax_draws, monkeypatch):

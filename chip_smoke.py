@@ -8,11 +8,21 @@ Phases, each printing lines of its own:
    power limit as nvidia-smi reports them.
 2. build   — builds the CUDA kernels from ``sprsolve_tpu_torch/csrc`` with
    nvcc (one per source, in parallel); prints the build seconds.
-3. kernels — K1 (dia_spmv), K2 (dia_wdot, in all four variants) and K3
+3. kernels — K1 first at the edges of its 1024-row tile (``K1_EDGES``, at
+   most 65,280 rows: a last tile of 256·odd rows, halos wider than a tile,
+   odd offsets beyond its 128 staged rows, int8, bf16, f32 and f64 bands):
+   within Y_RTOL of its plain version, halos zero after a NaN block was
+   freed, one kernel per call, a CUDA-graph replay bitwise eager, the same
+   bits with the card said to have 1 or 7 SMs and with each body forced
+   (one thread per row; 4-row tiles with plain or streamed band loads),
+   and K3's y, K2's y and the
+   columns of a K1b block bitwise K1's.  Then K1 (dia_spmv), K2 (dia_wdot,
+   in all four variants) and K3
    (dia_dot) against their plain PyTorch versions on the card, on the 100³
    Poisson (int8 bands), a random band set that does not narrow, a
    bf16-exact set and an f64 set; narrow band storage must give bitwise the
-   output of the same values stored f32.  K4 (orth_norm) against its plain
+   output of the same values stored f32, and K1 the same bits on grids of
+   1 or 7 SMs and with each of its bodies.  K4 (orth_norm) against its plain
    version on f32 and f64 vectors of the same layout, with β and α as 0-d
    CUDA tensors.  K5 (dia_complex_spmv), K6 (dia_complex_dot, ``conj_x``
    false and true) and K7 (dia_complex_wdot, all four variants) against
@@ -228,16 +238,21 @@ Phases, each printing lines of its own:
    the residuals within tol, the lockstep iterations within the band of
    phase 14 (b)'s; ``distributed_rational_filter_eigs``
    on 32³ (m0 = 8): the analytic λ; ms per lockstep iteration beside
-   phase 14's; µs per all-reduce of a 12×12 Gram matrix. (d) Then two
-   spawned gloo ranks on cuda:0: LOBPCG at 32³ run until it converges
+   phase 14's; µs per all-reduce of a 12×12 Gram matrix. (d) Two
+   gloo ranks on cuda:0: LOBPCG at 32³ run until it converges
    (to tol/5 in at most 400 steps), held CONVERGED with the four smallest
    analytic λ (with multiplicity) within tol·|λ| and the measured
    residuals within tol; shift-invert and the filter (m0 = 12) at 16³:
    every rank's λ, X bits and info the same, λ held as in (a)-(c), each
-   rank's collectives exact.
+   rank's collectives exact. (a)-(c)'s rank and (d)'s two are processes
+   spawned before phase 12 and run beside phases 12-14 (the parts' times,
+   and phases 12-14's, are taken beside each other's work on the same
+   card and cores); they are checked after phase 14, whose counts (a)-(c)
+   are held to, before phase 15.
 
 The line before the last is a JSON object with one entry per kernel (K1-K7
-and K1b, each with its warm ``ms`` and its ``cold_ms``; K1b's launches are
+and K1b, each with its warm ``ms`` and its ``cold_ms``, and the bound's
+share of each, ``share`` and ``cold_share``; K1b's launches are
 phase 14 (a)'s, the LOBPCG run, with (b)'s and (c)'s printed beside them);
 the last line is ``{"ok": true, "device": {...}}``.  Any failure raises, and
 the script exits non-zero.  It imports no JAX.
@@ -543,6 +558,7 @@ def phase_kernels(dev):
     rng = np.random.default_rng(SEED + 1)
     errs = dict.fromkeys(KERNELS, 0.0)
     times, stats = {}, {}
+    check_k1_edges(dev, errs)
     for name, op, nnz in band_sets(dev):
         dt = op.vdtype
         mk = lambda: op.pad_vec(torch.as_tensor(rng.standard_normal(op.n), dtype=dt,
@@ -561,6 +577,7 @@ def phase_kernels(dev):
             y_wide = pd.dia_spmv(wide, x, op.offsets, op.h)
             if not torch.equal(y, y_wide):
                 raise AssertionError(f"{name}: narrow and f32 bands differ (K1)")
+        check_k1_grids(name, op, x, y)
         # K2, four variants
         for wv in (w, None):
             for dv in (None, dinv):
@@ -622,6 +639,123 @@ def phase_kernels(dev):
         if name == "poisson100_int8":
             stats = real_kernel_stats(op, x, dinv, mk)
     return errs, times, stats
+
+
+# --- phase 3, K1 at the edges of its tile ------------------------------------
+# name → (offsets, n, vector dtype, band values): K1 walks tiles of DOT_TILE
+# rows with DOT_HALO = 128 staged rows on each side, so these reach a last
+# tile of 256·odd rows, halos wider than a tile, odd offsets beyond the
+# staged window (read through L2, unaligned) and every band storage
+K1_EDGES = {
+    "k1_odd_tiles": ((-1, 0, 1), 256 * 3, np.float32, "random"),
+    "k1_odd_tiles_int8": ((-3, -1, 0, 1, 3), 256 * 9, np.float32, "int8"),
+    "k1_halo_beyond_tile": ((-1500, -3, 0, 2, 1500), 256 * 9, np.float32, "int8"),
+    "k1_far_odd_offsets": ((-4097, -301, -1, 0, 1, 299, 4095), 256 * 63, np.float32,
+                           "random"),
+    "k1_bf16": ((-301, -1, 0, 1, 301), 256 * 63, np.float32, "bf16"),
+    "k1_f64": ((-2001, -129, -1, 0, 1, 131, 2001), 256 * 11, np.float64, "random"),
+    "k1_f64_wide": ((-32769, -257, -1, 0, 1, 257, 32769), 256 * 255, np.float64, "random"),
+}
+
+
+def k1_edge_operator(name, dev):
+    offsets, n, dt, kind = K1_EDGES[name]
+    rng = np.random.default_rng(SEED + 12)
+    if kind == "int8":
+        vals = rng.integers(-3, 4, (len(offsets), n))
+    elif kind == "bf16":   # quarters plus an eighth: bf16, not int8
+        vals = rng.integers(-20, 21, (len(offsets), n)) * 0.25 + 0.125
+    else:
+        vals = rng.uniform(0.5, 1.5, (len(offsets), n))
+    op = spt.PaddedDIA.from_dia(DIA(bands=torch.as_tensor(vals.astype(dt)), offsets=offsets,
+                                    shape=(n, n)), device=dev)
+    want = {"int8": torch.int8, "bf16": torch.bfloat16}.get(kind, op.vdtype)
+    assert op.bands.dtype == want, (name, op.bands.dtype)
+    return op
+
+
+def check_k1_grids(name, op, x, y) -> None:
+    """K1's y on ``x`` bitwise ``y``: walking its 4-row tiles with the card
+    said to have SPMM_SMS SMs (one wave of a few blocks, each walking
+    several tiles), and with each of its bodies forced: one thread per row,
+    and the 4-row tiles with plain or streamed band loads."""
+    saved = pd._sm_count, pd.k1_by_quads, pd.stream_bands
+    try:
+        pd.k1_by_quads = lambda *_: True
+        for sms in SPMM_SMS:
+            pd._sm_count = lambda index, sms=sms: sms
+            if not torch.equal(pd.dia_spmv(op.bands, x, op.offsets, op.h), y):
+                raise AssertionError(f"{name} K1: the grid of {sms} SMs differs")
+        pd._sm_count = saved[0]
+        for quads, streamed in ((False, False), (True, False), (True, True)):
+            pd.k1_by_quads = lambda *_, q=quads: q
+            pd.stream_bands = lambda *_, s=streamed: s
+            if not torch.equal(pd.dia_spmv(op.bands, x, op.offsets, op.h), y):
+                raise AssertionError(f"{name} K1: quads={quads}, streamed={streamed} differs")
+    finally:
+        pd._sm_count, pd.k1_by_quads, pd.stream_bands = saved
+
+
+def check_k1_edges(dev, errs) -> None:
+    """Phase 3, K1 at K1_EDGES: within Y_RTOL of the plain version, halos
+    exactly zero after a NaN block was freed, one kernel per call under
+    torch.profiler (and one count), a CUDA-graph replay bitwise eager, the
+    same bits on one-wave grids of SPMM_SMS SMs and with each of its
+    bodies (:func:`check_k1_grids`), narrow bands bitwise the
+    same values stored wide, and K3's y, K2's y (unfolded, and folded
+    against K1 on x ⊙ dinv) and every column of a 3-column K1b block
+    bitwise K1's."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 13)
+    for name in K1_EDGES:
+        op = k1_edge_operator(name, dev)
+        dt, b, o, h = op.vdtype, op.bands, op.offsets, op.h
+        X2 = op.pad_block(torch.as_tensor(rng.standard_normal((op.n, 3)), dtype=dt, device=dev))
+        x = X2[:, 0].contiguous()
+        dirty(x)
+        before = pd.dia_spmv.launches
+        y = pd.dia_spmv(b, x, o, h)
+        if pd.dia_spmv.launches != before + 1:
+            raise AssertionError(f"{name} K1: {pd.dia_spmv.launches - before} counts a call")
+        check_halo(f"{name} K1 y", op, y)
+        scale = pd.dia_spmv_plain(b.to(dt).abs(), x.abs(), o, h).max()
+        e = check_close(f"{name} K1 y", y, pd.dia_spmv_plain(b, x, o, h), scale, Y_RTOL[dt])
+        errs["dia_spmv"] = max(errs["dia_spmv"], e)
+        if b.dtype != dt and not torch.equal(pd.dia_spmv(b.to(dt), x, o, h), y):
+            raise AssertionError(f"{name}: narrow and wide bands differ (K1)")
+        check_k1_grids(name, op, x, y)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            pd.dia_spmv(b, x, o, h)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y_graph = pd.dia_spmv(b, x, o, h)
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            if not torch.equal(y_graph, y):
+                raise AssertionError(f"{name} K1: a graph replay differs from eager")
+        ev = kernel_events(lambda: pd.dia_spmv(b, x, o, h))
+        if len(ev) != 1 or "dia_spmv_kernel" not in ev[0][0]:
+            raise AssertionError(f"{name} K1: one call ran {ev}, not one kernel")
+        dinv = op.pad_vec(torch.as_tensor(rng.uniform(0.5, 2.0, op.n), dtype=dt, device=dev))
+        Y = pd.dia_spmm(b, X2, o, h)
+        for j in range(3):
+            xj = X2[:, j].contiguous()
+            yj = pd.dia_spmv(b, xj, o, h)
+            if not (torch.equal(Y[:, j], yj) and torch.equal(pd.dia_dot(b, xj, o, h)[0], yj)
+                    and torch.equal(pd.dia_wdot(b, xj, None, None, o, h)[0], yj)
+                    and torch.equal(pd.dia_wdot(b, xj, None, dinv, o, h)[0],
+                                    pd.dia_spmv(b, xj * dinv, o, h))):
+                raise AssertionError(f"{name}: K1b column {j}, K3's or K2's y is not K1's")
+        log("kernels", set=name, kernel="K1", bands=str(b.dtype).replace("torch.", ""),
+            n_pad=op.n_pad, h=h, max_abs_err=f"{e:.3e}",
+            result="within Y_RTOL of plain; halos zero; one kernel a call; graph replay, "
+            "grids of " + " and ".join(map(str, SPMM_SMS)) + " SMs, each body, narrow bands, "
+            "K3/K2 y and K1b columns bitwise K1's")
+    log("kernels", kernel="K1 edges", seconds=f"{time.perf_counter() - t0:.2f}")
 
 
 def check_dot_kernels(name, op, x, w, dinv, profile: bool) -> None:
@@ -3853,7 +3987,12 @@ DE_CONVERGE_MAX_ITER = 400
 # cluster with room to spare (m0 = 8 leaves none: the radius calibration
 # never settles, on one device as on two ranks)
 DE_SMALL_GRID_M0 = 12
-DE_TIMEOUT_S = 420          # the whole of (d) in its processes
+# phase 17's processes, from their start (before phase 12) to their end
+DE_TIMEOUT_S = 780
+# the module settings phase 17's spawned processes take from the one that
+# starts them (the CPU test shrinks some)
+DE_SETTINGS = ("DE_GRIDS", "DE_GLOO_GRIDS", "DE_LOBPCG_MAX_ITER", "STRICT", "SI_MAX_ITER",
+               "SI_INNER_MAX_ITER", "RF_INNER_MAX_ITER")
 
 
 def de_counts(name: str, its: int, steps: list, passes: int) -> dict:
@@ -3992,57 +4131,52 @@ def de_check(tag, name, grid, A, lam, X, info, steps, cc, c, converge=False) -> 
     return fields
 
 
-def phase_dist_eigen_nccl(dev):
-    """Phase 17 (a)-(c): each distributed eigen driver at phase 14's width
-    on one rank under NCCL (gloo off the card), beside phase 14's
-    single-device run: the counts within its band, ms per step or per
-    lockstep iteration; and the µs of one all-reduce of a 12×12 Gram
-    matrix."""
+def _dist_eigen_nccl(dev, store, out_dir, settings):
+    """Phase 17 (a)-(c) in a spawned process: each distributed eigen driver
+    at phase 14's width on one rank under NCCL (gloo off the card), its
+    gates (:func:`de_check`), count and wall pickled into ``out_dir`` for
+    the parent, which holds the counts to phase 14's; and the µs of one
+    all-reduce of a 12×12 Gram matrix."""
+    import pickle
+    import traceback
+
     import torch.distributed as dist
 
     from sprsolve_tpu_torch.parallel import comm
 
-    with tempfile.TemporaryDirectory() as tmp:
-        backend = "nccl" if dev.type == "cuda" else "gloo"
-        dist.init_process_group(backend, init_method=dist_store(tmp), rank=0, world_size=1)
+    globals().update(settings)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.set_num_threads(2)   # beside the parent and (d)'s ranks on the host's cores
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    res = {"backend": backend, "parts": []}
+    try:
+        dist.init_process_group(backend, init_method=store, rank=0, world_size=1)
         try:
-            g = dist.group.WORLD
             for part, (name, grid) in zip("abc", DE_GRIDS.items()):
                 A, lam, X, info, steps, cc, c, wall = de_run(name, grid, dev)
-                tag = f"dist-eigen ({part}) {name}"
-                fields = de_check(tag, name, grid, A, lam, X, info, steps, cc, c)
-                its = int(info.iterations)
-                ref = RUN_COUNTS.get(name)   # phase 14's run of the same driver: (grid, ...)
-                if name == "lobpcg":
-                    fields["ms_per_step"] = f"{wall / max(its, 1) * 1e3:.4f}"
-                    if ref is not None and ref[0] == grid:
-                        if abs(its - ref[1]) > parity_band(ref[1]):
-                            raise AssertionError(f"{tag}: {its} steps against phase 14's {ref[1]}")
-                        fields.update(phase14_iterations=ref[1], phase14_lam0=f"{ref[2]:.7e}",
-                                      phase14_ms_per_step=f"{ref[3]:.4f}")
-                else:
-                    n = sum(steps)
-                    fields["ms_per_lockstep_iteration"] = f"{wall / max(n, 1) * 1e3:.4f}"
-                    if ref is not None and ref[0] == grid:
-                        if name == "shift_invert" and abs(n - ref[2]) > parity_band(ref[2]):
-                            raise AssertionError(f"{tag}: {n} lockstep iterations against "
-                                                 f"phase 14 (b)'s {ref[2]}")
-                        fields.update(phase14_lockstep_iterations=ref[2],
-                                      phase14_ms_per_lockstep_iteration=f"{ref[3]:.4f}")
-                log("dist-eigen", part=part, backend=backend, ranks=1, driver=name,
-                    grid=f"{grid}^3", wall_s=f"{wall:.4f}", **fields)
+                fields = de_check(f"dist-eigen ({part}) {name}", name, grid, A, lam, X, info,
+                                  steps, cc, c)
+                res["parts"].append((part, name, grid, int(info.iterations), sum(steps), wall,
+                                     fields))
             G = torch.ones((3 * EIGS_K, 3 * EIGS_K), device=dev)
-            log("dist-eigen", part="a-c", backend=backend,
-                all_reduce_us_gram_12x12=f"{dist_call_us(lambda: comm.all_reduce_sum(G, g)):.2f}"
-                if dev.type == "cuda" else "not measured")
+            g = dist.group.WORLD
+            res["all_reduce_us"] = (dist_call_us(lambda: comm.all_reduce_sum(G, g))
+                                    if dev.type == "cuda" else None)
         finally:
             dist.destroy_process_group()
+    except Exception:   # reported by the parent, which fails the phase
+        res["error"] = traceback.format_exc()
+    finally:
+        res["t_end"] = time.time()
+        with open(os.path.join(out_dir, "nccl.pkl"), "wb") as f:
+            pickle.dump(res, f)
 
 
-def _dist_eigen_rank(rank, dev, store, out_dir, grids):
+def _dist_eigen_rank(rank, dev, store, out_dir, settings):
     """One rank of phase 17 (d): a gloo group with every rank on ``dev``,
-    each driver on its grid of ``grids`` (LOBPCG to convergence), its λ, X
-    bits (rank 0 also X), info, inner steps and counts pickled into
+    each driver on its grid of DE_GLOO_GRIDS (LOBPCG to convergence), its
+    λ, X bits (rank 0 also X), info, inner steps and counts pickled into
     ``out_dir``."""
     import datetime
     import hashlib
@@ -4051,6 +4185,7 @@ def _dist_eigen_rank(rank, dev, store, out_dir, grids):
 
     import torch.distributed as dist
 
+    globals().update(settings)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     torch.set_num_threads(2)   # two ranks on the host's cores
@@ -4058,7 +4193,7 @@ def _dist_eigen_rank(rank, dev, store, out_dir, grids):
                             timeout=datetime.timedelta(seconds=300))
     res = {}
     try:
-        for name, grid in grids.items():
+        for name, grid in DE_GLOO_GRIDS.items():
             _, lam, X, info, steps, cc, c, wall = de_run(name, grid, dev, dist.group.WORLD,
                                                          converge=True)
             Xh = X.cpu().numpy()
@@ -4069,49 +4204,118 @@ def _dist_eigen_rank(rank, dev, store, out_dir, grids):
     except Exception:   # reported by the parent, which fails the phase
         res["error"] = traceback.format_exc()
     finally:
+        res["t_end"] = time.time()
         with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
         dist.destroy_process_group()
 
 
-def phase_dist_eigen_gloo(dev):
-    """Phase 17 (d): DIST_WORLD gloo ranks on ``dev`` (spawned, each given
-    DE_GLOO_GRIDS), at most DE_TIMEOUT_S (a rank still running then is
-    killed and fails the phase); every rank's λ, X bits and info the same,
-    λ as (a)-(c) hold it and LOBPCG converged, each rank's collectives as
-    :func:`de_counts`."""
+@dataclasses.dataclass
+class DistEigenRun:
+    """Phase 17's spawned processes (``procs[0]`` (a)-(c), the rest (d)'s
+    ranks), the directory they write their results to, and their start."""
+    procs: list
+    tmp: tempfile.TemporaryDirectory
+    t0: float
+    t_start: float
+
+    def stop(self) -> None:
+        """Kill what still runs and remove the directory (idempotent)."""
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        self.tmp.cleanup()
+
+
+def start_dist_eigen(dev) -> DistEigenRun:
+    """Phase 17 started: (a)-(c)'s NCCL rank and (d)'s DIST_WORLD gloo
+    ranks spawned on ``dev``, each given this module's DE_SETTINGS (a
+    spawned process imports the module afresh). They run beside whatever
+    the caller does next; :func:`phase_dist_eigen` joins and checks them,
+    and the caller stops them if it fails before that."""
+    settings = {k: globals()[k] for k in DE_SETTINGS}
+    ctx = torch.multiprocessing.get_context("spawn")
+    tmp = tempfile.TemporaryDirectory()
+    stores = [os.path.join(tmp.name, s) for s in ("nccl", "gloo")]
+    for s in stores:
+        os.mkdir(s)
+    procs = [ctx.Process(target=_dist_eigen_nccl,
+                         args=(dev, dist_store(stores[0]), tmp.name, settings))]
+    procs += [ctx.Process(target=_dist_eigen_rank,
+                          args=(r, dev, dist_store(stores[1]), tmp.name, settings))
+              for r in range(DIST_WORLD)]
+    run = DistEigenRun(procs, tmp, time.perf_counter(), time.time())
+    try:
+        for p in procs:
+            p.start()
+    except BaseException:
+        run.stop()
+        raise
+    return run
+
+
+def dist_eigen_results(run: DistEigenRun) -> tuple:
+    """Joins phase 17's processes (all of them within DE_TIMEOUT_S of their
+    start; one still running then is killed and fails the phase): ``((a)-(c)'s
+    result, [each (d) rank's result])``."""
     import pickle
 
+    try:
+        for p in run.procs:
+            p.join(timeout=max(1.0, DE_TIMEOUT_S - (time.perf_counter() - run.t0)))
+        out = []
+        for p, name in zip(run.procs, ["nccl"] + [f"rank{r}" for r in range(DIST_WORLD)]):
+            path = os.path.join(run.tmp.name, f"{name}.pkl")
+            if p.exitcode != 0 or not os.path.exists(path):
+                raise AssertionError(f"dist-eigen {name} exited {p.exitcode}")
+            with open(path, "rb") as f:
+                out.append(pickle.load(f))
+    finally:
+        run.stop()
+    for name, res in zip(["(a)-(c)"] + [f"rank {r}" for r in range(DIST_WORLD)], out):
+        if "error" in res:
+            raise AssertionError(f"dist-eigen {name}:\n{res['error']}")
+    return out[0], out[1:]
+
+
+def log_dist_eigen_nccl(res: dict) -> None:
+    """Phase 17 (a)-(c)'s lines, each count held to the band of phase 14's
+    run of the same driver on the same grid (LOBPCG's steps, shift-invert's
+    lockstep iterations), its ms per step or per lockstep iteration beside
+    phase 14's."""
+    for part, name, grid, its, n, wall, fields in res["parts"]:
+        tag = f"dist-eigen ({part}) {name}"
+        ref = RUN_COUNTS.get(name)   # phase 14's run of the same driver: (grid, ...)
+        if name == "lobpcg":
+            fields["ms_per_step"] = f"{wall / max(its, 1) * 1e3:.4f}"
+            if ref is not None and ref[0] == grid:
+                if abs(its - ref[1]) > parity_band(ref[1]):
+                    raise AssertionError(f"{tag}: {its} steps against phase 14's {ref[1]}")
+                fields.update(phase14_iterations=ref[1], phase14_lam0=f"{ref[2]:.7e}",
+                              phase14_ms_per_step=f"{ref[3]:.4f}")
+        else:
+            fields["ms_per_lockstep_iteration"] = f"{wall / max(n, 1) * 1e3:.4f}"
+            if ref is not None and ref[0] == grid:
+                if name == "shift_invert" and abs(n - ref[2]) > parity_band(ref[2]):
+                    raise AssertionError(f"{tag}: {n} lockstep iterations against "
+                                         f"phase 14 (b)'s {ref[2]}")
+                fields.update(phase14_lockstep_iterations=ref[2],
+                              phase14_ms_per_lockstep_iteration=f"{ref[3]:.4f}")
+        log("dist-eigen", part=part, backend=res["backend"], ranks=1, driver=name,
+            grid=f"{grid}^3", wall_s=f"{wall:.4f}", **fields)
+    us = res["all_reduce_us"]
+    log("dist-eigen", part="a-c", backend=res["backend"],
+        all_reduce_us_gram_12x12="not measured" if us is None else f"{us:.2f}")
+
+
+def log_dist_eigen_gloo(results: list, t_start: float) -> None:
+    """Phase 17 (d)'s lines: every rank's λ, X bits and info the same, λ
+    as (a)-(c) hold it and LOBPCG converged, each rank's collectives as
+    :func:`de_counts`; its wall from the start to the last rank's end."""
     from sprsolve_tpu_torch.errors import SolveInfo
 
-    grids = dict(DE_GLOO_GRIDS)   # the spawned ranks import this module afresh
-    ctx = torch.multiprocessing.get_context("spawn")
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        procs = [ctx.Process(target=_dist_eigen_rank, args=(r, dev, dist_store(tmp), tmp, grids))
-                 for r in range(DIST_WORLD)]
-        try:
-            for p in procs:
-                p.start()
-            for p in procs:
-                p.join(timeout=max(1.0, DE_TIMEOUT_S - (time.perf_counter() - t0)))
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        wall = time.perf_counter() - t0
-        results = []
-        for r, p in enumerate(procs):
-            path = os.path.join(tmp, f"rank{r}.pkl")
-            if p.exitcode != 0 or not os.path.exists(path):
-                raise AssertionError(f"dist-eigen rank {r} exited {p.exitcode}")
-            with open(path, "rb") as f:
-                results.append(pickle.load(f))
-    for r, res in enumerate(results):
-        if "error" in res:
-            raise AssertionError(f"dist-eigen rank {r}:\n{res['error']}")
-    for name, grid in grids.items():
+    for name, grid in DE_GLOO_GRIDS.items():
         s0 = results[0][name]
         for r, res in enumerate(results):
             s = res[name]
@@ -4128,17 +4332,22 @@ def phase_dist_eigen_gloo(dev):
                               s["steps"], s["comm"], s["launches"], converge=True)
             log("dist-eigen", part="d", backend="gloo", ranks=DIST_WORLD, rank=r, driver=name,
                 grid=f"{grid}^3", wall_s=f"{s['wall']:.4f}", bits="identical", **fields)
-    log("dist-eigen", part="d", wall_s=f"{wall:.2f}",
+    log("dist-eigen", part="d", wall_s=f"{max(res['t_end'] for res in results) - t_start:.2f}",
         note="two ranks share one card: correctness and collective counts, not scaling")
 
 
-def phase_dist_eigen(dev):
-    """Phase 17: the distributed eigensolvers, (a)-(c) on one NCCL rank,
-    then (d) on two gloo ranks sharing the card."""
-    t0 = time.perf_counter()
-    phase_dist_eigen_nccl(dev)
-    phase_dist_eigen_gloo(dev)
-    log("dist-eigen", seconds=f"{time.perf_counter() - t0:.2f}")
+def phase_dist_eigen(dev, run: DistEigenRun | None = None):
+    """Phase 17: the distributed eigensolvers. ``run``: its processes as
+    :func:`start_dist_eigen` started them (the script starts them before
+    phase 12, so that they run beside phases 12-14); without it they are
+    started here and waited for. Their results are checked here, after
+    phase 14, whose counts (a)-(c) are held to."""
+    run = run or start_dist_eigen(dev)
+    nccl, ranks = dist_eigen_results(run)
+    log_dist_eigen_nccl(nccl)
+    log_dist_eigen_gloo(ranks, run.t_start)
+    log("dist-eigen", seconds=f"{time.perf_counter() - run.t0:.2f}",
+        processes_wall_s=f"{max(r['t_end'] for r in [nccl] + ranks) - run.t_start:.2f}")
 
 
 def main() -> int:
@@ -4185,18 +4394,27 @@ def main() -> int:
     phase_config4(dev, launches["dia_wdot"] // 2)
     phase_relayed(dev)
     phase_exact_and_lsqr(dev)
-    phase_layouts(dev)
-    phase_krylov(dev)
-    launches["dia_spmm"] = phase_eigen(dev)
+    # phase 17's processes run beside phases 12-14 (their host analysis and
+    # lockstep loops leave the card and most cores idle) and are checked
+    # after phase 14, before phase 15's timer comparison
+    dist_eigen = start_dist_eigen(dev)
+    try:
+        phase_layouts(dev)
+        phase_krylov(dev)
+        launches["dia_spmm"] = phase_eigen(dev)
+        phase_dist_eigen(dev, dist_eigen)
+    finally:
+        dist_eigen.stop()
     phase_front(dev, k1_stats=stats["dia_spmv"])
     phase_dist(dev)
-    phase_dist_eigen(dev)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name],
          **{k: stats[name][k] for k in ("ms", "cold_ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}}
+                                         "bound_by", "library_ms")},
+         "share": stats[name]["bound_ms"] / stats[name]["ms"],
+         "cold_share": stats[name]["bound_ms"] / stats[name]["cold_ms"]}
         for name, (src, replaces) in KERNELS.items()
     ]
     print(json.dumps({"kernels": kernels}))

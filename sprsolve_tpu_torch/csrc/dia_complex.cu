@@ -36,7 +36,7 @@
 // that is 37.3 MB for K5 and K6 (11.1 us at 3.35 TB/s) and 45.5 MB for K7
 // with the fold and w = x (13.6 us).
 //
-// K5 (one thread per row, ROW_TILE rows per block, as dia_spmv.cu's K1)
+// K5 (one thread per row, ROW_TILE rows per block, as dia_spmv.cu's first K1)
 // reaches 0.64 of its bound and keeps its first design.
 //
 // K6 and K7 (dia_complex_dots_kernel) are the complex counterpart of

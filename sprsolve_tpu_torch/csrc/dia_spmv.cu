@@ -29,11 +29,40 @@
 // D * band_bytes + 2 * vec_bytes (K1 and K3), plus vec_bytes for dinv and
 // for w (K2), at 2 flops per band: far below any compute limit.
 //
-// K1's design: one thread per row, ROW_TILE rows per block, every band row,
-// the x body and y read and written coalesced; the D shifted reads of x are
-// served from L1/L2, so x costs about one HBM pass; the offsets live in the
-// kernel's parameter space and the band loop is unrolled to MAX_DIAGS with
-// an early exit, so no offset is indexed dynamically.
+// K1's design (it replaced one thread per row, 3907 blocks of 256 at 1M
+// rows with a tail wave, which reached 0.309 of the bound cold): K3's tile
+// without its dot.  A thread owns 4 consecutive rows of a DOT_TILE-row
+// tile; the block stages the tile's x window, DOT_HALO rows on each side,
+// in shared memory with one 16-byte load per thread (plus the halo quads),
+// and bands with |offset| <= DOT_HALO read their shifted quads there (two
+// aligned quads and a select); the others read x through L2, a vector load
+// where the offset keeps 16-byte alignment.  The bands are read 4 rows at
+// a time (int8 as 4 bytes, bf16 as 8, f32 as float4, f64 as two double2).
+// One wave of blocks, blocks_per_sm<V>() times the SM count, walks the
+// tiles; the walk also clears both halos of y, for any h <= n_pad.
+// Where its threads of 4 rows would fill less than half the card's thread
+// slots (fewer than 540k rows on an H100; the caller decides, quads = 0),
+// K1 runs the first design's body instead, one thread per row and ROW_TILE
+// rows a block: four times the warps in flight.  At the 64^3 Poisson
+// (262k rows) the 4-row tiles ran 0.3-1.2 us slower warm and 0.4-1.7 us
+// cold than that body (PERF.md, section 6).
+// The caller picks the band loads (stream_bands): plain where a call's
+// bytes (bands, x and y) fit in L2, so the next call finds the bands there;
+// with the streaming hint (ld.global.cs, evict first) where they do not,
+// as nothing of one call then stays for the next, and streaming the bands
+// keeps x in L2 for the far offsets.  The shapes timed on each side of
+// that line, both ways (PERF.md, section 6): the 100^3 Poisson in f64
+// (72 MB a call: streamed faster warm and cold) and with f32 bands (36 MB:
+// streamed slower warm, faster cold), and the 64^3 Poisson.
+// Each row sums over the bands in order d = 0 .. nd - 1 as
+// acc = fma(widen(band), x, acc) from 0, spelled out (madd), so y does not
+// depend on the compiler's contraction; K1b, K2 and K3 sum the same way,
+// so their y is K1's bit for bit.  No dot, so no ticket or scratch.
+// Tried on the H100 and slower at every band storage (PERF.md, section 6):
+// a ring of 2 stages of each tile's x window and band rows in shared
+// memory, filled by cp.async.bulk from one producer warp with mbarriers
+// (the Hopper path: no registers spent on addresses); with one tile a
+// block, its two waits a tile add latency that nothing hides.
 //
 // K1b's design: the block is row-major, (h + n_pad + h, m): row r of the
 // padded layout holds entry r of every column, so a column is a strided
@@ -47,9 +76,8 @@
 // it from one address (a broadcast), so each band element is read from
 // memory once per row.  X's shifted reads X[h + i + off_d][j..j+W) and Y's
 // writes are whole 16-byte accesses, coalesced across the warp.  Each
-// entry sums over the bands in K1's order with K1's expression,
-// acc = acc + widen(band) * x, which nvcc fuses into the same FMA, so
-// column j equals K1 on column j bit for bit.  The walk also clears the h
+// entry sums over the bands in K1's order with K1's fma (madd), so column j
+// equals K1 on column j bit for bit.  The walk also clears the h
 // halo rows at each end.  HBM bytes: the bands once plus m * (x + y).
 // A first version with one entry per thread ran at 0.21 of this bound,
 // slower than m K1 calls (PERF.md, section 6): per entry it issued as many
@@ -88,8 +116,8 @@
 //    registers, cost K3 about a microsecond.)
 // Tried on the H100 and slower (PERF.md, section 6): issuing every global read
 // of a tile as cp.async before the first wait (57-92 registers, fewer
-// blocks per SM); and K1's one row per thread, 3907 blocks, with the same
-// ticket (the 3907 atomicAdds on one counter cost K3 some 7 us).
+// blocks per SM); and the first K1's one row per thread, 3907 blocks, with
+// the same ticket (the 3907 atomicAdds on one counter cost K3 some 7 us).
 // The launchers allocate nothing and never synchronise; they launch on the
 // caller's stream and return cudaGetLastError().
 
@@ -106,8 +134,8 @@
 #define SPMM_THREADS 256                // threads of a K1b block: one tile
 #define SPMM_MAX_ENTRIES 0x7fffff00LL   // K1b blocks hold fewer entries
 
-// K2/K3 blocks that share an SM: 8 (all its 2048 threads) in f32, where the
-// kernel fits 32 registers; 4 in f64
+// K1-K3 blocks that share an SM: 8 (all its 2048 threads) in f32, where the
+// kernels fit 32 registers; 4 in f64
 template <typename V>
 __host__ __device__ constexpr int blocks_per_sm() { return sizeof(V) == 4 ? 8 : 4; }
 
@@ -129,6 +157,10 @@ template <>
 __device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 b) {
   return __bfloat162float(b);
 }
+
+// acc + b * x rounded once: the one expression every SpMV here sums with
+__device__ __forceinline__ float madd(float b, float x, float acc) { return __fmaf_rn(b, x, acc); }
+__device__ __forceinline__ double madd(double b, double x, double acc) { return __fma_rn(b, x, acc); }
 
 template <typename V>
 __device__ __forceinline__ V warp_sum(V v) {
@@ -157,28 +189,22 @@ __device__ __forceinline__ V block_sum(V v, V* smem) {
   return v;
 }
 
-// sum over the band loop for one row; xi points at row i's body entry
+// K1 on few rows (see the header): one thread per row, ROW_TILE rows a
+// block; the first h threads clear both halos (h <= n_pad)
 template <typename V, typename B>
-__device__ __forceinline__ V band_accumulate(const B* __restrict__ bands,
-                                             const V* __restrict__ xi,
-                                             long long i, long long n_pad,
-                                             const Offsets& offs) {
+__global__ void __launch_bounds__(ROW_TILE)
+dia_spmv_kernel_rows(const B* __restrict__ bands, const V* __restrict__ x,
+                     V* __restrict__ y, long long n_pad, long long h, Offsets offs) {
+  const long long i = (long long)blockIdx.x * ROW_TILE + threadIdx.x;
+  const V* xi = x + h + i;
   V acc = V(0);
 #pragma unroll
   for (int d = 0; d < MAX_DIAGS; ++d) {
     if (d >= offs.nd) break;
-    acc = acc + widen<V>(bands[(long long)d * n_pad + i]) * xi[offs.off[d]];
+    acc = madd(widen<V>(bands[(long long)d * n_pad + i]), xi[offs.off[d]], acc);
   }
-  return acc;
-}
-
-template <typename V, typename B>
-__global__ void __launch_bounds__(ROW_TILE)
-dia_spmv_kernel(const B* __restrict__ bands, const V* __restrict__ x,
-                V* __restrict__ y, long long n_pad, long long h, Offsets offs) {
-  const long long i = (long long)blockIdx.x * ROW_TILE + threadIdx.x;
-  y[h + i] = band_accumulate<V, B>(bands, x + h + i, i, n_pad, offs);
-  if (i < h) {  // h <= n_pad: the first h threads clear both halos
+  y[h + i] = acc;
+  if (i < h) {
     y[i] = V(0);
     y[h + n_pad + i] = V(0);
   }
@@ -249,7 +275,7 @@ dia_spmm_kernel(const B* __restrict__ bands, const V* __restrict__ x,
       const V b = widen<V>(bands[(long long)d * n_pad + i]);
       const Group<V, W> xv = ld_group<V, W>(xb + e + offs.off[d] * m);
 #pragma unroll
-      for (int w = 0; w < W; ++w) acc.v[w] = acc.v[w] + b * xv.v[w];
+      for (int w = 0; w < W; ++w) acc.v[w] = madd(b, xv.v[w], acc.v[w]);
     }
     st_group<V, W>(yb + e, acc);
   }
@@ -260,7 +286,7 @@ dia_spmm_kernel(const B* __restrict__ bands, const V* __restrict__ x,
   }
 }
 
-// --- K2 and K3 ---------------------------------------------------------------
+// --- K1, K2 and K3 ----------------------------------------------------------
 // Four consecutive entries; VW of them fill one 16-byte access.
 template <typename V>
 struct Quad {
@@ -340,35 +366,88 @@ __device__ __forceinline__ Quad<V> lds_quad(const V* s, int k) {
   return q;
 }
 
-// four widened band values of rows i..i+3 (p 4-element aligned)
-template <typename V, typename B>
-__device__ __forceinline__ Quad<V> ld_band_quad(const B* p);
+// *p, with the streaming hint (ld.global.cs, evict first) when STREAM
+template <bool STREAM, typename T>
+__device__ __forceinline__ T ld_hint(const T* p) {
+  if constexpr (STREAM) return __ldcs(p);
+  else return *p;
+}
 
-template <>
-__device__ __forceinline__ Quad<float> ld_band_quad<float, int8_t>(const int8_t* p) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
+// four widened band values of rows i..i+3 (p 4-element aligned)
+template <bool STREAM = false>
+__device__ __forceinline__ Quad<float> ld_band_quad(const int8_t* p) {
+  const char4 c = ld_hint<STREAM>(reinterpret_cast<const char4*>(p));
   return {{widen<float>((int8_t)c.x), widen<float>((int8_t)c.y),
            widen<float>((int8_t)c.z), widen<float>((int8_t)c.w)}};
 }
 
-template <>
-__device__ __forceinline__ Quad<float> ld_band_quad<float, __nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+template <bool STREAM = false>
+__device__ __forceinline__ Quad<float> ld_band_quad(const __nv_bfloat16* p) {
+  const uint2 raw = ld_hint<STREAM>(reinterpret_cast<const uint2*>(p));
   const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
   const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
   return {{widen<float>(lo.x), widen<float>(lo.y), widen<float>(hi.x),
            widen<float>(hi.y)}};
 }
 
-template <>
-__device__ __forceinline__ Quad<float> ld_band_quad<float, float>(const float* p) {
-  return ld_quad(p);
+template <bool STREAM = false>
+__device__ __forceinline__ Quad<float> ld_band_quad(const float* p) {
+  const float4 t = ld_hint<STREAM>(reinterpret_cast<const float4*>(p));
+  return {{t.x, t.y, t.z, t.w}};
 }
 
-template <>
-__device__ __forceinline__ Quad<double> ld_band_quad<double, double>(const double* p) {
-  return ld_quad(p);
+template <bool STREAM = false>
+__device__ __forceinline__ Quad<double> ld_band_quad(const double* p) {
+  const double2 a = ld_hint<STREAM>(reinterpret_cast<const double2*>(p));
+  const double2 b = ld_hint<STREAM>(reinterpret_cast<const double2*>(p) + 1);
+  return {{a.x, a.y, b.x, b.y}};
+}
+
+// K1: y = A·x, the band sums of K3 with no dot (see the header); STREAM:
+// the band loads carry the streaming hint
+template <typename V, typename B, bool STREAM>
+__global__ void __launch_bounds__(DOT_THREADS, blocks_per_sm<V>())
+dia_spmv_kernel(const B* __restrict__ bands, const V* __restrict__ x,
+                V* __restrict__ y, long long n_pad, long long h, Offsets offs) {
+  __shared__ __align__(16) V s_x[DOT_TILE + 2 * DOT_HALO];
+  constexpr int VW = vec_width<V>();
+  const int t = threadIdx.x;
+  const long long len = n_pad + 2 * h;
+  const long long n_tiles = (n_pad + DOT_TILE - 1) / DOT_TILE;
+  const long long stride = (long long)gridDim.x * DOT_THREADS;
+  for (long long k = (long long)blockIdx.x * DOT_THREADS + t; k < h; k += stride) {
+    y[k] = V(0);
+    y[h + n_pad + k] = V(0);
+  }
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long r0 = tile * DOT_TILE;
+    const long long i = r0 + 4 * t;  // this thread's rows: i .. i + 3
+    // stage the window rows r0 - DOT_HALO .. r0 + DOT_TILE + DOT_HALO: each
+    // thread its own quad, and 2 * DOT_HALO / 4 threads one halo quad each
+    st_quad(s_x + DOT_HALO + 4 * t, ld_quad_clamped(x, h + i, len));
+    if (t < DOT_HALO / 2) {
+      const int q = t < DOT_HALO / 4 ? t : DOT_TILE / 4 + t;
+      st_quad(s_x + 4 * q, ld_quad_clamped(x, h + r0 - DOT_HALO + 4LL * q, len));
+    }
+    __syncthreads();
+    if (i < n_pad) {  // n_pad is a multiple of 4: the quad is whole
+      Quad<V> acc = {{V(0), V(0), V(0), V(0)}};
+#pragma unroll
+      for (int d = 0; d < MAX_DIAGS; ++d) {
+        if (d >= offs.nd) break;
+        const long long o = offs.off[d];
+        const Quad<V> b =
+            ld_band_quad<STREAM>(bands + (long long)d * n_pad + i);
+        const Quad<V> xq = o >= -DOT_HALO && o <= DOT_HALO
+                               ? lds_quad(s_x, DOT_HALO + 4 * t + (int)o)
+                               : ld_quad_any(x + h + i + o, o % VW == 0);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) acc.v[r] = madd(b.v[r], xq.v[r], acc.v[r]);
+      }
+      st_quad(y + h + i, acc);
+    }
+    __syncthreads();  // the tile's reads of s_x end before the next restages it
+  }
 }
 
 // K2 (YY) and K3 (!YY): y = A·u with u = dinv * x (HAS_DINV) or x, and
@@ -428,7 +507,7 @@ dia_dots_kernel(const B* __restrict__ bands, const V* __restrict__ x,
       for (int d = 0; d < MAX_DIAGS; ++d) {
         if (d >= offs.nd) break;
         const long long o = offs.off[d];
-        const Quad<V> b = ld_band_quad<V, B>(bands + (long long)d * n_pad + i);
+        const Quad<V> b = ld_band_quad(bands + (long long)d * n_pad + i);
         Quad<V> ud;
         if (o >= -DOT_HALO && o <= DOT_HALO) {
           ud = lds_quad(s_u, DOT_HALO + 4 * t + (int)o);
@@ -441,9 +520,9 @@ dia_dots_kernel(const B* __restrict__ bands, const V* __restrict__ x,
             for (int r = 0; r < 4; ++r) ud.v[r] = ud.v[r] * dq.v[r];
           }
         }
-        // K1's expression, so that y is K1(u) bit for bit
+        // K1's fma, so that y is K1(u) bit for bit
 #pragma unroll
-        for (int r = 0; r < 4; ++r) acc.v[r] = acc.v[r] + b.v[r] * ud.v[r];
+        for (int r = 0; r < 4; ++r) acc.v[r] = madd(b.v[r], ud.v[r], acc.v[r]);
       }
       st_quad(y + h + i, acc);
       const Quad<V> wq = W_IS_X ? xo : ld_quad(w + h + i);
@@ -491,11 +570,26 @@ Offsets make_offsets(const long long* offsets, int nd) {
   return o;
 }
 
+// K1: one wave of blocks_per_sm<V>() blocks an SM, at most one per tile;
+// without quads, one thread per row
 template <typename V, typename B>
 void launch_spmv(const void* bands, const void* x, void* y, long long n_pad,
-                 long long h, const Offsets& o, cudaStream_t s) {
-  dia_spmv_kernel<V, B><<<(unsigned)(n_pad / ROW_TILE), ROW_TILE, 0, s>>>(
-      (const B*)bands, (const V*)x, (V*)y, n_pad, h, o);
+                 long long h, const Offsets& o, int sm_count, bool stream_bands,
+                 bool quads, cudaStream_t s) {
+  if (!quads) {
+    dia_spmv_kernel_rows<V, B><<<(unsigned)(n_pad / ROW_TILE), ROW_TILE, 0, s>>>(
+        (const B*)bands, (const V*)x, (V*)y, n_pad, h, o);
+    return;
+  }
+  const long long tiles = (n_pad + DOT_TILE - 1) / DOT_TILE;
+  const long long wave = (long long)blocks_per_sm<V>() * sm_count;
+  const unsigned grid = (unsigned)(tiles < wave ? tiles : wave);
+  if (stream_bands)
+    dia_spmv_kernel<V, B, true><<<grid, DOT_THREADS, 0, s>>>(
+        (const B*)bands, (const V*)x, (V*)y, n_pad, h, o);
+  else
+    dia_spmv_kernel<V, B, false><<<grid, DOT_THREADS, 0, s>>>(
+        (const B*)bands, (const V*)x, (V*)y, n_pad, h, o);
 }
 
 // the columns a K1b thread takes: a 16-byte group where it divides m and
@@ -625,17 +719,26 @@ extern "C" const char* sprsolve_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// K1.  x, y and the bands 16-byte aligned; quads: 1 for the tiles of 4
+// rows a thread, 0 for one thread per row; sm_count: the SMs the tiles'
+// one wave of blocks fills; stream_bands: 1 to load the tiles' bands with
+// the streaming hint (y depends on none of the three).
 extern "C" int sprsolve_dia_spmv(int vcode, int bcode, const void* bands,
                                  const void* x, void* y, long long n_pad,
                                  long long h, const long long* offsets, int nd,
+                                 int quads, int sm_count, int stream_bands,
                                  void* stream) {
-  if (bad_geometry(n_pad, h, nd)) return (int)cudaErrorInvalidValue;
+  if (bad_geometry(n_pad, h, nd) || sm_count < 1) return (int)cudaErrorInvalidValue;
+  if (misaligned(bands) || misaligned(x) || misaligned(y) ||
+      (h * (vcode == 1 ? 8 : 4)) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
   const Offsets o = make_offsets(offsets, nd);
   cudaStream_t s = (cudaStream_t)stream;
-  if (vcode == 0 && bcode == 0) launch_spmv<float, float>(bands, x, y, n_pad, h, o, s);
-  else if (vcode == 0 && bcode == 1) launch_spmv<float, __nv_bfloat16>(bands, x, y, n_pad, h, o, s);
-  else if (vcode == 0 && bcode == 2) launch_spmv<float, int8_t>(bands, x, y, n_pad, h, o, s);
-  else if (vcode == 1 && bcode == 0) launch_spmv<double, double>(bands, x, y, n_pad, h, o, s);
+  const bool sb = stream_bands != 0, q = quads != 0;
+  if (vcode == 0 && bcode == 0) launch_spmv<float, float>(bands, x, y, n_pad, h, o, sm_count, sb, q, s);
+  else if (vcode == 0 && bcode == 1) launch_spmv<float, __nv_bfloat16>(bands, x, y, n_pad, h, o, sm_count, sb, q, s);
+  else if (vcode == 0 && bcode == 2) launch_spmv<float, int8_t>(bands, x, y, n_pad, h, o, sm_count, sb, q, s);
+  else if (vcode == 1 && bcode == 0) launch_spmv<double, double>(bands, x, y, n_pad, h, o, sm_count, sb, q, s);
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -2,8 +2,10 @@
 
 Each ``csrc/*.cu`` is compiled by its own ``nvcc`` for Hopper (``sm_90a``),
 all started together, and the objects are linked into one shared library
-with a plain C interface.  Each source stands alone (it includes no header
-of its own), and the library's name carries a hash of the sources and
+with a plain C interface.  The long pole, ``dia_complex.cu`` with its 60
+K6/K7 instantiations, is optimised on every core (``-split-compile=0``,
+:data:`SPLIT_COMPILE`).  Each source stands alone (it includes no header of
+its own), and the library's name carries a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is loaded as
 built.  Builds go to
 ``build/kernels/`` at the root of the checkout (listed in ``.gitignore``); a
@@ -30,6 +32,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+# sources whose device code nvcc optimises in parallel: dia_complex.cu's
+# build fell from the longest by far to below a minute on the card's
+# machine; dia_spmv.cu built so ran K3 about 1.3 µs slower, so it and
+# fused.cu keep the serial build
+SPLIT_COMPILE = ("dia_complex.cu",)
 
 _P, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
@@ -39,8 +46,10 @@ _SIGNATURES = {
     "sprsolve_dia_dots_tile": ([], _I32),
     "sprsolve_dia_dots_scratch_head": ([], _I32),
     "sprsolve_dia_dots_blocks_per_sm": ([_I32], _I32),   # vcode
-    # vcode, bcode, bands, x, y, n_pad, h, offsets, nd, stream
-    "sprsolve_dia_spmv": ([_I32, _I32, _P, _P, _P, _I64, _I64, _P, _I32, _P], _I32),
+    # vcode, bcode, bands, x, y, n_pad, h, offsets, nd, quads, sm_count, stream_bands,
+    # stream
+    "sprsolve_dia_spmv": ([_I32, _I32, _P, _P, _P, _I64, _I64, _P, _I32, _I32, _I32, _I32,
+                           _P], _I32),
     "sprsolve_dia_spmm_threads": ([], _I32),
     "sprsolve_dia_spmm_width": ([_I32, _I64, _P, _P], _I32),   # vcode, m, x, y
     # vcode, bcode, bands, x, y, n_pad, h, m, offsets, nd, sm_count, stream
@@ -93,7 +102,7 @@ def sources() -> list:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *SPLIT_COMPILE)).encode())
     for src in sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -145,7 +154,8 @@ def build() -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
         objs = [os.path.join(tmp, src.stem + ".o") for src in sources()]
-        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+        _run_all([[nvcc, *NVCC_FLAGS, *(["-split-compile=0"] if src.name in SPLIT_COMPILE
+                                         else []), "-c", "-o", obj, str(src)]
                   for src, obj in zip(sources(), objs)])
         lib = os.path.join(tmp, out.name)
         _run_all([[nvcc, "-shared", "-o", lib, *objs]])

@@ -63,7 +63,7 @@ from ..sparse.containers import DIA, _host
 from ..vecalg import conj_dot
 from . import _cuda_build
 
-ROW_TILE = 256   # rows per CUDA block (ROW_TILE in csrc/dia_spmv.cu)
+ROW_TILE = 256   # n_pad is a multiple of it (ROW_TILE in csrc/dia_spmv.cu)
 MAX_DIAGS = 32   # offsets a kernel takes (MAX_DIAGS in csrc/dia_spmv.cu)
 SPMM_MAX_ENTRIES = 0x7FFFFF00   # K1b blocks hold fewer (SPMM_MAX_ENTRIES there)
 
@@ -350,20 +350,49 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+@functools.lru_cache(maxsize=None)
+def _l2_bytes(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).L2_cache_size
+
+
+SM_THREADS = 2048   # thread slots of an H100 SM
+
+
+def k1_by_quads(n_pad: int, sm_count: int) -> bool:
+    """Whether K1 walks tiles of 4 rows a thread (else one thread per row):
+    where those threads fill at least half the card's thread slots. Fewer
+    leave most warp slots of each SM empty, and one thread per row puts
+    four times the warps in flight."""
+    return n_pad // 4 >= SM_THREADS * sm_count // 2
+
+
+def stream_bands(call_bytes: int, l2_bytes: int) -> bool:
+    """Whether K1 loads its bands with the streaming hint: where the bytes
+    of one call (bands, x and y) exceed the L2, so that nothing of a call is
+    left there for the next and evicting the bands first keeps x for the
+    far offsets. Where they fit, plain loads leave the bands in L2."""
+    return call_bytes > l2_bytes
+
+
 def dia_spmv(bands: torch.Tensor, x: torch.Tensor, offsets, h: int
              ) -> torch.Tensor:
     """K1: y = Σ_d band_d ⊙ shift(x, off_d) in the padded layout (zero halo).
 
+    Tiles of 4 rows a thread or one thread per row (:func:`k1_by_quads`);
+    one wave of blocks walks the tiles (:func:`_sm_count`), their band loads
+    streamed or not (:func:`stream_bands`); y depends on none of these.
     Replaces ``_dia_kernel`` (``sprsolve_tpu/ops/pallas_spmv.py:131``)."""
     n_pad = _check((bands,), x, offsets, h)
     if x.device.type == "cpu":
         return dia_spmv_plain(bands, x, offsets, h)
     lib, codes, offs, stream = _launch_args((bands,), x, offsets)
     y = torch.empty_like(x)
+    sms = _sm_count(x.device.index)
     with torch.cuda.device(x.device):
         err = lib.sprsolve_dia_spmv(
             *codes, bands.data_ptr(), x.data_ptr(), y.data_ptr(), n_pad, h,
-            offs, len(offsets), stream,
+            offs, len(offsets), k1_by_quads(n_pad, sms), sms,
+            stream_bands(bands.nbytes + 2 * x.nbytes, _l2_bytes(x.device.index)), stream,
         )
     _cuda_build.check(lib, err, "dia_spmv")
     dia_spmv.launches += 1

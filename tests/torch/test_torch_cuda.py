@@ -501,6 +501,113 @@ def test_cuda_k2_k3_walk_many_tiles_on_a_small_grid(monkeypatch, cuda):
         assert all(torch.equal(a, b) for a, b in zip(call(op.bands), full[name])), name
 
 
+# --- K1 at the edges of its 1024-row tile (128 staged rows each side) --------
+K1_EDGES = {   # name → (offsets, n, vector dtype, band values)
+    "odd_tiles": ((-1, 0, 1), 256 * 3, np.float32, "random"),           # one partial tile
+    "odd_tiles_int8": ((-3, -1, 0, 1, 3), 256 * 9, np.float32, "int8"),  # the last a quarter
+    "h_beyond_tile": ((-1500, -3, 0, 2, 1500), 256 * 9, np.float32, "int8"),
+    "far_odd": ((-4097, -301, -1, 0, 1, 299, 4095), 256 * 63, np.float32, "random"),
+    "bf16": ((-301, -1, 0, 1, 301), 256 * 63, np.float32, "bf16"),
+    "f64": ((-2001, -129, -1, 0, 1, 131, 2001), 256 * 11, np.float64, "random"),
+    # 13 bands, far odd offsets, 31 MB a call
+    "f64_wide": ((-65537, -4097, -257, -129, -3, -1, 0, 1, 3, 129, 257, 4097, 65537),
+                     256 * 1024, np.float64, "random"),
+}
+
+
+def _k1_edge_op(name, cuda):
+    offsets, n, dt, kind = K1_EDGES[name]
+    rng = np.random.default_rng(21)
+    if kind == "int8":
+        vals = rng.integers(-3, 4, (len(offsets), n))
+    elif kind == "bf16":
+        vals = rng.integers(-20, 21, (len(offsets), n)) * 0.25 + 0.125
+    else:
+        vals = rng.uniform(0.5, 1.5, (len(offsets), n))
+    op = tsp.PaddedDIA.from_dia(DIA(bands=torch.from_numpy(vals.astype(dt)), offsets=offsets,
+                                    shape=(n, n)), device=cuda)
+    want = {"int8": torch.int8, "bf16": torch.bfloat16}.get(kind, op.vdtype)
+    assert op.bands.dtype == want
+    return op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K1_EDGES))
+def test_cuda_k1_edge_shapes_match_plain(name, cuda, monkeypatch):
+    """K1 within 8·eps·(|A|·|x|) of its plain version, halos exactly zero (a
+    NaN block freed first), one launch per call, the same bits walking the
+    4-row tiles with the card said to have 1 or 3 SMs and with each body
+    forced (one thread per row; 4-row tiles with plain or streamed band
+    loads), narrow bands bitwise the same values stored wide, and a
+    CUDA-graph replay bitwise eager."""
+    op = _k1_edge_op(name, cuda)
+    dt, b, o, h = op.vdtype, op.bands, op.offsets, op.h
+    x = op.pad_vec(torch.as_tensor(np.random.default_rng(22).standard_normal(op.n), dtype=dt,
+                                   device=cuda))
+    _dirty(x)
+    before = pd.dia_spmv.launches
+    y = pd.dia_spmv(b, x, o, h)
+    assert pd.dia_spmv.launches == before + 1
+    assert _zero_halo(op, y)
+    scale = pd.dia_spmv_plain(b.to(dt).abs(), x.abs(), o, h)
+    assert bool(((y - pd.dia_spmv_plain(b, x, o, h)).abs() <= 8 * EPS[dt] * scale).all())
+    if b.dtype != dt:
+        assert torch.equal(pd.dia_spmv(b.to(dt), x, o, h), y)
+    monkeypatch.setattr(pd, "k1_by_quads", lambda *_: True)
+    for sms in (1, 3):
+        monkeypatch.setattr(pd, "_sm_count", lambda index, sms=sms: sms)
+        assert torch.equal(pd.dia_spmv(b, x, o, h), y), sms
+    monkeypatch.undo()
+    for quads, streamed in ((False, False), (True, False), (True, True)):
+        monkeypatch.setattr(pd, "k1_by_quads", lambda *_, q=quads: q)
+        monkeypatch.setattr(pd, "stream_bands", lambda *_, s=streamed: s)
+        assert torch.equal(pd.dia_spmv(b, x, o, h), y), (quads, streamed)
+    monkeypatch.undo()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pd.dia_spmv(b, x, o, h)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y_graph = pd.dia_spmv(b, x, o, h)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y_graph, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K1_EDGES))
+def test_cuda_k1_is_k3_k2_y_and_k1b_columns_bitwise(name, cuda):
+    """At K1's edge shapes: K3's y and K2's (unfolded, and folded against
+    K1 on x ⊙ dinv) bitwise K1's, and every K1b column of a 3-column block
+    bitwise K1 on that column."""
+    op = _k1_edge_op(name, cuda)
+    dt, b, o, h = op.vdtype, op.bands, op.offsets, op.h
+    rng = np.random.default_rng(23)
+    X2 = op.pad_block(torch.as_tensor(rng.standard_normal((op.n, 3)), dtype=dt, device=cuda))
+    dinv = op.pad_vec(torch.as_tensor(rng.uniform(0.5, 2.0, op.n), dtype=dt, device=cuda))
+    Y = pd.dia_spmm(b, X2, o, h)
+    for j in range(3):
+        x = X2[:, j].contiguous()
+        y = pd.dia_spmv(b, x, o, h)
+        assert torch.equal(Y[:, j], y), j
+        assert torch.equal(pd.dia_dot(b, x, o, h)[0], y), j
+        assert torch.equal(pd.dia_wdot(b, x, None, None, o, h)[0], y), j
+        assert torch.equal(pd.dia_wdot(b, x, None, dinv, o, h)[0],
+                           pd.dia_spmv(b, x * dinv, o, h)), j
+
+
+@pytest.mark.cuda
+def test_cuda_k1_refuses_a_misaligned_vector(cuda):
+    """K1 reads x and writes y 16 bytes at a time: a vector that starts off
+    a 16-byte boundary is refused, as K2 and K3 refuse it."""
+    op = pd.PaddedDIA.from_dia(problems.poisson3d(6, 6, 6).to_dia(), device=cuda)
+    buf = torch.zeros(op.padded_len + 1, device=cuda)
+    with pytest.raises(RuntimeError, match="dia_spmv: CUDA error"):
+        pd.dia_spmv(op.bands, buf[1:], op.offsets, op.h)
+
+
 # --- K6 and K7: one launch, y bitwise K5's, deterministic dots --------------
 COMPLEX_PLANES = ["int8/bfloat16", "bfloat16/int8", "float32/float32", "float64/float64"]
 

@@ -122,6 +122,74 @@ def test_k1_plain_matches_jax_matvec(name):
     assert torch.equal(y, pd.dia_spmv(pt.bands.to(pt.vdtype), xt, pt.offsets, pt.h))
 
 
+# K1's edge layouts that BANDSETS does not reach: n_pad = 256 (one row tile),
+# a halo wider than K1's 1024-row tile, and odd offsets beyond its 128-row
+# staged window, in f32 (int8-exact and random values) and f64
+EDGE_LAYOUTS = {   # name → (offsets, n, vector dtype, int8-exact values)
+    "n_pad256": ((-1, 0, 1), 200, np.float32, False),
+    "h_beyond_tile": ((-1100, -1, 0, 1, 1100), 2304, np.float32, True),
+    "far_odd_f64": ((-1301, -129, 0, 131, 1299), 1792, np.float64, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EDGE_LAYOUTS))
+def test_k1_plain_edge_layouts_match_jax(name):
+    """The plain K1 at the layouts above against the JAX package's padded
+    matvec (Pallas, interpret mode) on the same bands and x; y within the
+    y tolerance, halo and tail exactly zero."""
+    offsets, n, dt, exact = EDGE_LAYOUTS[name]
+    rng = np.random.default_rng(11)
+    vals = (rng.integers(-3, 4, (len(offsets), n)) if exact
+            else rng.uniform(0.5, 1.5, (len(offsets), n))).astype(dt)
+    jd = JDIA(bands=jnp.asarray(vals), offsets=offsets, shape=(n, n))
+    pj = jps.PaddedDIA.from_dia(jd, lanes=128, block_rows=8)
+    pt = padded_dia_from_reference(np.asarray(pj.bands3), pj.offsets, pj.n, pj.hr,
+                                   pj.shape, pj.vdtype)
+    assert (pt.n_pad == 256) == (name == "n_pad256")
+    assert pt.h > 1024 or name != "h_beyond_tile"
+    xj, xt = _vec(pj, pt, 2)
+    _y_close(pt, pt.matvec(xt), pj.matvec(xj), pj, xt)
+
+
+# (grid, values, vector dtype) → whether K1 streams its bands on an H100
+# (50 MiB of L2): a call's bytes are the bands, x and y
+K1_HINTS = {
+    "int8_100": (100, "poisson", torch.float32, False),      # 15 MB
+    "f32_bands_100": (100, "random", torch.float32, False),  # 36 MB
+    "f64_100": (100, "random", torch.float64, True),         # 72 MB
+    "f64_64": (64, "random", torch.float64, False),          # 19 MB
+}
+
+
+@pytest.mark.parametrize("name", sorted(K1_HINTS))
+def test_k1_streams_its_bands_only_where_a_call_exceeds_l2(name):
+    """K1's band loads carry the streaming hint exactly where the bytes of
+    one call exceed the L2: at the shapes timed on the H100, only the f64
+    100³ Poisson."""
+    grid, values, dt, streamed = K1_HINTS[name]
+    dia = TDIA.from_csr(tprob.poisson3d(grid, grid, grid), device="cpu")
+    if values == "random":
+        rng = np.random.default_rng(3)
+        dia = TDIA(bands=torch.where(dia.bands != 0, torch.as_tensor(
+            rng.uniform(0.5, 1.5, tuple(dia.bands.shape))), 0.0).to(dt),
+            offsets=dia.offsets, shape=dia.shape)
+    op = pd.PaddedDIA.from_dia(dia, device="cpu")
+    assert op.vdtype == dt and (op.bands.dtype == torch.int8) == (values == "poisson")
+    call = op.bands.nbytes + 2 * op.padded_len * op.bands.new_empty((), dtype=dt).element_size()
+    assert pd.stream_bands(call, 50 << 20) == streamed
+
+
+@pytest.mark.parametrize("grid,quads", [(64, False), (81, False), (82, True), (100, True)])
+def test_k1_walks_4_row_tiles_only_where_they_fill_half_an_h100(grid, quads):
+    """K1 takes its tiles of 4 rows a thread where those threads fill at
+    least half of an H100's 132 × 2048 thread slots (n_pad ≥ 540,672),
+    and one thread per row below: the 64³ Poisson (262,144 rows) ran
+    faster so on the card."""
+    n_pad = pd.PaddedDIA.from_dia(TDIA.from_csr(tprob.poisson3d(grid, grid, grid),
+                                                device="cpu"), device="cpu").n_pad
+    assert pd.k1_by_quads(n_pad, 132) == quads
+
+
 @pytest.mark.parametrize("w_is_x", [False, True])
 @pytest.mark.parametrize("has_dinv", [False, True])
 @pytest.mark.parametrize("name", sorted(BANDSETS))

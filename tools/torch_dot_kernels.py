@@ -1,10 +1,16 @@
 """Time the port's dot kernels on one GPU at the main path's shapes: K2
 (``dia_wdot``) and K3 (``dia_dot``) beside K1 (``dia_spmv``) on the 100³
 Poisson (int8 bands, f32 vectors), and K6 (``dia_complex_dot``, with and
-without ``conj_x``) and K7 (``dia_complex_wdot``, Jacobi fold with w = x and
-with w = r0) beside K5 (``dia_complex_spmv``) on the damped complex-symmetric
-100³ Poisson (c64, int8 real and bf16 imaginary plane, as
-``chip_smoke.damped_dia()`` builds it):
+without ``conj_x``) and K7 (``dia_complex_wdot``, Jacobi fold with w = x
+and with w = r0) beside K5 (``dia_complex_spmv``) on the damped
+complex-symmetric 100³ Poisson (c64, int8 real and bf16 imaginary plane,
+as ``chip_smoke.damped_dia()`` builds it).  K1 also runs on the Poisson's
+pattern with random f32 bands and in f64, at 100³ (36 and 72 MB a call,
+beyond or near the 50 MB L2) and at 64³ (where a call fits in L2); where
+the measured tree picks K1's body and band loads
+(``padded_dia.k1_by_quads``, ``padded_dia.stream_bands``), each of those
+also runs with each forced: one thread per row, and 4-row tiles with
+plain or with streamed band loads.  For each call:
 
 - the device events of one wrapper call, by torch.profiler (which kernels a
   call launches, and how long each runs);
@@ -12,7 +18,13 @@ with w = r0) beside K5 (``dia_complex_spmv``) on the damped complex-symmetric
   with them cold (rotating through copies whose total exceeds twice L2);
 - the wrapper time (20 back-to-back calls, host included).
 
-    python3 tools/torch_dot_kernels.py [--root DIR] [--label NAME]
+    python3 tools/torch_dot_kernels.py [--root DIR] [--label NAME] [--y-dir DIR]
+                                       [--only PREFIX]
+
+``--y-dir`` saves K1's y of every K1 call (the same seeded x whatever the
+tree) to ``DIR/k1_y_<label>.pt`` and holds it bitwise against every other
+label's file already there, one line per call.  ``--only`` times only
+the calls whose name starts with PREFIX (``K1``: K1's).
 
 ``--root`` names the checkout whose ``sprsolve_tpu_torch`` is measured
 (default: the one holding this script), so that two trees can be compared
@@ -37,10 +49,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(HERE))
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--y-dir", default=None)
+    ap.add_argument("--only", default="")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     spec = importlib.util.spec_from_file_location("smoke", HERE / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
+    sys.modules["smoke"] = smoke   # its dataclasses look their module up there
     spec.loader.exec_module(smoke)
 
     import numpy as np
@@ -66,6 +81,20 @@ def main() -> int:
     x, r0 = mk(), mk()
     dinv = op.jacobi_precond().diag_inv
     b, o, h = op.bands, op.offsets, op.h
+    k1 = {}   # name → (bands, x, offsets, h): K1 beyond the main path's int8 bands
+    for grid in (100, 64):
+        dia = DIA.from_csr(problems.poisson3d(grid, grid, grid), device="cpu")
+        rand = torch.where(dia.bands != 0, torch.as_tensor(
+            rng.uniform(0.5, 1.5, tuple(dia.bands.shape))), 0.0)
+        kinds = (("f64", torch.float64, rand), ("f32 bands", torch.float32, rand))
+        if grid != 100:
+            kinds += (("int8", torch.float32, dia.bands.double()),)
+        for kind, dt, vals in kinds:
+            kop = spt.PaddedDIA.from_dia(DIA(bands=vals.to(dt), offsets=dia.offsets,
+                                             shape=dia.shape), device=dev)
+            kx = kop.pad_vec(torch.as_tensor(rng.standard_normal(kop.n), dtype=dt,
+                                             device=dev))
+            k1[f"K1 dia_spmv {kind} {grid}^3"] = (kop.bands, kx, kop.offsets, kop.h)
     cop = spt.ComplexPaddedDIA.from_dia(smoke.damped_dia(), device=dev)
     cmk = lambda: cop.pad_vec(torch.complex(
         *(torch.as_tensor(rng.standard_normal(cop.n), dtype=torch.float32, device=dev)
@@ -95,8 +124,40 @@ def main() -> int:
             lambda br, bi, x, w, d: pd.dia_complex_wdot(br, bi, x, w, d, co, ch),
             (cop.re.bands, cop.im.bands, cx, cr0, cdinv)),
     }
+    modes = {"": None}   # tag → (4-row tiles, streamed band loads) forced
+    if hasattr(pd, "k1_by_quads"):   # the tree picks K1's body and loads: time each
+        modes.update({" [rows]": (False, False), " [quads, plain]": (True, False),
+                      " [quads, streamed]": (True, True)})
+    picks = (getattr(pd, "k1_by_quads", None), getattr(pd, "stream_bands", None))
+    for name, (kb, kx, ko, kh) in k1.items():
+        for tag, mode in modes.items():
+            def call(b, x, ko=ko, kh=kh, mode=mode):
+                if mode is not None:
+                    pd.k1_by_quads = lambda *_, q=mode[0]: q
+                    pd.stream_bands = lambda *_, s=mode[1]: s
+                try:
+                    return pd.dia_spmv(b, x, ko, kh)
+                finally:
+                    if mode is not None:
+                        pd.k1_by_quads, pd.stream_bands = picks
+            calls[name + tag] = (call, (kb, kx))
+    calls = {k: v for k, v in calls.items() if k.startswith(args.only)}
     out = {"label": args.label, "package": spt.__file__, "gpu": smi, "calls": {}}
     print(smi, flush=True)
+    if args.y_dir:
+        ys = {"K1 dia_spmv int8 100^3": pd.dia_spmv(b, x, o, h).cpu()}
+        ys.update({name: pd.dia_spmv(kb, kx, ko, kh).cpu()
+                   for name, (kb, kx, ko, kh) in k1.items()})
+        y_dir = Path(args.y_dir)
+        y_dir.mkdir(parents=True, exist_ok=True)
+        for other in sorted(y_dir.glob("k1_y_*.pt")):
+            theirs = torch.load(other)
+            for name, y in ys.items():
+                same = name in theirs and torch.equal(theirs[name], y)
+                print(f"[{args.label}] {name}: y bitwise {other.stem[5:]}'s: {same}",
+                      flush=True)
+                out.setdefault("y_bitwise", {})[f"{name} vs {other.stem[5:]}"] = same
+        torch.save(ys, y_dir / f"k1_y_{args.label}.pt")
     for name, (call, ops) in calls.items():
         one = lambda: call(*ops)
         rec = {

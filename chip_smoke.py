@@ -22,9 +22,15 @@ Phases, each printing lines of its own:
    Poisson (int8 bands), a random band set that does not narrow, a
    bf16-exact set and an f64 set; narrow band storage must give bitwise the
    output of the same values stored f32, and K1 the same bits on grids of
-   1 or 7 SMs and with each of its bodies.  K4 (orth_norm) against its plain
-   version on f32 and f64 vectors of the same layout, with β and α as 0-d
-   CUDA tensors.  K5 (dia_complex_spmv), K6 (dia_complex_dot, ``conj_x``
+   1 or 7 SMs and with each of its bodies.  K4 (orth_norm) first at the
+   edges of its tile (``K4_EDGES``: one ragged tile, a halo as wide as the
+   body or wider than a tile, no halo, the 100³ layout in f32 and f64):
+   within Y_RTOL and DOT_RTOL of its plain version, halos zero after a NaN
+   block was freed, v₊ and Σv₊² bitwise the same on grids of 1 or 7 SMs;
+   then against its plain version on f32 and f64 vectors of the 100³
+   layout, with β and α as 0-d CUDA tensors, one kernel a call under
+   torch.profiler, its outputs bitwise the same over 10 eager calls and 3
+   graph replays, the ticket back at 0.  K5 (dia_complex_spmv), K6 (dia_complex_dot, ``conj_x``
    false and true) and K7 (dia_complex_wdot, all four variants) against
    their plain versions at 1M rows on the damped complex-symmetric Poisson
    (int8 real and bf16 imaginary plane), the Poisson times (1 + 0.5i), a
@@ -64,8 +70,9 @@ Phases, each printing lines of its own:
    and K4 iterations + 1 times each, K2 never), CG with Jacobi (K3
    iterations times, K4 never) and ``method="auto"`` (routes to MINRES: K4
    launches); all converge to a true residual below 1e-3.  Then MINRES and
-   CG through ``prepare`` (median of 3 timed solves), and the same solves
-   through an operator that calls the plain versions on the card.
+   CG through ``prepare`` (median of 3 timed solves, then one profiled:
+   device µs per iteration and idle share), and the same solves through an
+   operator that calls the plain versions on the card.
 7. f64 symmetric — MINRES and CG on the f64 kernels, 100×100 folded grid
    Laplacian (negative definite): MINRES converges, CG ends in BREAKDOWN,
    and CG on the negated matrix converges; true residuals below 1e-9.
@@ -373,6 +380,12 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def orth_norm_bytes(a, h: int) -> int:
+    """Bytes K4 moves on padded vectors like ``a`` with halo ``h``: the body
+    rows of a, v_old and v read once, all of v₊ (halos too) written once."""
+    return (3 * (a.numel() - 2 * h) + a.numel()) * a.element_size()
+
+
 def cold_device_ms(call, operands, reps: int = 5) -> float:
     """Device time of one call on inputs cold in L2: ``device_ms``'s graph
     replay, rotating through at least 4 copies of ``operands`` whose total
@@ -559,6 +572,7 @@ def phase_kernels(dev):
     errs = dict.fromkeys(KERNELS, 0.0)
     times, stats = {}, {}
     check_k1_edges(dev, errs)
+    check_k4_edges(dev, errs)
     for name, op, nnz in band_sets(dev):
         dt = op.vdtype
         mk = lambda: op.pad_vec(torch.as_tensor(rng.standard_normal(op.n), dtype=dt,
@@ -758,6 +772,69 @@ def check_k1_edges(dev, errs) -> None:
     log("kernels", kernel="K1 edges", seconds=f"{time.perf_counter() - t0:.2f}")
 
 
+# --- phase 3, K4 at the edges of its tile ------------------------------------
+# name → (n_pad, h, vector dtype): K4 walks tiles of DOT_TILE rows, so these
+# reach one ragged tile, a halo as wide as the body, halos wider than a tile,
+# no halo, and the 100³ layout's 977 tiles (the last of 768 rows)
+K4_EDGES = {
+    "k4_one_ragged_tile": (256 * 3, 4, torch.float32),
+    "k4_halo_is_n_pad": (256, 256, torch.float32),
+    "k4_halo_beyond_tile": (256 * 9, 2000, torch.float32),
+    "k4_no_halo_f64": (256 * 5, 0, torch.float64),
+    "k4_halo_beyond_tile_f64": (256 * 11, 1500, torch.float64),
+    "k4_poisson100": (256 * 3907, 10000, torch.float32),
+    "k4_poisson100_f64": (256 * 3907, 10000, torch.float64),
+}
+
+
+def check_k4_edges(dev, errs) -> None:
+    """Phase 3, K4 at K4_EDGES: v₊ within Y_RTOL of the plain version and
+    Σv₊² within DOT_RTOL, halos exactly zero after a NaN block was freed,
+    one count a call, and v₊ and the sum bitwise the same on one-wave grids
+    of SPMM_SMS SMs (at the 1M-row layouts each block of the 1-SM grid
+    walks at least 72 tiles)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 14)
+    for name, (n_pad, h, dt) in K4_EDGES.items():
+        vecs = []
+        for _ in range(3):
+            t = torch.zeros(n_pad + 2 * h, dtype=dt)
+            t[h: h + n_pad] = torch.as_tensor(rng.standard_normal(n_pad), dtype=dt)
+            vecs.append(t.to(dev))
+        a, vold, v = vecs
+        beta = torch.tensor(0.7, dtype=dt, device=dev)
+        alpha = torch.tensor(-1.3, dtype=dt, device=dev)
+        dirty(a)
+        before = fused.orth_norm.launches
+        vn, ss = fused.orth_norm(a, vold, v, beta, alpha, h)
+        if fused.orth_norm.launches != before + 1:
+            raise AssertionError(f"{name}: {fused.orth_norm.launches - before} counts a call")
+        if bool(vn[:h].any()) or bool(vn[h + n_pad:].any()):
+            raise AssertionError(f"{name} K4: nonzero halo")
+        vn_r, ss_r = fused.orth_norm_plain(a, vold, v, beta, alpha, h)
+        scale = (a.abs() + 0.7 * vold.abs() + 1.3 * v.abs()).max()
+        e = check_close(f"{name} K4 v+", vn, vn_r, scale, Y_RTOL[dt])
+        errs["orth_norm"] = max(errs["orth_norm"], e)
+        check_close(f"{name} K4 sumsq", ss, ss_r, ss_r, DOT_RTOL[dt])
+        tiles = -(-n_pad // pd.DOT_TILE)
+        saved = pd._sm_count
+        try:
+            for sms in SPMM_SMS:
+                pd._sm_count = lambda index, sms=sms: sms
+                vg, sg = fused.orth_norm(a, vold, v, beta, alpha, h)
+                if not (torch.equal(vg, vn) and torch.equal(sg, ss)):
+                    raise AssertionError(f"{name} K4: the grid of {sms} SMs differs")
+        finally:
+            pd._sm_count = saved
+        log("kernels", set=name, kernel="K4", dtype=str(dt).replace("torch.", ""),
+            n_pad=n_pad, h=h, tiles=tiles,
+            tiles_a_block_on_1_sm=tiles // pd.persistent_grid(n_pad, dt, 1),
+            max_abs_err=f"{e:.3e}",
+            result="within Y_RTOL/DOT_RTOL of plain; halos zero; one count a call; grids "
+            "of " + " and ".join(map(str, SPMM_SMS)) + " SMs bitwise")
+    log("kernels", kernel="K4 edges", seconds=f"{time.perf_counter() - t0:.2f}")
+
+
 def check_dot_kernels(name, op, x, w, dinv, profile: bool) -> None:
     """K3 and the four K2 variants: y bitwise K1's on the SpMV input (x, or
     x ⊙ dinv under the fold); the dots of 10 eager calls and of a CUDA-graph
@@ -795,7 +872,7 @@ def check_complex_dot_kernels(name, op, x, w, dinv, profile: bool) -> None:
 
 def check_one_launch(name, calls, spmv, spmv_name, kernel, profile: bool) -> None:
     """The checks of a one-launch dot kernel: each call's y bitwise
-    ``spmv`` of its input (where one is given); the outputs of 10 eager
+    ``spmv`` of its input (where one is given; K4 has none); the outputs of 10 eager
     calls and of 3 replays of a CUDA graph of all the calls bitwise the
     first call's; every ticket back at 0; with ``profile``, one CUDA kernel
     (``kernel``) per call under torch.profiler."""
@@ -832,9 +909,10 @@ def check_one_launch(name, calls, spmv, spmv_name, kernel, profile: bool) -> Non
                 raise AssertionError(f"{tag}: one call ran {ev}, not one kernel")
             log("kernels", set=name, call=tag, profiler_events=1,
                 kernel_us=f"{ev[0][1]:.3f}")
+    ys = f"y bitwise {spmv_name}'s where unfolded; " if spmv_name else ""
     log("kernels", set=name, kernels="/".join(dict.fromkeys(t.split()[0] for t in calls)),
-        result=f"y bitwise {spmv_name}'s where unfolded; dots bitwise equal over 10 "
-        "eager calls and 3 graph replays; tickets at 0")
+        result=f"{ys}outputs bitwise equal over 10 eager calls and 3 graph replays; "
+        "tickets at 0")
 
 
 def real_kernel_stats(op, x, dinv, mk, csr=None, tag="poisson100_int8") -> dict:
@@ -846,8 +924,9 @@ def real_kernel_stats(op, x, dinv, mk, csr=None, tag="poisson100_int8") -> dict:
     D, n_pad, h = len(op.offsets), op.n_pad, op.h
     b, o = op.bands, op.offsets
     a, vold, v, r0 = mk(), mk(), mk(), mk()
-    beta = torch.tensor(0.7, device=x.device)
-    alpha = torch.tensor(-1.3, device=x.device)
+    # of the vectors' dtype, as MINRES passes them (else each call casts them)
+    beta = torch.tensor(0.7, dtype=op.vdtype, device=x.device)
+    alpha = torch.tensor(-1.3, dtype=op.vdtype, device=x.device)
     calls = {   # name → (kernel, plain version, operands, bytes moved, flops)
         "dia_spmv": (lambda b, x: pd.dia_spmv(b, x, o, h),
                      lambda b, x: pd.dia_spmv_plain(b, x, o, h),
@@ -863,7 +942,7 @@ def real_kernel_stats(op, x, dinv, mk, csr=None, tag="poisson100_int8") -> dict:
                     lambda b, x: pd.dia_dot_plain(b, x, o, h),
                     (b, x), nbytes(b, x, x), (2 * D + 2) * n_pad),
         "orth_norm": (lambda *t: fused.orth_norm(*t, h), lambda *t: fused.orth_norm_plain(*t, h),
-                      (a, vold, v, beta, alpha), nbytes(a, vold, v, a), 6 * n_pad),
+                      (a, vold, v, beta, alpha), orth_norm_bytes(a, h), 6 * n_pad),
     }
     stats = {}
     for name, (kern, plain, ops, moved, flops) in calls.items():
@@ -1173,8 +1252,10 @@ def phase_spmm(dev, errs, stats):
 
 def phase_orth_norm(name, op, mk, errs):
     """K4 on three vectors of ``op``'s layout, with β and α as 0-d CUDA
-    tensors as MINRES passes them; returns its and its plain version's
-    median times."""
+    tensors as MINRES passes them: within Y_RTOL and DOT_RTOL of its plain
+    version, halos zero, and one kernel a call whose outputs are bitwise
+    the same over eager calls and graph replays (:func:`check_one_launch`);
+    returns its and its plain version's median times."""
     dt, dev = op.vdtype, op.device
     a, vold, v = mk(), mk(), mk()
     beta = torch.tensor(0.7, dtype=dt, device=dev)
@@ -1188,6 +1269,9 @@ def phase_orth_norm(name, op, mk, errs):
     errs["orth_norm"] = max(errs["orth_norm"], float((vn - vn_r).abs().max()))
     check_close(f"{name} K4 sumsq", ss, ss_r, ss_r, DOT_RTOL[dt])
     check_halo(f"{name} K4 v+", op, vn)
+    check_one_launch(name, {"K4": (lambda: fused.orth_norm(a, vold, v, beta, alpha, op.h),
+                                   None)},
+                     None, None, "orth_norm_kernel", profile=True)
     torch.cuda.synchronize()
     return {
         "orth_norm": median_ms(lambda: fused.orth_norm(a, vold, v, beta, alpha, op.h)),
@@ -1347,9 +1431,16 @@ def phase_symmetric(dev):
             res = true_residual(A, x, b)
             if not res < 1e-3:
                 raise AssertionError(f"{name} {path}: true residual {res:.3e}")
+            # one profiled solve on the kernels: device time and idle share
+            prof = idle_share(handle, bd, names=REAL_KERNELS) if path == "kernels" else None
+            extra = {} if prof is None else dict(
+                device_busy_ms=f"{prof[1]:.4f}", idle_share=f"{prof[2]:.4f}",
+                hand_kernels_ms=f"{prof[3]:.4f}",
+                device_us_per_iteration=f"{prof[1] / max(n, 1) * 1e3:.3f}")
             log("symmetric", entry=f"prepare({name}, {path})", iterations=n,
                 wall_s_median=f"{wall:.4f}", walls_s=",".join(f"{w:.4f}" for w in walls),
-                per_iteration_ms=f"{wall / max(n, 1) * 1e3:.4f}", true_residual=res)
+                per_iteration_ms=f"{wall / max(n, 1) * 1e3:.4f}", true_residual=res,
+                **extra)
     return launches
 
 
@@ -4374,6 +4465,9 @@ def main() -> int:
     assert lib.sprsolve_dia_dots_tile() == pd.DOT_TILE
     assert lib.sprsolve_dia_spmm_threads() == pd.SPMM_TILE
     assert lib.sprsolve_dia_dots_scratch_head() == pd.DOT_SCRATCH_HEAD
+    assert lib.sprsolve_orth_norm_tile() == pd.DOT_TILE
+    assert all(lib.sprsolve_orth_norm_blocks_per_sm(pd._VCODE[dt]) == pd.DOT_BLOCKS_PER_SM[dt]
+               for dt in pd.REAL_DTYPES)
     assert lib.sprsolve_dia_complex_dots_tile() == pd.COMPLEX_DOT_TILE
     assert all((lib.sprsolve_dia_complex_dots_blocks_per_sm if dt.is_complex
                 else lib.sprsolve_dia_dots_blocks_per_sm)(pd._VCODE[dt]) == b

@@ -1,33 +1,71 @@
 // Fused Lanczos step for Hopper (sm_90a): K4 of the port.
 //
 // Layout as in dia_spmv.cu: vectors are flat, h zeros | n_pad body entries |
-// h zeros, with n_pad a multiple of ROW_TILE.
+// h zeros, with n_pad a multiple of ROW_TILE and every body 16-byte aligned.
 //
 // K4  orth_norm_kernel replaces _orth_norm_kernel
 //     (sprsolve_tpu/ops/pallas_fused.py:37, wrapper fused_orth_norm_call :58):
-//     out = a - beta * v_old - alpha * v over the body entries, plus one
-//     partial per block of sum out*out -- MINRES's orthogonalisation and the
-//     norm of the next Lanczos vector in one pass.
+//     out = a - beta * v_old - alpha * v over the body entries, both halos of
+//     out zero, and s = sum out*out over the body entries -- MINRES's
+//     orthogonalisation and the norm of the next Lanczos vector in one pass.
 //
 // What bounds it on an H100: HBM bytes.  It streams 3 reads and 1 write per
-// entry at 5 flops: a pure streaming pass.  The design:
-//  * one thread per entry, ROW_TILE entries per block, so every load and the
-//    store are fully coalesced;
-//  * beta and alpha are device pointers to 0-d tensors, read once per block
-//    by thread 0 into shared memory -- the launch needs no host read of
-//    either (on the TPU they arrived in SMEM straight from K3's partial sum);
-//  * the block's sum of squares goes through the fixed tree of dia_spmv.cu
-//    (block_sum, copied here so that each source builds alone) into
-//    partials[block]; the caller sums the partials in a second step, with
-//    no float atomics;
-//  * the first h threads clear both halos of the output, so the wrapper can
-//    allocate it with torch.empty and pad coordinates stay exactly zero.
+// entry at 5 flops: a pure streaming pass, 16 MB at the 100^3 Poisson in
+// f32, so a launch and a block's round trip weigh as much as the bytes.
+// The design is dia_spmv.cu's K2/K3 template without the SpMV:
+//  * One launch, deterministic.  A block sums each tile's squares in a
+//    fixed tree (block_sum) and writes one partial per tile to the scratch
+//    the K2/K3 wrappers keep per (device, stream); then __threadfence and an
+//    integer atomicAdd on the ticket at its head tell the last block to
+//    finish.  That block sums the partials in tile order (thread t takes
+//    tiles t, t + K4_THREADS, ..., TAIL_LOADS loads in flight, then
+//    block_sum), writes s and resets the ticket to 0 -- the kernel replays
+//    inside a CUDA graph.  No float atomics: s depends on n_pad alone, not
+//    on the grid, and the wrapper calls nothing after the launch.
+//  * 16-byte loads, 4 rows a thread.  A thread owns 4 consecutive rows of a
+//    K4_TILE-row tile: one float4 of each of a, v_old and v (two double2 in
+//    f64) and one such store.  The last tile may be ragged (n_pad is a
+//    multiple of 256 only): a quad past the body is not read.
+//  * One wave.  The caller launches min(tiles, blocks_per_sm * SMs) blocks
+//    (8 an SM in f32, 4 in f64, as K2/K3) and each walks tiles blockIdx.x,
+//    + gridDim.x, ...; the warps' sums of consecutive tiles alternate
+//    between two shared arrays, so a warp may start the next tile while the
+//    first warp still reads this one's.
+//  * No barrier before the first load.  Every thread reads beta and alpha
+//    itself through the read-only path; the halos are cleared after the
+//    tiles, by a grid-stride walk, for any h <= n_pad.
+//  * v+ rounds as the first K4 did: t = fma(-beta, v_old, a), then
+//    fma(-alpha, v, t), spelled out, the contraction nvcc gave the first
+//    K4's a[k] - beta * v_old[k] - alpha * v[k].
+// Tried on an H100 80GB HBM3 at 700 W and not kept, for no steady gain
+// (PERF.md, section 6):
+// a and v_old loaded with the streaming hint (evict first; 0.2-0.4 us
+// faster cold in f32, 2-3 us slower warm in f64 at 1M rows); the ticket
+// taken by one release-acquire atomic in place of the fence and a relaxed
+// atomicAdd; half the wave of blocks, each walking two tiles or more.  What
+// separates K4 from a plain elementwise pass of its bytes (torch.addcmul,
+// about 2 us faster) is the tail: the last block's fence, ticket and read
+// of the partials.
 // The launcher allocates nothing and never synchronises; it launches on the
 // caller's stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
-#define ROW_TILE 256  // as in dia_spmv.cu and ops/padded_dia.py
+#define ROW_TILE 256                  // as in dia_spmv.cu and ops/padded_dia.py
+#define K4_THREADS 256                // threads of a block
+#define K4_TILE (4 * K4_THREADS)      // rows of a tile, 4 per thread (DOT_TILE)
+#define SCRATCH_HEAD 256              // scratch bytes before the partials
+                                      // (as in dia_spmv.cu: one ticket)
+#define TAIL_LOADS 8                  // partials a thread of the last block
+                                      // loads at once: at 977 tiles, 0.5-0.8
+                                      // us faster warm than K2/K3's loop of
+                                      // one load a step (H100 80GB HBM3,
+                                      // 700 W; PERF.md, section 6)
+
+// blocks that share an SM: 8 (all its 2048 threads) in f32, 4 in f64
+template <typename V>
+__host__ __device__ constexpr int blocks_per_sm() { return sizeof(V) == 4 ? 8 : 4; }
 
 namespace {
 
@@ -48,61 +86,155 @@ __device__ __forceinline__ V block_sum(V v, V* smem) {
   __syncthreads();
   v = V(0);
   if (warp == 0) {
-    v = lane < ROW_TILE / 32 ? smem[lane] : V(0);
+    v = lane < K4_THREADS / 32 ? smem[lane] : V(0);
     v = warp_sum(v);
   }
   return v;
 }
 
+__device__ __forceinline__ float fmadd(float b, float x, float acc) { return __fmaf_rn(b, x, acc); }
+__device__ __forceinline__ double fmadd(double b, double x, double acc) { return __fma_rn(b, x, acc); }
+
 template <typename V>
-__global__ void __launch_bounds__(ROW_TILE)
+struct Quad {
+  V v[4];
+};
+
+// p[0..3], p 16-byte aligned, through the read-only path
+__device__ __forceinline__ Quad<float> ld_quad(const float* p) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  return {{t.x, t.y, t.z, t.w}};
+}
+
+__device__ __forceinline__ Quad<double> ld_quad(const double* p) {
+  const double2* q = reinterpret_cast<const double2*>(p);
+  const double2 a = __ldg(q), b = __ldg(q + 1);
+  return {{a.x, a.y, b.x, b.y}};
+}
+
+__device__ __forceinline__ void st_quad(float* p, const Quad<float>& q) {
+  *reinterpret_cast<float4*>(p) = make_float4(q.v[0], q.v[1], q.v[2], q.v[3]);
+}
+
+__device__ __forceinline__ void st_quad(double* p, const Quad<double>& q) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(q.v[0], q.v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(q.v[2], q.v[3]);
+}
+
+// scratch: the ticket (unsigned, 0 between launches) at ticket, and one
+// partial per tile at partials
+template <typename V>
+__global__ void __launch_bounds__(K4_THREADS, blocks_per_sm<V>())
 orth_norm_kernel(const V* __restrict__ a, const V* __restrict__ vold,
                  const V* __restrict__ v, const V* __restrict__ beta,
                  const V* __restrict__ alpha, V* __restrict__ out,
-                 V* __restrict__ partials, long long n_pad, long long h) {
-  __shared__ V s_coef[2];
-  __shared__ V s_p[ROW_TILE / 32];
-  if (threadIdx.x == 0) {
-    s_coef[0] = *beta;
-    s_coef[1] = *alpha;
+                 V* __restrict__ sumsq, V* __restrict__ partials,
+                 unsigned* __restrict__ ticket, long long n_pad, long long h) {
+  __shared__ V s_p[2][K4_THREADS / 32];
+  __shared__ bool s_last;
+  const int t = threadIdx.x;
+  const V nb = -__ldg(beta), na = -__ldg(alpha);
+  const V* ab = a + h;
+  const V* ob = vold + h;
+  const V* vb = v + h;
+  V* yb = out + h;
+  const long long n_tiles = (n_pad + K4_TILE - 1) / K4_TILE;
+  int buf = 0;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    const long long i = tile * K4_TILE + 4 * t;  // this thread's rows: i .. i + 3
+    V ps = V(0);
+    if (i < n_pad) {  // n_pad is a multiple of 4: the quad is whole
+      const Quad<V> aq = ld_quad(ab + i);
+      const Quad<V> oq = ld_quad(ob + i);
+      const Quad<V> vq = ld_quad(vb + i);
+      Quad<V> r;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        r.v[k] = fmadd(na, vq.v[k], fmadd(nb, oq.v[k], aq.v[k]));
+        ps = fmadd(r.v[k], r.v[k], ps);
+      }
+      st_quad(yb + i, r);
+    }
+    ps = block_sum(ps, s_p[buf]);
+    if (t == 0) partials[tile] = ps;
+  }
+  const long long stride = (long long)gridDim.x * K4_THREADS;
+  for (long long k = (long long)blockIdx.x * K4_THREADS + t; k < h; k += stride) {
+    out[k] = V(0);
+    out[h + n_pad + k] = V(0);
+  }
+  if (t == 0) {
+    __threadfence();
+    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
   __syncthreads();
-  const long long i = (long long)blockIdx.x * ROW_TILE + threadIdx.x;
-  const long long k = h + i;
-  const V vn = a[k] - s_coef[0] * vold[k] - s_coef[1] * v[k];
-  out[k] = vn;
-  if (i < h) {  // h <= n_pad: the first h threads clear both halos
-    out[i] = V(0);
-    out[h + n_pad + i] = V(0);
+  if (!s_last) return;
+  // the last block: every partial is in L2 (read past L1 with __ldcg); sum
+  // them in tile order
+  V q = V(0);
+  for (long long k0 = t; k0 < n_tiles; k0 += TAIL_LOADS * K4_THREADS) {
+    V pv[TAIL_LOADS];
+#pragma unroll
+    for (int u = 0; u < TAIL_LOADS; ++u) {
+      const long long k = k0 + (long long)u * K4_THREADS;
+      pv[u] = k < n_tiles ? __ldcg(partials + k) : V(0);
+    }
+#pragma unroll
+    for (int u = 0; u < TAIL_LOADS; ++u) q = q + pv[u];
   }
-  const V ps = block_sum(vn * vn, s_p);
-  if (threadIdx.x == 0) partials[blockIdx.x] = ps;
+  q = block_sum(q, s_p[0]);
+  if (t == 0) {
+    *sumsq = q;
+    *ticket = 0u;
+  }
 }
 
 template <typename V>
 void launch_orth_norm(const void* a, const void* vold, const void* v,
-                      const void* beta, const void* alpha, void* out,
-                      void* partials, long long n_pad, long long h,
+                      const void* beta, const void* alpha, void* out, void* sumsq,
+                      char* scratch, int grid, long long n_pad, long long h,
                       cudaStream_t s) {
-  orth_norm_kernel<V><<<(unsigned)(n_pad / ROW_TILE), ROW_TILE, 0, s>>>(
-      (const V*)a, (const V*)vold, (const V*)v, (const V*)beta,
-      (const V*)alpha, (V*)out, (V*)partials, n_pad, h);
+  orth_norm_kernel<V><<<grid, K4_THREADS, 0, s>>>(
+      (const V*)a, (const V*)vold, (const V*)v, (const V*)beta, (const V*)alpha,
+      (V*)out, (V*)sumsq, (V*)(scratch + SCRATCH_HEAD), (unsigned*)scratch, n_pad, h);
 }
+
+bool misaligned(const void* p) { return ((uintptr_t)p & 15u) != 0; }
 
 }  // namespace
 
-// vcode 0 = f32, 1 = f64 (vectors, beta and alpha alike); partials holds
-// n_pad / ROW_TILE values, one sum of out*out per block.
+extern "C" int sprsolve_orth_norm_tile() { return K4_TILE; }
+
+// K4 blocks that share an SM, by vector type code
+extern "C" int sprsolve_orth_norm_blocks_per_sm(int vcode) {
+  return vcode == 1 ? blocks_per_sm<double>() : blocks_per_sm<float>();
+}
+
+// K4.  vcode 0 = f32, 1 = f64 (vectors, beta, alpha and sumsq alike);
+// sumsq: one value.  scratch: the caller's per-stream area of scratch_bytes
+// >= SCRATCH_HEAD + tiles * sizeof(V) bytes, its ticket zero before the
+// first launch (each launch leaves it so).  grid: at least 1 block; neither
+// out nor sumsq depends on it.  a, v_old, v, out and scratch 16-byte
+// aligned, as the body (h * sizeof(V) a multiple of 16).
 extern "C" int sprsolve_orth_norm(int vcode, const void* a, const void* vold,
                                   const void* v, const void* beta,
-                                  const void* alpha, void* out, void* partials,
+                                  const void* alpha, void* out, void* sumsq,
+                                  void* scratch, long long scratch_bytes, int grid,
                                   long long n_pad, long long h, void* stream) {
-  if (n_pad <= 0 || n_pad % ROW_TILE != 0 || h < 0 || h > n_pad ||
-      n_pad / ROW_TILE > 0x7fffffffLL)
+  const long long vbytes = vcode == 1 ? 8 : 4;
+  const long long n_tiles = (n_pad + K4_TILE - 1) / K4_TILE;
+  if ((vcode != 0 && vcode != 1) || n_pad <= 0 || n_pad % ROW_TILE != 0 || h < 0 ||
+      h > n_pad || grid < 1 || scratch_bytes < SCRATCH_HEAD + n_tiles * vbytes)
     return (int)cudaErrorInvalidValue;
+  if (misaligned(a) || misaligned(vold) || misaligned(v) || misaligned(out) ||
+      misaligned(scratch) || (h * vbytes) % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
-  if (vcode == 0) launch_orth_norm<float>(a, vold, v, beta, alpha, out, partials, n_pad, h, s);
-  else if (vcode == 1) launch_orth_norm<double>(a, vold, v, beta, alpha, out, partials, n_pad, h, s);
-  else return (int)cudaErrorInvalidValue;
+  if (vcode == 0)
+    launch_orth_norm<float>(a, vold, v, beta, alpha, out, sumsq, (char*)scratch, grid,
+                            n_pad, h, s);
+  else
+    launch_orth_norm<double>(a, vold, v, beta, alpha, out, sumsq, (char*)scratch, grid,
+                             n_pad, h, s);
   return (int)cudaGetLastError();
 }

@@ -67,8 +67,13 @@ _SIGNATURES = {
     "sprsolve_dia_dot": (
         [_I32, _I32, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P, _I32, _P], _I32
     ),
-    # vcode, a, v_old, v, beta, alpha, out, partials, n_pad, h, stream
-    "sprsolve_orth_norm": ([_I32, _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _P], _I32),
+    "sprsolve_orth_norm_tile": ([], _I32),
+    "sprsolve_orth_norm_blocks_per_sm": ([_I32], _I32),   # vcode
+    # vcode, a, v_old, v, beta, alpha, out, sumsq, scratch, scratch_bytes, grid,
+    # n_pad, h, stream
+    "sprsolve_orth_norm": (
+        [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P], _I32
+    ),
     # vcode, re_code, im_code, bre, bim, x, y, n_pad, h, offsets, nd, stream
     "sprsolve_dia_complex_spmv": (
         [_I32, _I32, _I32, _P, _P, _P, _P, _I64, _I64, _P, _I32, _P], _I32

@@ -41,7 +41,8 @@ plain PyTorch version:
   on x, plus [conj(w)ᵀy, ‖y‖²]; w = None reads w from x.
 
 The fused Lanczos step K4, which :meth:`PaddedDIA.orth_norm` runs, lives in
-:mod:`.fused`.
+:mod:`.fused`; it is one launch in the same way (its tiles, grid and
+per-stream scratch are K2/K3's).
 
 A wrapper runs the plain version for tensors on the CPU, and launches its
 kernel for CUDA tensors or raises: there is no fallback.  Each wrapper
@@ -750,8 +751,9 @@ class PaddedDIA:
 
     def orth_norm(self, a2, vold2, v2, beta, alpha):
         """The fused Lanczos step (K4): (v₊ = a − β·v_old − α·v, Σv₊²) in one
-        pass, v₊ padded with a zero halo. β and α may be 0-d device tensors:
-        the launch reads neither on the host. Real vectors only, as in the
+        launch, v₊ padded with a zero halo, Σv₊² a 0-d tensor summed by the
+        kernel. β and α may be 0-d device tensors: the launch reads neither
+        on the host. Real vectors only, as in the
         JAX package (MINRES takes it only for a real system)."""
         from .fused import orth_norm
 

@@ -17,7 +17,8 @@ their fused dots sum body rows only, so every partial is the rank's own.
 
 Per shard: ``matvec`` → K1, ``matvec_dot`` → K3, ``matvec_wdot`` → K2 (no
 fold; ``w = None`` where w is the input), ``orth_norm`` → K4 (vectors need
-no exchange); complex ``matvec`` → K5, ``matvec_dot``/``matvec_conj_dot`` →
+no exchange; one launch gives v₊ and the rank's Σv₊² over its body rows);
+complex ``matvec`` → K5, ``matvec_dot``/``matvec_conj_dot`` →
 K6, ``matvec_wdot`` → K7 (no fold). As in the JAX package there is no
 ``matvec_wdot_prec``: folding Jacobi into the kernel input would need an
 exchange of dinv ⊙ x, so the composed path (u = M⁻¹x, then K2 on u) runs
@@ -156,8 +157,9 @@ class DistPaddedDIA:
                            self.offsets, self.h)
 
     def orth_norm(self, a, vold, v, beta, alpha):
-        """The fused Lanczos step (K4) with the rank's partial of Σv₊²; the
-        vectors need no exchange."""
+        """The fused Lanczos step (K4) with the rank's partial of Σv₊², which
+        the one launch sums over the window's body rows; the vectors need no
+        exchange."""
         return fused.orth_norm(a, vold, v, beta, alpha, self.h)
 
 

@@ -14,11 +14,17 @@ Tolerances, by vector dtype (eps = 2⁻²³ for f32, 2⁻⁵² for f64):
 - w·y, y·y, xᵀy, Σv₊²: |Δ| ≤ 1e-5 (f32) or 1e-12 (f64) · Σ|w·y| (block
   partials against one sum);
 - K4's v₊: |Δ| ≤ 8·eps·(|a| + |β||v_old| + |α||v|) per entry (the kernel
-  fuses the multiply-subtracts);
+  fuses the multiply-subtracts), its Σv₊² bitwise the same over grids,
+  eager calls and graph replays (one launch sums its tiles' partials in
+  tile order);
 - narrow (int8/bf16) band storage: bitwise equal to the same values
   stored f32 (widening is exact);
 - K5-K7 (complex): y within 8·eps·((|A_re| + |A_im|)·(|u_re| + |u_im|)) per
   row, the partials within 1e-5 (c64) or 1e-12 (c128) · Σ|w||y|."""
+
+import importlib
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -31,6 +37,8 @@ from sprsolve_tpu_torch.sparse.containers import DIA
 from sprsolve_tpu_torch.utils import problems
 
 torch.set_num_threads(2)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+smoke = importlib.import_module("chip_smoke")
 
 EPS = {torch.float32: 2.0 ** -23, torch.float64: 2.0 ** -52}
 DOT_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -105,9 +113,10 @@ def _zero_halo(op, v):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["poisson10", "random10", "bf16x2.5", "grid20_f64"])
-def test_cuda_k3_k4_match_plain(name, cuda):
+def test_cuda_k3_k4_match_plain(name, cuda, monkeypatch):
     """K3 and K4 on the GPU against their plain versions on the same CUDA
-    tensors, with β and α as 0-d CUDA tensors; every output halo zero."""
+    tensors, with β and α as 0-d CUDA tensors; every output halo zero; K4's
+    outputs bitwise the same on the grid of one SM."""
     op = pd.PaddedDIA.from_dia(_dia(name), device=cuda)
     dt = op.vdtype
     rng = np.random.default_rng(6)
@@ -134,15 +143,22 @@ def test_cuda_k3_k4_match_plain(name, cuda):
     assert bool(((vn - vn_r).abs() <= 8 * EPS[dt] * scale).all())
     assert _zero_halo(op, vn)
     assert abs(float(ss - ss_r)) <= DOT_RTOL[dt] * float(ss_r)
+    assert ss.shape == () and ss.dtype == dt
+    # one launch sums its own partials, in tile order: the grid changes no bit
+    monkeypatch.setattr(pd, "_sm_count", lambda index: 1)
+    vn1, ss1 = fused.orth_norm(x, vold, v, beta, alpha, op.h)
+    assert torch.equal(vn1, vn) and torch.equal(ss1, ss)
     torch.cuda.synchronize()
-    assert pd.dia_dot.launches == 2 and fused.orth_norm.launches == 1
+    assert pd.dia_dot.launches == 2 and fused.orth_norm.launches == 2
 
 
 @pytest.mark.cuda
 def test_cuda_minres_and_cg_run_through_k3_k4(cuda):
     """MINRES launches K1 once and K3 and K4 iterations + 1 times each (the
-    converging pass is not counted); CG with Jacobi launches K3 once per
-    iteration and K4 never. Both agree with the same solves on the CPU."""
+    converging pass is not counted), and a second solve gives bitwise the
+    same x in as many iterations (K3's and K4's sums do not depend on which
+    block ends last); CG with Jacobi launches K3 once per iteration and K4
+    never. Both agree with the same solves on the CPU."""
     A = problems.poisson3d(10, 10, 10)
     b = np.random.default_rng(0).standard_normal(A.shape[0]).astype(np.float32)
     for kw in (dict(method="minres"), dict(method="cg", M="jacobi")):
@@ -155,6 +171,9 @@ def test_cuda_minres_and_cg_run_through_k3_k4(cuda):
         assert pd.dia_spmv.launches == 1 and pd.dia_wdot.launches == 0
         assert pd.dia_dot.launches == (n + 1 if minres else n)
         assert fused.orth_norm.launches == (n + 1 if minres else 0)
+        if minres:
+            x_again, info_again = tsp.solve(A, b, tol=1e-5, max_iter=500, device=cuda, **kw)
+            assert info_again.iterations == n and torch.equal(x_again, x)
         x_cpu, info_cpu = tsp.solve(A, b, tol=1e-5, max_iter=500, device="cpu", **kw)
         assert abs(n - info_cpu.iterations) <= 3
         r = A.matvec(x.cpu()).double().numpy() - b
@@ -608,6 +627,99 @@ def test_cuda_k1_refuses_a_misaligned_vector(cuda):
         pd.dia_spmv(op.bands, buf[1:], op.offsets, op.h)
 
 
+# --- K4 at the edges of its 1024-row tile ----------------------------------
+# chip_smoke.py phase 3 checks K4 at the same shapes: one table for both
+K4_EDGES = smoke.K4_EDGES   # name → (n_pad, h, vector dtype)
+
+
+def _k4_edge_vecs(name, cuda, seed=31):
+    """(a, v_old, v, β, α, h): three padded vectors of K4_EDGES[name] with
+    zero halos, β and α 0-d tensors of their dtype."""
+    n_pad, h, dt = K4_EDGES[name]
+    rng = np.random.default_rng(seed)
+    vecs = []
+    for _ in range(3):
+        t = torch.zeros(n_pad + 2 * h, dtype=dt)
+        t[h: h + n_pad] = torch.as_tensor(rng.standard_normal(n_pad), dtype=dt)
+        vecs.append(t.to(cuda))
+    coef = lambda c: torch.tensor(c, dtype=dt, device=cuda)
+    return (*vecs, coef(0.7), coef(-1.3), h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K4_EDGES))
+def test_cuda_k4_edge_shapes_match_plain(name, cuda, monkeypatch):
+    """K4's v₊ within 8·eps·(|a| + |β||v_old| + |α||v|) of its plain version
+    per entry and Σv₊² within DOT_RTOL, both halos exactly zero after the
+    output's block was filled with NaN, one count a call, and v₊ and the
+    sum bitwise the same with the card said to have 1 or 7 SMs (at the
+    1M-row layouts each block of the 1-SM grid walks at least 72 tiles)."""
+    a, vold, v, beta, alpha, h = _k4_edge_vecs(name, cuda)
+    dt, n_pad = a.dtype, a.numel() - 2 * h
+    _dirty(a)
+    before = fused.orth_norm.launches
+    vn, ss = fused.orth_norm(a, vold, v, beta, alpha, h)
+    assert fused.orth_norm.launches == before + 1
+    assert not bool(vn[:h].any()) and not bool(vn[h + n_pad:].any())
+    vn_r, ss_r = fused.orth_norm_plain(a, vold, v, beta, alpha, h)
+    scale = a.abs() + 0.7 * vold.abs() + 1.3 * v.abs()
+    assert bool(((vn - vn_r).abs() <= 8 * EPS[dt] * scale).all())
+    assert abs(float(ss - ss_r)) <= DOT_RTOL[dt] * float(ss_r)
+    tiles = -(-n_pad // pd.DOT_TILE)
+    if n_pad > 500_000:
+        assert tiles // pd.persistent_grid(n_pad, dt, 1) >= 72
+    for sms in (1, 7):
+        monkeypatch.setattr(pd, "_sm_count", lambda index, sms=sms: sms)
+        vg, sg = fused.orth_norm(a, vold, v, beta, alpha, h)
+        assert torch.equal(vg, vn) and torch.equal(sg, ss), sms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["k4_poisson100", "k4_poisson100_f64", "k4_one_ragged_tile"])
+def test_cuda_k4_is_one_deterministic_kernel_that_replays_in_a_graph(name, cuda):
+    """Ten eager calls give bitwise the first call's v₊ and sum; a CUDA graph
+    of one call replays three times to bitwise the same, with the ticket
+    back at 0; torch.profiler sees one CUDA kernel per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    a, vold, v, beta, alpha, h = _k4_edge_vecs(name, cuda)
+    call = lambda: fused.orth_norm(a, vold, v, beta, alpha, h)
+    first = call()
+    for _ in range(10):
+        assert all(torch.equal(p, q) for p, q in zip(call(), first))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, q) for p, q in zip(captured, first))
+    for buf in pd._dot_scratch.values():
+        assert int(buf[:4].view(torch.int32).item()) == 0
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 1 and "orth_norm_kernel" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+def test_cuda_k4_refuses_a_misaligned_vector(cuda):
+    """K4 reads and writes 16 bytes at a time: a vector that starts off a
+    16-byte boundary is refused, as K1-K3 refuse it."""
+    a, vold, v, beta, alpha, h = _k4_edge_vecs("k4_one_ragged_tile", cuda)
+    buf = torch.zeros(a.numel() + 1, device=cuda)
+    with pytest.raises(RuntimeError, match="orth_norm: CUDA error"):
+        fused.orth_norm(a, buf[1:], v, beta, alpha, h)
+
+
 # --- K6 and K7: one launch, y bitwise K5's, deterministic dots --------------
 COMPLEX_PLANES = ["int8/bfloat16", "bfloat16/int8", "float32/float32", "float64/float64"]
 
@@ -969,13 +1081,6 @@ def test_cuda_bsr_matches_scipy_with_tf32_allowed(dtype, cuda):
 def _smoke(monkeypatch):
     """``chip_smoke.py``'s module, with phase 13 set to check launch counts
     alone (its 32³ CGS and TFQMR drift, as the JAX package's do)."""
-    import importlib
-    import os
-    import sys
-
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    monkeypatch.syspath_prepend(root)
-    smoke = importlib.import_module("chip_smoke")
     monkeypatch.setattr(smoke, "STRICT", False)
     return smoke
 

@@ -444,6 +444,64 @@ def test_complex_grid_and_scratch_at_the_100_cubed_shapes(dtype, monkeypatch):
     assert buf.numel() >= pd.DOT_SCRATCH_HEAD + 2 * 977 * 8   # K2/K3 in f64
 
 
+@pytest.mark.parametrize("n_pad, h, dtype", [
+    (256 * 3, 4, torch.float32),            # one ragged tile
+    (256 * 9, 2000, torch.float32),         # halo wider than a tile
+    (256 * 5, 0, torch.float64),            # no halo
+    (1_000_192, 10_000, torch.float32),     # the 100³ Poisson: 977 tiles
+    (1_000_192, 10_000, torch.float64),
+])
+def test_k4_grid_and_scratch_share(n_pad, h, dtype, monkeypatch):
+    """K4 walks DOT_TILE-row tiles (the last ragged where n_pad is 256·odd)
+    with K2/K3's one wave of blocks, and its one partial per tile fits the
+    per-stream scratch behind the ticket; the 1M-row layouts on one SM's
+    grid make each block walk at least 72 tiles."""
+    tiles = -(-n_pad // pd.DOT_TILE)
+    grid = pd.persistent_grid(n_pad, dtype, 132)
+    assert grid == min(tiles, pd.DOT_BLOCKS_PER_SM[dtype] * 132)
+    assert h <= n_pad and (h * dtype.itemsize) % 16 == 0
+    if n_pad > 500_000:
+        assert tiles // pd.persistent_grid(n_pad, dtype, 1) >= 72
+    monkeypatch.setattr(pd, "_dot_scratch", {})
+    buf = pd.dot_scratch(torch.device("cpu"), 1, n_pad)
+    assert buf.numel() >= pd.DOT_SCRATCH_HEAD + tiles * dtype.itemsize
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k4_bound_counts_the_body_reads_and_the_whole_write(dtype):
+    """chip_smoke.py's K4 bound counts what the kernel moves: the body rows
+    of a, v_old and v read (never their zero halos) and all of v₊ written,
+    at the 100³ Poisson's layout 16,083,072 bytes in f32."""
+    import importlib
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))))
+    smoke = importlib.import_module("chip_smoke")
+    h, n_pad = pd.layout(100 ** 3, (-100 * 100, 100 * 100), dtype.itemsize)
+    a = torch.zeros(n_pad + 2 * h, dtype=dtype)
+    assert (n_pad, h) == (1_000_192, 10_000)
+    assert smoke.orth_norm_bytes(a, h) == (4 * n_pad + 2 * h) * dtype.itemsize
+    assert smoke.orth_norm_bytes(a, h) == 16_083_072 * dtype.itemsize // 4
+    assert smoke.orth_norm_bytes(a, 0) == smoke.nbytes(a, a, a, a)
+
+
+def test_k4_source_constants_match_the_wrapper():
+    """fused.cu stands alone: its tile, scratch head and blocks per SM are
+    the ones the wrapper sizes the grid and the scratch with."""
+    import re
+    from pathlib import Path
+
+    src = (Path(fused.__file__).resolve().parent.parent / "csrc" / "fused.cu").read_text()
+    define = lambda name: re.search(rf"#define {name} \(?([^)/\n]+)", src).group(1).strip()
+    assert int(define("K4_THREADS")) == pd.DOT_TILE // 4
+    assert define("K4_TILE") == "4 * K4_THREADS"
+    assert int(define("SCRATCH_HEAD")) == pd.DOT_SCRATCH_HEAD
+    assert "sizeof(V) == 4 ? 8 : 4" in src
+    assert (pd.DOT_BLOCKS_PER_SM[torch.float32], pd.DOT_BLOCKS_PER_SM[torch.float64]) == (8, 4)
+
+
 def test_launch_constants_are_built_once_per_operator():
     codes, offs = pd._launch_consts((1, -1, 100), torch.float32, (torch.int8,))
     assert codes == (0, 2) and list(offs) == [1, -1, 100]

@@ -10,7 +10,12 @@ beyond or near the 50 MB L2) and at 64³ (where a call fits in L2); where
 the measured tree picks K1's body and band loads
 (``padded_dia.k1_by_quads``, ``padded_dia.stream_bands``), each of those
 also runs with each forced: one thread per row, and 4-row tiles with
-plain or with streamed band loads.  For each call:
+plain or with streamed band loads.  K4 (``orth_norm``) runs on the
+padded layout of the 100³ and 64³ Poisson in f32 and f64, with β and α as
+0-d tensors of the vectors' dtype.  Beside each K4 shape, as a reading
+and no yardstick of K4's function, one
+``torch.addcmul(a, vold, v)``: 3 reads and 1 write an entry, K4's bytes,
+in a plain elementwise pass.  For each call:
 
 - the device events of one wrapper call, by torch.profiler (which kernels a
   call launches, and how long each runs);
@@ -22,9 +27,11 @@ plain or with streamed band loads.  For each call:
                                        [--only PREFIX]
 
 ``--y-dir`` saves K1's y of every K1 call (the same seeded x whatever the
-tree) to ``DIR/k1_y_<label>.pt`` and holds it bitwise against every other
-label's file already there, one line per call.  ``--only`` times only
-the calls whose name starts with PREFIX (``K1``: K1's).
+tree) to ``DIR/k1_y_<label>.pt``, and K4's (v₊, Σv₊²) of every K4 shape to
+``DIR/k4_y_<label>.pt``, and holds them bitwise against every other
+label's files already there, one line per call (K4: v₊ and the sum
+each).  ``--only`` times only the calls whose name starts with PREFIX
+(``K1``: K1's; ``K4``: K4's and the readings beside it).
 
 ``--root`` names the checkout whose ``sprsolve_tpu_torch`` is measured
 (default: the one holding this script), so that two trees can be compared
@@ -62,6 +69,7 @@ def main() -> int:
     import torch
 
     import sprsolve_tpu_torch as spt
+    from sprsolve_tpu_torch.ops import fused
     from sprsolve_tpu_torch.ops import padded_dia as pd
     from sprsolve_tpu_torch.sparse.containers import DIA
     from sprsolve_tpu_torch.utils import problems
@@ -141,6 +149,24 @@ def main() -> int:
                     if mode is not None:
                         pd.k1_by_quads, pd.stream_bands = picks
             calls[name + tag] = (call, (kb, kx))
+    k4 = {}   # name → (a, v_old, v, β, α, h)
+    for grid in (100, 64):
+        for kind, dt in (("f32", torch.float32), ("f64", torch.float64)):
+            n = grid ** 3
+            kh, n_pad = pd.layout(n, (-grid * grid, grid * grid), dt.itemsize)
+            vecs = []
+            for _ in range(3):
+                t = torch.zeros(n_pad + 2 * kh, dtype=dt)
+                t[kh: kh + n] = torch.as_tensor(rng.standard_normal(n), dtype=dt)
+                vecs.append(t.to(dev))
+            k4[f"K4 orth_norm {kind} {grid}^3"] = (
+                *vecs, torch.tensor(0.7, dtype=dt, device=dev),
+                torch.tensor(-1.3, dtype=dt, device=dev), kh)
+    for name, (ka, kvo, kv, kb, kal, kh) in k4.items():
+        calls[name] = (lambda a, vo, v, bt, al, kh=kh: fused.orth_norm(a, vo, v, bt, al, kh),
+                       (ka, kvo, kv, kb, kal))
+        calls[name.replace("orth_norm", "reading torch.addcmul")] = (
+            lambda a, vo, v: torch.addcmul(a, vo, v), (ka, kvo, kv))
     calls = {k: v for k, v in calls.items() if k.startswith(args.only)}
     out = {"label": args.label, "package": spt.__file__, "gpu": smi, "calls": {}}
     print(smi, flush=True)
@@ -158,6 +184,18 @@ def main() -> int:
                       flush=True)
                 out.setdefault("y_bitwise", {})[f"{name} vs {other.stem[5:]}"] = same
         torch.save(ys, y_dir / f"k1_y_{args.label}.pt")
+        vs = {name: tuple(t.cpu() for t in fused.orth_norm(*ops[:5], ops[5]))
+              for name, ops in k4.items()}
+        for other in sorted(y_dir.glob("k4_y_*.pt")):
+            theirs = torch.load(other)
+            for name, (vn, sq) in vs.items():
+                for what, j, mine in (("v+", 0, vn), ("sum", 1, sq)):
+                    same = name in theirs and torch.equal(theirs[name][j], mine)
+                    print(f"[{args.label}] {name}: {what} bitwise {other.stem[5:]}'s: "
+                          f"{same}", flush=True)
+                    out.setdefault("y_bitwise", {})[
+                        f"{name} {what} vs {other.stem[5:]}"] = same
+        torch.save(vs, y_dir / f"k4_y_{args.label}.pt")
     for name, (call, ops) in calls.items():
         one = lambda: call(*ops)
         rec = {
@@ -166,9 +204,15 @@ def main() -> int:
             "cold_us": smoke.cold_device_ms(call, ops) * 1e3,
             "wrapper_ms": smoke.median_ms(one),
         }
+        bound = ""
+        if name in k4:   # K4's bound: its bytes over the card's memory rate
+            a, kh = k4[name][0], k4[name][5]
+            rec["bound_us"] = smoke.bound_ms(smoke.orth_norm_bytes(a, kh),
+                                             6 * (a.numel() - 2 * kh), a.dtype)[0] * 1e3
+            bound = f", bound {rec['bound_us']:.3f} us"
         out["calls"][name] = rec
         print(f"[{args.label}] {name}: warm {rec['warm_us']:.3f} us, cold "
-              f"{rec['cold_us']:.3f} us, wrapper {rec['wrapper_ms']:.5f} ms, events "
+              f"{rec['cold_us']:.3f} us{bound}, wrapper {rec['wrapper_ms']:.5f} ms, events "
               + "; ".join(f"{n[:60]} {t:.3f} us" for n, t in rec["events"]), flush=True)
     print(json.dumps(out))
     return 0

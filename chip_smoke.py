@@ -231,7 +231,20 @@ Phases, each printing lines of its own:
    K1's and K6/K7 y bitwise K5's, halos zero. (d) Jacobi-BiCGStab on
    ``HaloDIA`` and ``AllGatherELL`` at 32³ (one halo exchange per SpMV,
    or one all-gather), and ``ca_cg`` (s = 4, Jacobi folded) on
-   ``MPKDIA`` with one exchange per s-step block.
+   ``MPKDIA`` with one exchange per s-step block. (e) One rank under NCCL
+   again, each solve through ``distributed_solve`` at tol 1e-4 beside the
+   single-card solve of the same system, whose count it must equal: on
+   phase 4's Poisson single-sync CG with Jacobi (K1 its + 2), block CG on
+   phase 13's 8 columns (K1b its + 1: ``DistPaddedDIA.matmat``),
+   BiCGStab(2) with Jacobi (K1 once, K2 4·cycles), CGS and TFQMR with
+   Jacobi (K1 1 + 2·its, 3 + 2·its), FGMRES(32) with an inner CG of 8
+   steps on the group (K1 2·its + cycles + 1, K3 8·its), CA-BiCGStab
+   (s = 2) on ``MPKDIA`` of depth 4 (torch ops: no kernel; one exchange
+   and one all-reduce an s-step block); on phase 9's damped c64 Poisson
+   COCG with the complex Jacobi (K5 its + 1). Launch and collective counts
+   exact, true residual below 1e-3; ms per iteration of the solver on the
+   rank's part (median of 3), one solve under a device-only trace (device
+   µs per iteration, idle share), and the part's wall time.
 17. dist-eigen — the distributed eigensolvers (``parallel.distributed_*``
    on ``HaloDIA``: torch ops, no kernel launched, checked), the
    collectives of each run exactly ``de_counts`` (one halo exchange per
@@ -1549,17 +1562,18 @@ class PlainComplexOperator:
                                          self.op.offsets, self.op.h)
 
 
-def idle_share(handle, b, names=("dia_complex",)):
+def idle_share(handle, b, names=("dia_complex",), cpu=True):
     """One prepared solve under torch.profiler: (wall ms, device-busy ms,
     idle share, the device ms of the kernels whose names hold one of
     ``names``: K5-K7 by default). None when the profiler sees no device time
-    on this machine."""
+    on this machine. ``cpu=False`` traces the device alone."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     handle(b)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         handle(b)
         torch.cuda.synchronize()
@@ -3608,15 +3622,19 @@ def dist_call_us(fn, reps=200):
 
 def dist_local_system(A, rhs, M, g, dev):
     """``(operator, rhs, {"M": ...})`` of this rank, laid out as
-    ``distributed_solve`` lays them out (a flat M re-laid with zero pads):
-    the solver alone can then be timed on them."""
+    ``distributed_solve`` lays them out (a flat M re-laid with zero pads; a
+    layout of torch ops takes the rhs with zero pad rows): the solver alone
+    can then be timed on them."""
     from sprsolve_tpu_torch import parallel as par
 
     if M is not None and M.diag_inv.shape[0] != A.padded_len:
         M = type(M)(diag_inv=A.pad_vec(M.diag_inv))
     specs = par.make_solver_specs(A, M)[0]
     op_l = par.local_part(A, specs[0], g, dev)
-    b_l = par.local_part(A.pad_vec(torch.as_tensor(rhs)), 0, g, dev)
+    b = torch.as_tensor(rhs)
+    b = (A.pad_vec(b) if hasattr(A, "pad_vec")
+         else torch.cat([b, b.new_zeros((A.shape[0] - b.shape[0],) + b.shape[1:])]))
+    b_l = par.local_part(b, 0, g, dev)
     return op_l, b_l, ({} if M is None else {"M": par.local_part(M, specs[3], g, dev)})
 
 
@@ -3706,6 +3724,228 @@ def phase_dist_nccl(dev):
                 four_all_reduces_two_windows_ms=f"{(4 * ar_us + 2 * win_us) / 1e3:.4f}")
         finally:
             dist.destroy_process_group()
+
+
+# --- phase 16 (e): the rest of the Krylov family on one rank ------------------
+DK_BLOCK = 8        # phase 13 (b)'s block of columns
+DK_INNER = 8        # phase 13 (d)'s inner CG steps
+DK_S = 2            # CA-BiCGStab's s, on MPKDIA of depth 2s
+
+
+def _dk_fgmres(Ad, rhs, x0=None, *, tol, max_iter, group=None):
+    """FGMRES(RESTART) with an inner CG of DK_INNER steps as M, both on
+    ``group`` (None: one card)."""
+    M = spt.InnerSolvePrecond(A=Ad, method="cg", iters=DK_INNER, group=group)
+    return spt.fgmres(Ad, rhs, x0, M=M, tol=tol, max_iter=max_iter, restart=RESTART,
+                      group=group)
+
+
+def _dk_cases(grid, dev):
+    """Phase 16 (e)'s solves: name → (solver, the distributed operator, rhs,
+    M, the single-card run, the launches of ``its``, the (all-reduces,
+    halo exchanges) of ``its``, the true residual of x). Counts of the
+    distributed solve on one rank; FGMRES's its are Arnoldi steps,
+    BiCGStab(2)'s cycles."""
+    import functools
+
+    import scipy.sparse as sps
+
+    from sprsolve_tpu_torch import parallel as par
+
+    A = problems.poisson3d(grid, grid, grid)
+    n = A.shape[0]
+    dia = DIA.from_csr(A, device="cpu")
+    b = poisson_rhs(A)
+    B = np.random.default_rng(SEED + 4).standard_normal((n, DK_BLOCK)).astype(np.float32)
+    cb = dia.bands.numpy().astype(np.complex64)
+    cb[dia.offsets.index(0)] += 0.5j
+    damped = DIA(bands=torch.from_numpy(cb), offsets=dia.offsets, shape=dia.shape)
+    data = A.data.numpy().astype(np.complex64)
+    data[A.indices.numpy() == A.row_ids.numpy()] += 0.5j
+    r = np.random.default_rng(SEED + 6).standard_normal(n).astype(np.float32)
+    bz = (r + 0.25j * r).astype(np.complex64)
+
+    op = par.DistPaddedDIA.from_dia(dia, 1)
+    cop = par.DistComplexPaddedDIA.from_dia(damped, 1)
+    mpk = par.partition_dia_mpk(dia, 1, 2 * DK_S)
+    sop = spt.PaddedDIA.from_dia(dia, device=dev)
+    scop = spt.ComplexPaddedDIA.from_dia(damped, device=dev)
+    sdia = DIA.from_csr(A, device=dev)
+    Mj = spt.DiagPrecond.new(dia.diagonal())
+    Ms = spt.DiagPrecond(diag_inv=sop.pad_vec(Mj.diag_inv.to(dev)))   # zero pads, as relayed
+    pb = sop.pad_vec(torch.as_tensor(b, device=dev))
+    ca = functools.partial(spt.ca_bicgstab, s=DK_S, bounds=spt.gershgorin_bounds(A))
+    kw = dict(tol=1e-4, max_iter=1000)
+    cycles = lambda its: -(-its // RESTART)
+    S = sps.csr_matrix((A.data.numpy().astype(np.float64), A.indices.numpy(),
+                        A.indptr.numpy()), shape=A.shape)
+    Sz = sps.csr_matrix((data.astype(np.complex128), A.indices.numpy(), A.indptr.numpy()),
+                        shape=A.shape)
+
+    def residual(S_, rhs):
+        """The true relative residual of x (the largest of its columns')."""
+        def of(x):
+            xh = x.detach().cpu().numpy().astype(S_.dtype)
+            bh = np.asarray(rhs, S_.dtype)
+            return float(np.max(np.linalg.norm(S_ @ xh - bh, axis=0)
+                                / np.linalg.norm(bh, axis=0)))
+        return of
+
+    res = residual(S, b)
+
+    return {
+        "cg_single_sync": (
+            spt.cg_single_sync, op, b, Mj,
+            lambda: spt.cg_single_sync(sop, pb, M=Ms, **kw),
+            lambda k: {"dia_spmv": k + 2}, lambda k: (2 + k, 2 + k), res),
+        "block_cg": (
+            spt.block_cg, op, B, None,
+            lambda: spt.block_cg(sop, sop.pad_block(torch.as_tensor(B, device=dev)), **kw),
+            lambda k: {"dia_spmm": k + 1}, lambda k: (2 + 4 * k, 1 + k), residual(S, B)),
+        "bicgstabl": (
+            spt.bicgstabl, op, b, Mj, lambda: spt.bicgstabl(sop, pb, M=Ms, **kw),
+            lambda k: {"dia_spmv": 1, "dia_wdot": 4 * k}, lambda k: (2 + 11 * k, 1 + 4 * k),
+            res),
+        "cgs": (
+            spt.cgs, op, b, Mj, lambda: spt.cgs(sop, pb, M=Ms, **kw),
+            lambda k: {"dia_spmv": 1 + 2 * k}, lambda k: (2 + 3 * k, 1 + 2 * k), res),
+        "tfqmr": (
+            spt.tfqmr, op, b, Mj, lambda: spt.tfqmr(sop, pb, M=Ms, **kw),
+            lambda k: {"dia_spmv": 3 + 2 * k}, lambda k: (4 + 4 * k, 3 + 2 * k), res),
+        "fgmres_inner_cg": (
+            _dk_fgmres, op, b, None, lambda: _dk_fgmres(sop, pb, **kw),
+            lambda k: {"dia_spmv": 2 * k + cycles(k) + 1, "dia_dot": DK_INNER * k},
+            lambda k: (2 + 2 * cycles(k) + (6 + 3 * DK_INNER) * k,
+                       1 + cycles(k) + (2 + DK_INNER) * k), res),
+        "ca_bicgstab": (
+            ca, mpk, b, None,
+            lambda: ca(sdia, torch.as_tensor(b, device=dev), **kw),
+            lambda k: {}, None, res),
+        "cocg": (
+            spt.cocg, cop, bz, cop.jacobi_precond(),
+            lambda: spt.cocg(scop, scop.pad_vec(torch.as_tensor(bz, device=dev)),
+                             M=scop.jacobi_precond(), **kw),
+            lambda k: {"dia_complex_spmv": k + 1}, lambda k: (3 + 3 * k, 1 + k),
+            residual(Sz, bz)),
+    }
+
+
+def _dk_blocks(marks, end):
+    """CA-BiCGStab's s-step blocks and anchors, from the counters read as
+    each block starts (``marks``) and at the end: every block takes one
+    all-reduce and one halo exchange, an anchor (the true residual, r̃₀ :=
+    r) one more of each; the last anchor follows the last block."""
+    seq = [(m["all_reduce_sum"][0], m["halo_exchange"][0]) for m in marks]
+    seq.append((end["all_reduce_sum"][0] - 1, end["halo_exchange"][0] - 1))
+    deltas = [(b[0] - a[0], b[1] - a[1]) for a, b in zip(seq, seq[1:])]
+    if not deltas or any(d not in ((1, 1), (2, 2)) for d in deltas) or seq[0] != (2, 1):
+        raise AssertionError(f"dist krylov ca_bicgstab: collectives at each block {seq}")
+    return len(marks), 1 + deltas.count((2, 2))
+
+
+def phase_dist_krylov(dev, grid=GRID, timed=True):
+    """Phase 16 (e): the Krylov family through ``distributed_solve`` on one
+    rank (NCCL on the card, gloo on the CPU), each solve held to the
+    single-card solve of the same system (see the module docstring)."""
+    import torch.distributed as dist
+
+    from sprsolve_tpu_torch import parallel as par
+    from sprsolve_tpu_torch.parallel import comm
+
+    tcab = importlib.import_module("sprsolve_tpu_torch.solvers.ca_bicgstab")
+    t0 = time.perf_counter()
+    cases = _dk_cases(grid, dev)
+    setup = time.perf_counter() - t0
+    kw = dict(tol=1e-4, max_iter=1000)
+    with tempfile.TemporaryDirectory() as tmp:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        dist.init_process_group(backend, init_method=dist_store(tmp), rank=0, world_size=1)
+        try:
+            g = dist.group.WORLD
+            for name, (solver, op, rhs, M, single, want, coll, res_of) in cases.items():
+                t_case = time.perf_counter()
+                x1, info1 = single()
+                its1 = int(info1.iterations)
+                marks, inner = [], tcab.basis_block
+
+                def marked(*a, **k):
+                    marks.append(dist_counts())
+                    return inner(*a, **k)
+
+                tcab.basis_block = marked
+                pd.reset_launch_counts()
+                comm.reset_counts()
+                try:
+                    x, info = par.distributed_solve(solver, op, rhs, M=M, group=g, device=dev,
+                                                    **kw)
+                    _sync(dev)
+                finally:
+                    tcab.basis_block = inner
+                c, cc = launch_counts(), dist_counts()
+                its = int(info.iterations)
+                res = res_of(x)
+                expect = dict.fromkeys(KERNELS, 0)
+                expect.update(want(its))
+                if coll is None:
+                    blocks, anchors = _dk_blocks(marks, cc)
+                    ar_h = (2 + blocks + anchors, 1 + blocks + anchors)
+                else:
+                    ar_h = coll(its)
+                got = (cc["all_reduce_sum"][0], cc["halo_exchange"][0])
+                if not (info.converged and res < 1e-3 and bool(torch.isfinite(x).all())
+                        and x.shape == torch.as_tensor(rhs).shape):
+                    raise AssertionError(f"dist krylov {name}: {info}, true residual {res:.3e}")
+                if c != expect:
+                    raise AssertionError(f"dist krylov {name}: launches {c}, expected {expect}")
+                if got != ar_h or cc["all_gather_rows"][0] != 1:
+                    raise AssertionError(f"dist krylov {name}: collectives {cc}, expected "
+                                         f"(all-reduces, halo exchanges) {ar_h}")
+                if its != its1 or not info1.converged:
+                    raise AssertionError(f"dist krylov {name}: {its} iterations, one card "
+                                         f"{info1}")
+                fields = {}
+                if coll is None:
+                    fields.update(blocks=blocks, anchors=anchors, all_reduces_per_block=1,
+                                  halo_exchanges_per_block=1)
+                else:
+                    # an iteration's collectives, inside FGMRES's first cycle
+                    k0, k1 = coll(RESTART - 1), coll(RESTART)
+                    fields.update(all_reduces_per_iteration=k1[0] - k0[0],
+                                  halo_exchanges_per_iteration=k1[1] - k0[1])
+                if timed:
+                    op_l, b_l, mkw = dist_local_system(op, rhs, M, g, dev)
+                    run = lambda: solver(op_l, b_l, group=g, **kw, **mkw)
+                    walls = []
+                    for _ in range(3):
+                        _sync(dev)
+                        t1 = time.perf_counter()
+                        _, inf = run()
+                        _sync(dev)
+                        walls.append(time.perf_counter() - t1)
+                        if int(inf.iterations) != its:
+                            raise AssertionError(f"dist krylov {name}: a timed solve took "
+                                                 f"{inf.iterations}")
+                    fields["per_iteration_ms"] = f"{statistics.median(walls) / its * 1e3:.4f}"
+                    # the device alone: a CPU trace of these host-bound loops
+                    # took 2-15 s a solve to record and read
+                    prof = idle_share(lambda _: run(), None,
+                                      names=REAL_KERNELS + ("dia_complex",), cpu=False)
+                    if prof is None:
+                        fields["profile"] = "the profiler saw no device time"
+                    else:
+                        fields.update(device_us_per_iteration=f"{prof[1] / its * 1e3:.3f}",
+                                      idle_share=f"{prof[2]:.4f}",
+                                      hand_kernels_ms=f"{prof[3]:.4f}",
+                                      device_busy_ms=f"{prof[1]:.4f}")
+                log("dist", part="e", backend=backend, ranks=1, solver=name,
+                    layout=type(op).__name__, iterations=its, single_card_iterations=its1,
+                    true_residual=res,
+                    **{f"{k}_launches": v for k, v in c.items() if v},
+                    all_reduce_calls=got[0], halo_exchanges=got[1], **fields,
+                    case_wall_s=f"{time.perf_counter() - t_case:.2f}")
+        finally:
+            dist.destroy_process_group()
+    log("dist", part="e", setup_s=f"{setup:.2f}", wall_s=f"{time.perf_counter() - t0:.2f}")
 
 
 def _dist_solves(rank, g, dev, dia, damped, ref):
@@ -4055,10 +4295,11 @@ def phase_dist_gloo(dev):
 
 def phase_dist(dev):
     """Phase 16: the distributed layer (a) on one NCCL rank, (b)-(d) on two
-    gloo ranks sharing the card."""
+    gloo ranks sharing the card, (e) the Krylov family on one NCCL rank."""
     t0 = time.perf_counter()
     phase_dist_nccl(dev)
     phase_dist_gloo(dev)
+    phase_dist_krylov(dev)
     log("dist", seconds=f"{time.perf_counter() - t0:.2f}")
 
 

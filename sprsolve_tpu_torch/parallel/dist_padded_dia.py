@@ -15,9 +15,10 @@ vector: the vecalg dots sum whole padded vectors, and a halo left in one
 would count a neighbour's edge. The kernels' outputs have a zero halo, and
 their fused dots sum body rows only, so every partial is the rank's own.
 
-Per shard: ``matvec`` → K1, ``matvec_dot`` → K3, ``matvec_wdot`` → K2 (no
-fold; ``w = None`` where w is the input), ``orth_norm`` → K4 (vectors need
-no exchange; one launch gives v₊ and the rank's Σv₊² over its body rows);
+Per shard: ``matvec`` → K1, ``matmat`` → K1b, ``matvec_dot`` → K3,
+``matvec_wdot`` → K2 (no fold; ``w = None`` where w is the input),
+``orth_norm`` → K4 (vectors need no exchange; one launch gives v₊ and the
+rank's Σv₊² over its body rows);
 complex ``matvec`` → K5, ``matvec_dot``/``matvec_conj_dot`` →
 K6, ``matvec_wdot`` → K7 (no fold). As in the JAX package there is no
 ``matvec_wdot_prec``: folding Jacobi into the kernel input would need an
@@ -112,13 +113,17 @@ class DistPaddedDIA:
     # --- the global layout (host side) --------------------------------------
     def pad_vec(self, x: torch.Tensor) -> torch.Tensor:
         """(n,) → (world · (h + r_local + h),): each rank's rows with a zero
-        halo, zero past row n."""
-        flat = F.pad(x, (0, self.world * self.r_local - self.n))
-        return F.pad(flat.reshape(self.world, self.r_local), (self.h, self.h)).reshape(-1)
+        halo, zero past row n. An (n, k) block of columns goes to
+        (world · (h + r_local + h), k) the same way, row by row."""
+        cols = x.reshape(x.shape[0], -1)
+        flat = F.pad(cols, (0, 0, 0, self.world * self.r_local - self.n))
+        blocks = F.pad(flat.reshape(self.world, self.r_local, -1), (0, 0, self.h, self.h))
+        return blocks.reshape((-1,) + tuple(x.shape[1:]))
 
     def unpad_vec(self, x2: torch.Tensor) -> torch.Tensor:
-        body = x2.reshape(self.world, self.local_len)[:, self.h: self.h + self.r_local]
-        return body.reshape(-1)[: self.n]
+        blocks = x2.reshape((self.world, self.local_len) + tuple(x2.shape[1:]))
+        body = blocks[:, self.h: self.h + self.r_local]
+        return body.reshape((-1,) + tuple(x2.shape[1:]))[: self.n]
 
     def diagonal_global(self) -> torch.Tensor:
         """The global diagonal in the global layout (zero halo and pads)."""
@@ -143,6 +148,13 @@ class DistPaddedDIA:
         """K1 on the window. Real vectors, as in the JAX package: complex
         systems take :class:`DistComplexPaddedDIA`."""
         return pd.dia_spmv(self.bands, self.window(x), self.offsets, self.h)
+
+    def matmat(self, X: torch.Tensor) -> torch.Tensor:
+        """A·X for a rank's (h + r_local + h, k) block of padded columns in
+        one K1b launch on its window, after one exchange of (h, k) slabs
+        (block CG; the JAX package's distributed kernel layout has no block
+        form). Each column is bitwise :meth:`matvec`'s."""
+        return pd.dia_spmm(self.bands, self.window(X), self.offsets, self.h)
 
     def matvec_dot(self, x: torch.Tensor):
         """(A·x, the rank's partial of xᵀ(A·x)) in one pass (K3); solvers sum

@@ -343,3 +343,260 @@ def check_eigen(run, name: str, world: int, lam_atol: float, res_max: float,
     np.testing.assert_allclose(X.T @ X, np.eye(X.shape[1]), rtol=0, atol=orth_atol)
     assert abs(r0["its"] - ref["its"]) <= band(ref["its"]), (name, r0["its"], ref["its"])
     return r0["its"], ref["its"]
+
+
+# --- the Krylov family's distributed cases -----------------------------------------
+COLLECTIVES = ("psum", "ppermute", "all_gather")
+
+
+def _has_collectives(levels: dict) -> bool:
+    return any(sum(c.values()) for c in levels.values())
+
+
+def _walk(jaxpr, path: tuple, out: dict, loops: list) -> None:
+    """Add the collectives of ``jaxpr`` to ``out[path]``: a ``while`` whose
+    body holds collectives becomes the level ``path + (i,)`` (i counts such
+    loops at this level), a ``cond`` contributes the one branch that holds
+    collectives (the other is the solvers' zero-rhs or converged-x0 early
+    out), a ``scan`` must hold none, and any other sub-jaxpr (pjit, custom
+    derivatives, the shard_map body, a Pallas kernel) counts at this level."""
+    level = out.setdefault(path, dict.fromkeys(COLLECTIVES, 0))
+    for eqn in jaxpr.eqns:
+        prim = eqn.primitive.name
+        if prim in COLLECTIVES:
+            level[prim] += 1
+        elif prim == "while":
+            body = {}
+            _walk(eqn.params["body_jaxpr"].jaxpr, (), body, [0])
+            if _has_collectives(body):
+                for p, c in body.items():
+                    out[path + (loops[0],) + p] = c
+                loops[0] += 1
+        elif prim == "cond":
+            taken = []
+            for br in eqn.params["branches"]:
+                probe = {}
+                _walk(br.jaxpr, (), probe, [0])
+                if _has_collectives(probe):
+                    taken.append(br)
+            assert len(taken) <= 1, "collectives in two branches of a cond"
+            for br in taken:
+                _walk(br.jaxpr, path, out, loops)
+        elif prim == "scan":
+            probe = {}
+            _walk(eqn.params["jaxpr"].jaxpr, (), probe, [0])
+            assert not _has_collectives(probe), "collectives in a scan body"
+        else:
+            for v in eqn.params.values():
+                sub = getattr(v, "jaxpr", v)
+                if hasattr(sub, "eqns"):
+                    _walk(sub, path, out, loops)
+
+
+def loop_collectives(mesh, solver, parts, b, M=None, **kw) -> dict:
+    """``{level: {primitive: count}}`` of ``solver`` row-partitioned on
+    ``mesh`` as ``distributed_solve`` runs it: the collectives the traced
+    program performs at the top (level ``()``) and in each execution of
+    every while loop's body (level ``(i,)``, a loop nested in it ``(i, j)``)."""
+    from sprsolve_tpu.parallel.solve import make_solver_specs
+
+    in_specs, out_specs = make_solver_specs(parts, M, "rows")
+    if M is None:
+        run = lambda A_, b_, x_: solver(A_, b_, x_, axis_name="rows", **kw)
+        args = (parts, b, jnp.zeros_like(b))
+    else:
+        run = lambda A_, b_, x_, M_: solver(A_, b_, x_, M=M_, axis_name="rows", **kw)
+        args = (parts, b, jnp.zeros_like(b), M)
+    sharded = jax.shard_map(run, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+                            check_vma=False)
+    out = {}
+    _walk(jax.make_jaxpr(sharded)(*args).jaxpr, (), out, [0])
+    return {p: c for p, c in out.items() if sum(c.values()) or p == ()}
+
+
+def _spd_dense_csr(side):
+    return sp.csr_from_dense(-np.asarray(problems.sym_grid_laplacian((side, side))[0].todense()))
+
+
+def _fgmres_inner_cg(Ad, b, x0, *, tol, max_iter, axis_name=None):
+    M = sp.InnerSolvePrecond(Ad, method="cg", iters=worker.FGMRES_INNER, axis_name=axis_name)
+    return sp.fgmres(Ad, b, x0, M=M, tol=tol, max_iter=max_iter,
+                     restart=worker.FGMRES_RESTART, axis_name=axis_name)
+
+
+def _krylov_problem(name: str, world: int) -> dict:
+    """Case ``name`` as its JAX test builds it: the solver, the operator
+    (host or already partitioned), the rhs, M, the solve's keywords, the
+    CSR of the true residual and the test's gate on it."""
+    from sprsolve_tpu.parallel import DistComplexPaddedDIA
+    from sprsolve_tpu.solvers.cocg import cocg
+
+    if name in ("block_cg_distributed", "block_cg_padded"):
+        # block_cg_padded: the port on DistPaddedDIA, held to JAX's HaloDIA
+        A = _spd_dense_csr(16)
+        return dict(solver=sp.block_cg, op=A.to_dia(), rhs=np.random.default_rng(7)
+                    .standard_normal((256, 4)), kw=dict(tol=1e-10, max_iter=600), A=A,
+                    gate=1e-8)
+    if name == "cg_single_sync_iteration_invariance":
+        A = problems.poisson3d(12, 12, 12, dtype=np.float64)
+        return dict(solver=sp.cg_single_sync, op=A.to_dia(),
+                    rhs=np.random.default_rng(9).standard_normal(A.shape[0]),
+                    kw=dict(tol=1e-10, max_iter=500), A=A, gate=1e-9)
+    if name == "cocg_distributed":
+        A, rhs, _ = problems.complex_symmetric_grid_with_diag((16, 16), dtype=np.complex64)
+        op = DistComplexPaddedDIA.from_dia(A.to_dia(), world, lanes=128, block_rows=8)
+        return dict(solver=cocg, op=op, rhs=rhs.astype(np.complex64), M=op.jacobi_precond(),
+                    kw=dict(tol=1e-5, max_iter=500), A=A, gate=1e-4, planes=2)
+    if name == "bicgstabl_distributed":
+        A, rhs = _dirichlet((16, 16))
+        return dict(solver=sp.bicgstabl, op=A.to_dia(), rhs=rhs,
+                    kw=dict(tol=1e-11, max_iter=500), A=A, gate=1e-10)
+    if name in ("cgs_distributed", "tfqmr_distributed"):
+        A = problems.poisson3d(12, 12, 12, dtype=np.float64)
+        return dict(solver=getattr(sp, name.split("_")[0]), op=A,
+                    rhs=np.random.default_rng(13).standard_normal(A.shape[0]),
+                    kw=dict(tol=1e-11, max_iter=1500), A=A, gate=None)
+    if name == "ca_bicgstab_matches_serial":
+        A = _spd_grid(32)
+        return dict(solver=functools.partial(sp.ca_bicgstab, s=2, bounds=sp.gershgorin_bounds(A)),
+                    op=A.to_dia(), rhs=np.random.default_rng(9).standard_normal(1024),
+                    kw=dict(tol=1e-10, max_iter=2000), mpk_s=4, A=A, gate=1e-9)
+    if name == "fgmres_with_inner_cg":
+        A = _spd_dense_csr(16)
+        return dict(solver=_fgmres_inner_cg, op=A.to_dia(),
+                    rhs=np.random.default_rng(8).standard_normal(256),
+                    kw=dict(tol=1e-9, max_iter=300), A=A, gate=1e-8)
+    raise KeyError(name)
+
+
+def jax_krylov_case(name: str, world: int) -> dict:
+    """Case ``name`` through the JAX package's ``distributed_solve`` on a
+    ``world``-device mesh: ``{"x", "its", "status", "loops", ...}`` with the
+    problem's fields; ``loops`` is :func:`loop_collectives` of the same
+    program, and CGS/TFQMR add ``x1``, the single-device solve their test
+    holds the distributed x to."""
+    from sprsolve_tpu.parallel import DistComplexPaddedDIA, partition_csr, partition_dia_mpk
+
+    case = _krylov_problem(name, world)
+    mesh = jax.make_mesh((world,), ("rows",), devices=jax.devices()[:world])
+    M, rhs = case.get("M"), case["rhs"]
+    x, info = distributed_solve(case["solver"], case["op"], jnp.asarray(rhs), M=M,
+                                mesh=mesh, mpk_s=case.get("mpk_s"), **case["kw"])
+    op = case["op"]
+    if isinstance(op, DistComplexPaddedDIA):
+        parts, b = op, op.pad_vec(jnp.zeros(rhs.shape, rhs.dtype))
+    else:
+        parts = (partition_csr(op, world, "rows") if isinstance(op, sp.CSR) else
+                 partition_dia_mpk(op, world, case["mpk_s"], "rows") if "mpk_s" in case else
+                 partition_dia(op, world, "rows"))
+        b = jnp.zeros((parts.shape[0],) + rhs.shape[1:], rhs.dtype)
+    case.update(x=np.asarray(x), its=int(info.iterations), status=int(info.status),
+                loops=loop_collectives(mesh, case["solver"], parts, b, M, **case["kw"]))
+    if name in ("cgs_distributed", "tfqmr_distributed"):
+        x1, info1 = case["solver"](case["A"], jnp.asarray(rhs), **case["kw"])
+        info1.raise_if_error()
+        case["x1"] = np.asarray(x1)
+    return case
+
+
+def run_krylov(out: str):
+    """Start the ranks of case set ``krylov`` (3: the cases run on subgroups
+    of 1 and 2 of them, or all), compute the JAX side of every (case, ranks)
+    meanwhile, then wait for the ranks. Returns ``(rank results, {(case,
+    ranks): jax_krylov_case})``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    procs = worker.launch("krylov", 3, out)
+    keys = [(n, s) for n, sizes in worker.KRYLOV_SIZES.items() for s in sizes]
+    with ThreadPoolExecutor(4) as pool:
+        refs = dict(zip(keys, pool.map(lambda k: jax_krylov_case(*k), keys)))
+    return worker.collect(procs, out), refs
+
+
+# the cases whose counts the two packages keep in step; COCG in c64 and
+# CA-BiCGStab lie in the band (ROADMAP.md, "Counts that differ from JAX")
+KRYLOV_IN_STEP = {"block_cg_distributed", "block_cg_padded",
+                  "cg_single_sync_iteration_invariance", "bicgstabl_distributed",
+                  "cgs_distributed", "tfqmr_distributed", "fgmres_with_inner_cg"}
+
+
+def _port_units(loops: dict, planes: int) -> dict:
+    """The JAX levels in the port's counters: a psum is one
+    ``all_reduce_sum``, the 2·planes ppermutes of an SpMV's halo (each
+    direction, each real plane) one ``halo_exchange``, an all_gather one
+    ``all_gather_rows``."""
+    per = 2 * planes
+    out = {}
+    for p, c in loops.items():
+        assert c["ppermute"] % per == 0, (p, c)
+        out[p] = {"all_reduce_sum": c["psum"], "halo_exchange": c["ppermute"] // per,
+                  "all_gather_rows": c["all_gather"]}
+    return out
+
+
+def _executions(name: str, r0: dict, levels: dict) -> dict:
+    """How often the port's run passed through each JAX level: the top once,
+    the loop ``its`` times; CA-BiCGStab's anchor loop once per anchor and its
+    block loop once per block; FGMRES's cycle loop once per restart cycle,
+    its Arnoldi loop ``its`` times and the inner CG's loop FGMRES_INNER times
+    an Arnoldi step."""
+    its = r0["its"]
+    if name == "ca_bicgstab_matches_serial":
+        inner, outer = levels[(0, 0)], levels[(0,)]
+        both = {k: inner[k] + outer[k] for k in inner}
+        marks = r0["blocks"]
+        deltas = [{k: b[k][0] - a[k][0] for k in inner} for a, b in zip(marks, marks[1:])]
+        assert all(d in (inner, both) for d in deltas), (deltas, inner, outer)
+        return {(): 1, (0,): 1 + deltas.count(both), (0, 0): len(marks)}
+    if name == "fgmres_with_inner_cg":
+        return {(): 1, (0,): -(-its // worker.FGMRES_RESTART), (0, 0): its,
+                (0, 0, 0): worker.FGMRES_INNER * its}
+    return {(): 1, (0,): its}
+
+
+def check_krylov(run, name: str, size: int) -> dict:
+    """The checks of a Krylov case on ``size`` ranks: every rank the same x
+    bits, count, residual and status; CONVERGED as JAX; the JAX test's gate
+    on the true residual (CGS/TFQMR: x within its rtol 1e-7, atol 1e-9 of
+    the single-device x); the count equal to JAX's, x within 1e-10 of JAX's
+    (``KRYLOV_IN_STEP``), or else within the band; and the port's collective
+    counts equal to the JAX program's, level by level. Returns rank 0's
+    result with the JAX side's under ``"jax"``."""
+    results, refs = run
+    ref = refs[name, size]
+    r0 = results[0][name]
+    assert "error" not in r0, r0.get("error")
+    r0 = r0[size]
+    for r in range(1, size):
+        rr = results[r][name]
+        assert "error" not in rr, rr.get("error")
+        rr = rr[size]
+        assert rr["x"].tobytes() == r0["x"].tobytes(), f"rank {r} x differs"
+        assert (rr["its"], rr["res"], rr["status"]) == (r0["its"], r0["res"], r0["status"])
+        calls = lambda c: {k: v[0] for k, v in c.items()}
+        assert calls(rr["comm"]) == calls(r0["comm"]), (r, rr["comm"], r0["comm"])
+    assert r0["status"] == ref["status"] == 0, (r0["status"], ref["status"])
+    x = r0["x"]
+    assert x.shape == ref["x"].shape and x.dtype == ref["x"].dtype, (x.shape, x.dtype)
+    dense = np.asarray(ref["A"].todense())
+    R = dense @ x.astype(dense.dtype) - ref["rhs"]
+    axis = 0 if R.ndim == 2 else None
+    res = np.linalg.norm(R, axis=axis) / np.linalg.norm(ref["rhs"], axis=axis)
+    if ref["gate"] is None:
+        np.testing.assert_allclose(x, ref["x1"], rtol=1e-7, atol=1e-9)
+    else:
+        assert np.all(res < ref["gate"]), (name, res)
+    if name in KRYLOV_IN_STEP:
+        assert r0["its"] == ref["its"], (name, size, r0["its"], ref["its"])
+        err = np.linalg.norm(x - ref["x"]) / np.linalg.norm(ref["x"])
+        assert err <= 1e-10, (name, size, err)
+    else:
+        assert abs(r0["its"] - ref["its"]) <= band(ref["its"]), (name, size, r0["its"],
+                                                                 ref["its"])
+    levels = _port_units(ref["loops"], ref.get("planes", 1))
+    execs = _executions(name, r0, levels)
+    assert set(execs) == set(levels), (name, sorted(levels))
+    for prim in ("all_reduce_sum", "halo_exchange", "all_gather_rows"):
+        want = sum(levels[p][prim] * k for p, k in execs.items()) + (prim == "all_gather_rows")
+        assert r0["comm"][prim][0] == want, (name, size, prim, r0["comm"][prim][0], want)
+    return dict(r0, jax=ref, levels=levels)

@@ -380,6 +380,165 @@ def refusals(ctx):
     return out
 
 
+# --- the Krylov family's distributed cases (world 3) --------------------------------
+# Each mirrors one distributed test of the JAX package and runs on the ranks
+# of :data:`KRYLOV_SIZES` (subgroups of the first 1 and 2 ranks, or all 3):
+# ``{ranks: solved(..., {"comm": counters})}`` on the ranks that took part.
+KRYLOV_SIZES = {
+    "block_cg_distributed": (2,),               # tests/test_block_solve.py:150
+    "block_cg_padded": (2,),                    # the same on DistPaddedDIA
+    "cg_single_sync_iteration_invariance": (1, 2),   # test_cg_single_sync.py:132
+    "cocg_distributed": (2,),                   # tests/test_cocg.py:123
+    "bicgstabl_distributed": (2,),              # tests/test_bicgstabl.py:285
+    "cgs_distributed": (2,),                    # tests/test_cgs_tfqmr.py:141
+    "tfqmr_distributed": (2,),
+    "ca_bicgstab_matches_serial": (1, 2, 3),    # tests/test_ca_bicgstab.py:230
+    "fgmres_with_inner_cg": (2,),               # tests/test_fgmres.py:141
+}
+FGMRES_RESTART, FGMRES_INNER = 25, 5
+
+
+def subgroups(ctx):
+    """``{ranks: group}`` of the first 1 and 2 ranks and the world, made once
+    (every rank makes each group, in the same order)."""
+    if not hasattr(ctx, "subs"):
+        ctx.subs = {1: dist.new_group([0]), 2: dist.new_group([0, 1]), ctx.world: ctx.group}
+    return ctx.subs
+
+
+def on_sizes(ctx, name, run):
+    """``run(group)`` on each size of case ``name`` that this rank is in,
+    with the counters reset before each: ``{ranks: result}``."""
+    groups, out = subgroups(ctx), {}
+    for size in KRYLOV_SIZES[name]:
+        if ctx.rank < size:
+            comm.reset_counts()
+            out[size] = run(groups[size])
+    return out
+
+
+def krylov_solve(solver, A, b, M=None, **kw):
+    """A :func:`on_sizes` runner: ``distributed_solve`` on the group, its
+    ``solved`` result with the counters."""
+    def run(g):
+        x, info = par.distributed_solve(solver, A, b, M=M, device="cpu", group=g, **kw)
+        return solved(x, info, {"comm": comm.counts()})
+    return run
+
+
+def spd_dense_csr(side):
+    """``csr_from_dense(−sym_grid_laplacian)``, as the block-CG and FGMRES
+    tests build their SPD grid."""
+    A, _ = problems.sym_grid_laplacian((side, side))
+    return tsp.csr_from_dense(-dense_of(A))
+
+
+def block_cg_distributed(ctx):
+    B = np.random.default_rng(7).standard_normal((256, 4))
+    return on_sizes(ctx, "block_cg_distributed", krylov_solve(
+        tsp.block_cg, spd_dense_csr(16).to_dia(), B, tol=1e-10, max_iter=600))
+
+
+def block_cg_padded(ctx):
+    """Block CG's case on ``DistPaddedDIA``: each SpMV one exchange of (h, 4)
+    slabs and K1b on the rank's window (the JAX package's distributed kernel
+    layout has no block form). ``matmat``: one product of a random block,
+    gathered, bitwise the single-rank ``PaddedDIA.matmat``'s rows."""
+    A = spd_dense_csr(16)
+    B = np.random.default_rng(7).standard_normal((256, 4))
+
+    def run(g):
+        op = par.DistPaddedDIA.from_dia(A.to_dia(), dist.get_world_size(g))
+        out = krylov_solve(tsp.block_cg, op, B, tol=1e-10, max_iter=600)(g)
+        X = torch.as_tensor(np.random.default_rng(3).standard_normal((256, 3)))
+        local = par.local_part(op, op.pspec(), g)
+        Y = op.unpad_vec(comm.all_gather_rows(
+            local.matmat(par.local_part(op.pad_vec(X), 0, g)), g))
+        single = tsp.PaddedDIA.from_dia(A.to_dia(), device="cpu")
+        out["matmat"] = torch.equal(Y, single.unpad_block(single.matmat(single.pad_block(X))))
+        out["h"] = op.h
+        return out
+    return on_sizes(ctx, "block_cg_padded", run)
+
+
+def cg_single_sync_iteration_invariance(ctx):
+    A = problems.poisson3d(12, 12, 12, dtype=np.float64)
+    b = np.random.default_rng(9).standard_normal(A.shape[0])
+    return on_sizes(ctx, "cg_single_sync_iteration_invariance", krylov_solve(
+        tsp.cg_single_sync, A.to_dia(), b, tol=1e-10, max_iter=500))
+
+
+def cocg_distributed(ctx):
+    A, rhs, _ = problems.complex_symmetric_grid_with_diag((16, 16), dtype=np.complex64)
+
+    def run(g):
+        op = par.DistComplexPaddedDIA.from_dia(A.to_dia(), dist.get_world_size(g))
+        return krylov_solve(tsp.cocg, op, rhs.astype(np.complex64), M=op.jacobi_precond(),
+                            tol=1e-5, max_iter=500)(g)
+    return on_sizes(ctx, "cocg_distributed", run)
+
+
+def bicgstabl_distributed(ctx):
+    A, rhs = dirichlet((16, 16))
+    return on_sizes(ctx, "bicgstabl_distributed", krylov_solve(
+        tsp.bicgstabl, A.to_dia(), rhs, tol=1e-11, max_iter=500))
+
+
+def cgs_tfqmr_system():
+    A = problems.poisson3d(12, 12, 12, dtype=np.float64)
+    return A, np.random.default_rng(13).standard_normal(A.shape[0])
+
+
+def cgs_distributed(ctx):
+    A, b = cgs_tfqmr_system()
+    return on_sizes(ctx, "cgs_distributed", krylov_solve(tsp.cgs, A, b, tol=1e-11,
+                                                         max_iter=1500))
+
+
+def tfqmr_distributed(ctx):
+    A, b = cgs_tfqmr_system()
+    return on_sizes(ctx, "tfqmr_distributed", krylov_solve(tsp.tfqmr, A, b, tol=1e-11,
+                                                           max_iter=1500))
+
+
+def ca_bicgstab_matches_serial(ctx):
+    """s = 2 on MPKDIA of depth 2s, with the counters read as each s-step
+    block starts (``blocks``: a list of ``comm.counts()``)."""
+    tcab = importlib.import_module("sprsolve_tpu_torch.solvers.ca_bicgstab")
+    A, b = mpk_system()
+    solver = functools.partial(tsp.ca_bicgstab, s=2, bounds=tsp.gershgorin_bounds(A))
+    inner = tcab.basis_block
+
+    def run(g):
+        blocks = []
+
+        def counted(*a, **k):
+            blocks.append(comm.counts())
+            return inner(*a, **k)
+
+        tcab.basis_block = counted
+        try:
+            out = krylov_solve(solver, A.to_dia(), b, tol=1e-10, max_iter=2000, mpk_s=4)(g)
+        finally:
+            tcab.basis_block = inner
+        out["blocks"] = blocks
+        return out
+    return on_sizes(ctx, "ca_bicgstab_matches_serial", run)
+
+
+def fgmres_inner_cg(Ad, b, x0, *, tol, max_iter, group=None):
+    """FGMRES(25) with an inner CG of 5 steps as M, both on ``group``."""
+    M = tsp.InnerSolvePrecond(A=Ad, method="cg", iters=FGMRES_INNER, group=group)
+    return tsp.fgmres(Ad, b, x0, M=M, tol=tol, max_iter=max_iter, restart=FGMRES_RESTART,
+                      group=group)
+
+
+def fgmres_with_inner_cg(ctx):
+    b = np.random.default_rng(8).standard_normal(256)
+    return on_sizes(ctx, "fgmres_with_inner_cg", krylov_solve(
+        fgmres_inner_cg, spd_dense_csr(16).to_dia(), b, tol=1e-9, max_iter=300))
+
+
 # --- eigen cases (the distributed eigensolvers) ------------------------------------
 def dense_of(A):
     """The dense form of a host CSR."""
@@ -621,6 +780,7 @@ CASESETS = {
               "si_both", "si_above", "si_below", "si_jacobi", "si_prepartitioned", "rf_dense",
               "rf_refine", "rf_complex"],
     "eigen3": ["lobpcg_pad", "si_pad", "eig_counts", "rf_radius"],
+    "krylov": list(KRYLOV_SIZES),
 }
 
 

@@ -1,6 +1,6 @@
 """Cross tests of the port's block CG and ``batched`` against the JAX
-package's (mirrors ``tests/test_block_solve.py`` without its distributed
-case, which no cross test holds yet: ROADMAP.md Queue 3): block CG's columns,
+package's (mirrors ``tests/test_block_solve.py``; its distributed case is
+``block_cg_distributed`` in ``test_torch_dist_krylov.py``): block CG's columns,
 its shared Krylov space, Jacobi, a zero column, the breakdown, the complex
 Hermitian block, and the padded layout's per-column SpMVs; ``batched``
 BiCGStab, MINRES, COCG and CG.

@@ -3,8 +3,9 @@ package's (mirrors ``tests/test_cg_single_sync.py``): parity with plain CG,
 Jacobi in f32, a Hermitian positive-definite complex system, the
 breakdown on an indefinite matrix, the residual trace, ``solve``, and the
 padded layout's launches (one SpMV per iteration, the fused dot never).
-The HLO all-reduce count is a TPU artefact; the distributed case no cross
-test holds yet (ROADMAP.md Queue 3).
+The HLO all-reduce count is a TPU artefact; the distributed case, with its
+one all-reduce an iteration counted, is
+``cg_single_sync_iteration_invariance`` in ``test_torch_dist_krylov.py``.
 
 Tolerances: the f64 Poisson keeps equal counts with the JAX package's
 single-sync CG, x to 1e-10; f32 counts within the band of

@@ -3,8 +3,9 @@
 systems against a direct solve, the boundary-rhs breakdown (scipy fails
 there too), the complex manufactured solution, Jacobi through ``solve``,
 TFQMR's true-residual gate, the residual trace, and the padded layout.
-The scipy-compat and distributed cases wait for ROADMAP.md Queue 1 items
-12 and 13.
+The scipy-compat wrappers are held in ``test_torch_scipy_compat.py``, the
+distributed case in ``test_torch_dist_krylov.py`` (``cgs_distributed``,
+``tfqmr_distributed``).
 
 Tolerances: the f64 fixtures keep equal counts (the recurrences see the
 same sums in the same order on the CSR path), x to 1e-10 against the JAX

@@ -2,8 +2,8 @@
 ``tests/test_cocg.py``): the manufactured solution with and without the
 complex Jacobi, COCG = CG on a real SPD system, the dense-oracle count, the
 ``solve`` route, warm start and zero rhs, the residual trace, and the
-breakdown exit.  The batched case is in ``test_torch_block_solve.py``;
-the distributed one no cross test holds yet (ROADMAP.md Queue 3).
+breakdown exit.  The batched case is in ``test_torch_block_solve.py``,
+the distributed one in ``test_torch_dist_krylov.py`` (``cocg_distributed``).
 
 Counts: on the complex-symmetric 8×8 grid the two packages stay in step
 (41 with the complex Jacobi and 45 without, at tol 1e-13): equal counts

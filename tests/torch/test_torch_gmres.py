@@ -5,9 +5,10 @@ restart, right preconditioning, the complex manufactured solution, the
 exits (insufficient budget, zero rhs), the residual trace, the padded
 layout through ``solve``, the ``GMRES`` handle, FGMRES = right GMRES under
 a fixed M, FGMRES with ``InnerSolvePrecond`` (the inner-method whitelist
-included), and plain GMRES with that M.  The distributed and scipy-compat
-cases wait for ``parallel/`` and the scipy wrappers (ROADMAP.md Queue 1
-items 13 and 12).
+included), and plain GMRES with that M.  The distributed cases are in
+``test_torch_dist_solve.py`` (``gmres_dia``) and ``test_torch_dist_krylov.py``
+(``fgmres_with_inner_cg``), the scipy-compat wrapper in
+``test_torch_scipy_compat.py``.
 
 Tolerances: the f64 and c128 fixtures converge in the same number of steps
 in both packages (GMRES's residual is monotone, so rounding moves no exit

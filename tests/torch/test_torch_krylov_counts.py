@@ -6,7 +6,9 @@ untimed.  Every count formula of phase 13 (GMRES's its + cycles + 1,
 CGS's 1 + 2·its, TFQMR's 3 + 2·its, IDR(s)'s its, single-sync CG's
 its + 2, block CG's its + 1 block applies (K1b), FGMRES with an inner CG, the V-cycle
 relayed under CG, refinement's per-inner-solve sums) must hold exactly;
-the JAX package's 1M-row counts are checked on the card only."""
+the JAX package's 1M-row counts are checked on the card only.  Phase 16
+(e)'s launch and collective counts are checked the same way, on one gloo
+rank."""
 
 import importlib
 import os
@@ -55,3 +57,9 @@ def test_gmres_count_formula():
     assert smoke.RESTART == 32
     assert smoke.gmres_k1(161) == 161 + 6 + 1
     assert smoke.gmres_k1(32) == 32 + 1 + 1 and smoke.gmres_k1(33) == 33 + 2 + 1
+
+
+def test_phase16_krylov_counts_hold_on_the_cpu(counters):
+    """Phase 16 (e) on one gloo rank: every launch and collective count it
+    asserts on the card, and each count equal to the single-card solve's."""
+    smoke.phase_dist_krylov(torch.device("cpu"), grid=GRID, timed=False)

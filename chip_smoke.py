@@ -3511,9 +3511,6 @@ def phase_front_timing(dev, tmp, grid, k1_stats):
         raise AssertionError("timing.trace wrote no trace")
     fields = dict(report=repr(str(rep)), seconds=f"{t:.9f}", trace_bytes=os.path.getsize(
         trace_path))
-    if torch.device(dev).type == "cuda":
-        # the rate an unlisted card's share would divide by
-        fields["copy_bytes_per_s"] = f"{timing.copy_bytes_per_s(dev):.4e}"
     if k1_stats is not None:
         # phase 3's bytes bound over phase 3's timer, run here on these
         # inputs: the card's state drifts over the script's minutes

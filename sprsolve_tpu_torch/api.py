@@ -41,6 +41,7 @@ from .solvers import (bicgstab, bicgstabl, ca_bicgstab, ca_cg, cg, cg_single_syn
                       cocg, cs_minres, fgmres, gauss_seidel, gmres, idrs, lsqr, minres,
                       tfqmr)
 from .sparse.containers import CSC, CSR, DIA, ELL
+from .utils.timing import span
 
 _SOLVERS = {"bicgstab": bicgstab, "bicgstabl": bicgstabl, "ca_bicgstab": ca_bicgstab,
             "ca_cg": ca_cg, "cg": cg, "cg_single_sync": cg_single_sync, "cgs": cgs,
@@ -352,22 +353,23 @@ class PreparedSolver:
         return self._op
 
     def __call__(self, b, x0=None):
-        device = self._device
-        # validate before padding: pad_vec would silently zero-extend a short b
-        b = _vec(b, self._m, device, "Input vec")
-        x0 = None if x0 is None else _vec(x0, self._n, device, "x0")
-        if self._scale is not None:
-            b = b * self._scale
-            x0 = None if x0 is None else x0 / self._scale
-        if self._padded:
-            b = self._op.pad_vec(b)
-            x0 = None if x0 is None else self._op.pad_vec(x0)
-        x, *rest = self._run(self._op, b, x0)
-        if self._padded:
-            x = self._op.unpad_vec(x)
-        if self._scale is not None:
-            x = x * self._scale
-        return (x, *rest)
+        with span("solve"):   # the root span of a request
+            device = self._device
+            # validate before padding: pad_vec would silently zero-extend a short b
+            b = _vec(b, self._m, device, "Input vec")
+            x0 = None if x0 is None else _vec(x0, self._n, device, "x0")
+            if self._scale is not None:
+                b = b * self._scale
+                x0 = None if x0 is None else x0 / self._scale
+            if self._padded:
+                b = self._op.pad_vec(b)
+                x0 = None if x0 is None else self._op.pad_vec(x0)
+            x, *rest = self._run(self._op, b, x0)
+            if self._padded:
+                x = self._op.unpad_vec(x)
+            if self._scale is not None:
+                x = x * self._scale
+            return (x, *rest)
 
 
 def prepare(

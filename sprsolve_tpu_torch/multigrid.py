@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .utils.timing import span
 from .vecalg import conj_dot, full_precision_matmul
 
 
@@ -188,7 +189,8 @@ class GridMGPrecond:
         return self._smooth(lvl, r, z, self.nu2, skip_first_matvec=False)
 
     def matvec(self, r: torch.Tensor) -> torch.Tensor:
-        return self._cycle(0, r)
+        with span("precond"):
+            return self._cycle(0, r)
 
     def matvec_dot(self, r: torch.Tensor):
         z = self.matvec(r)

@@ -579,12 +579,15 @@ dia_complex_wdot.launches = 0
 
 
 def reset_launch_counts() -> None:
-    """Set the launch count of every kernel wrapper (K1-K7, K1b) to 0."""
+    """Set the launch count of every kernel wrapper (K1-K7, K1b) to 0, and
+    the solvers' count of host reads (``solvers.common.read_flags.calls``)."""
+    from ..solvers.common import read_flags
     from .fused import orth_norm
 
     for wrapper in (dia_spmv, dia_spmm, dia_wdot, dia_dot, orth_norm, dia_complex_spmv,
                     dia_complex_dot, dia_complex_wdot):
         wrapper.launches = 0
+    read_flags.calls = 0
 
 
 def _tuned(kind: str, dtype, nbands: int, n: int, device) -> Optional[int]:

@@ -30,6 +30,7 @@ import torch
 from .errors import InvalidPreconditioner, ZeroDiagonalElem
 from .sparse.bsr import full_precision_bmm
 from .sparse.containers import CSR, _host
+from .utils.timing import span
 from .vecalg import conj_dot, real_dtype, sqrt_exact
 
 
@@ -51,7 +52,8 @@ class DiagPrecond:
         return (n, n)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.diag_inv
+        with span("precond"):
+            return x * self.diag_inv
 
     def matvec_dot(self, x: torch.Tensor):
         # the reference leaves this unimplemented (src/precond.rs:55-62)
@@ -85,7 +87,8 @@ class ComplexDiagPrecond:
         return (n, n)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.diag_inv
+        with span("precond"):
+            return x * self.diag_inv
 
     def matvec_dot(self, x: torch.Tensor):
         y = self.matvec(x)
@@ -172,20 +175,21 @@ class ChebyshevPrecond:
         # Methods, alg. 12.1): θ = (λmax + λmin)/2, δ = (λmax − λmin)/2
         # the Python scalars round to r's dtype (the JAX package's
         # jnp.asarray(v, r.dtype)) and need no copy to the card
-        theta = (self.lmax + self.lmin) / 2.0
-        delta = (self.lmax - self.lmin) / 2.0
-        sigma1 = theta / delta
-        rho = 1.0 / sigma1
-        z = r / theta
-        d = z
-        res = r - self.A.matvec(z)
-        for _ in range(self.degree - 1):
-            rho_new = 1.0 / (2.0 * sigma1 - rho)
-            d = res * (2.0 * rho_new / delta) + d * (rho_new * rho)
-            z = z + d
+        with span("precond"):
+            theta = (self.lmax + self.lmin) / 2.0
+            delta = (self.lmax - self.lmin) / 2.0
+            sigma1 = theta / delta
+            rho = 1.0 / sigma1
+            z = r / theta
+            d = z
             res = r - self.A.matvec(z)
-            rho = rho_new
-        return z
+            for _ in range(self.degree - 1):
+                rho_new = 1.0 / (2.0 * sigma1 - rho)
+                d = res * (2.0 * rho_new / delta) + d * (rho_new * rho)
+                z = z + d
+                res = r - self.A.matvec(z)
+                rho = rho_new
+            return z
 
     def matvec_dot(self, r: torch.Tensor):
         z = self.matvec(r)
@@ -285,10 +289,11 @@ class BlockJacobiPrecond:
             inv_blocks=torch.as_tensor(inv.astype(data.dtype), device=dev), n=n)
 
     def matvec(self, r: torch.Tensor) -> torch.Tensor:
-        nb, bs, _ = self.inv_blocks.shape
-        rp = torch.nn.functional.pad(r, (0, nb * bs - self.n)).reshape(nb, bs, 1)
-        z = full_precision_bmm(self.inv_blocks, rp.to(self.inv_blocks.dtype))
-        return z.reshape(-1)[: self.n]
+        with span("precond"):
+            nb, bs, _ = self.inv_blocks.shape
+            rp = torch.nn.functional.pad(r, (0, nb * bs - self.n)).reshape(nb, bs, 1)
+            z = full_precision_bmm(self.inv_blocks, rp.to(self.inv_blocks.dtype))
+            return z.reshape(-1)[: self.n]
 
     def matvec_dot(self, x: torch.Tensor):
         y = self.matvec(x)
@@ -403,8 +408,9 @@ class ILU0Precond:
 
     def matvec(self, r: torch.Tensor) -> torch.Tensor:
         # L·y = r (unit lower), then U·z = y (upper with the diagonal du)
-        y = _sweep_lower(self.L_s, r, r, self.sweeps)
-        return _sweep_scaled(self.U_s, self.du_inv, y, y * self.du_inv, self.sweeps)
+        with span("precond"):
+            y = _sweep_lower(self.L_s, r, r, self.sweeps)
+            return _sweep_scaled(self.U_s, self.du_inv, y, y * self.du_inv, self.sweeps)
 
     def matvec_dot(self, x: torch.Tensor):
         y = self.matvec(x)
@@ -463,8 +469,9 @@ class IC0Precond:
         )
 
     def matvec(self, r: torch.Tensor) -> torch.Tensor:
-        y = _sweep_scaled(self.L_s, self.dl_inv, r, r * self.dl_inv, self.sweeps)
-        return _sweep_scaled(self.LH_s, self.dl_inv, y, y * self.dl_inv, self.sweeps)
+        with span("precond"):
+            y = _sweep_scaled(self.L_s, self.dl_inv, r, r * self.dl_inv, self.sweeps)
+            return _sweep_scaled(self.LH_s, self.dl_inv, y, y * self.dl_inv, self.sweeps)
 
     def matvec_dot(self, x: torch.Tensor):
         y = self.matvec(x)
@@ -485,7 +492,8 @@ class RelayedPrecond:
         return self.inner.shape
 
     def matvec(self, r2: torch.Tensor) -> torch.Tensor:
-        return self.op.pad_vec(self.inner.matvec(self.op.unpad_vec(r2)))
+        with span("precond"):
+            return self.op.pad_vec(self.inner.matvec(self.op.unpad_vec(r2)))
 
     def matvec_dot(self, r2: torch.Tensor):
         y = self.matvec(r2)
@@ -540,8 +548,9 @@ class InnerSolvePrecond:
         return getattr(solvers, self.method)
 
     def matvec(self, r: torch.Tensor) -> torch.Tensor:
-        z, _info = self._solver()(self.A, r, M=self.inner_M, tol=self.inner_tol,
-                                  max_iter=self.iters, group=self.group)
+        with span("precond"):
+            z, _info = self._solver()(self.A, r, M=self.inner_M, tol=self.inner_tol,
+                                      max_iter=self.iters, group=self.group)
         return z
 
     def matvec_dot(self, r: torch.Tensor):

@@ -31,7 +31,7 @@ import torch
 from ..errors import Status
 from ..ops.operator import IdentityOperator, mv_prec_wdot, mv_prec_wdot2
 from ..vecalg import axpby, axpy, conj_dot, eps_for, norm2, real_dtype
-from .common import check_shapes, make_info, with_zero_rhs_guard
+from .common import check_shapes, make_info, read_flags, with_zero_rhs_guard
 
 
 def bicgstab(
@@ -78,7 +78,7 @@ def bicgstab(
         r0_norm = norm2(r, group)
         if record_residuals:
             hist[0] = r0_norm / rhs_norm
-        if bool(r0_norm <= tol2):
+        if read_flags(r0_norm <= tol2)[0]:
             return x0, make_info(0, r0_norm / rhs_norm, Status.CONVERGED)
 
         def restart_values(x):
@@ -110,7 +110,7 @@ def bicgstab(
             preds = [r_norm > tol2, r_norm <= tol2, rho_next.abs() < r0_norm_tol]
             if ok is not None:
                 preds.append(ok)
-            flags = torch.stack(preds).tolist()   # the iteration's one host read
+            flags = read_flags(*preds)   # the iteration's one host read
             if ok is not None and not flags[3]:
                 # breakdown exit |r0·v| ≤ 0 (src/bicg_stab.rs:164-167): the
                 # reference returns before the x-update of that step

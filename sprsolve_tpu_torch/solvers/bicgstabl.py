@@ -31,7 +31,7 @@ import torch
 from ..errors import Status
 from ..ops.operator import IdentityOperator, mv_prec_wdot
 from ..vecalg import axpy, conj_dot, eps_for, norm2, real_dtype
-from .common import _guard3, check_shapes, make_info
+from .common import _guard3, check_shapes, make_info, read_flags
 
 
 def bicgstabl(
@@ -160,7 +160,7 @@ def bicgstabl(
         # true residual of the warm start; the loop solves (A∘M)·z = r_init
         r = axpy(-one, A.matvec(x0), b)
         r_norm = norm2(r, group)
-        above, below = torch.stack([r_norm > tol2, r_norm <= tol2]).tolist()
+        above, below = read_flags(r_norm > tol2, r_norm <= tol2)
         if below:
             if hist_len:
                 hist[0] = r_norm / rhs_norm
@@ -178,8 +178,7 @@ def bicgstabl(
                 z, r, u, rt, rho0, alpha, omega, brk_tol)
             r_norm = norm2(r, group)
             # the cycle's one host read
-            done, above, below = torch.stack(
-                [completed, r_norm > tol2, r_norm <= tol2]).tolist()
+            done, above, below = read_flags(completed, r_norm > tol2, r_norm <= tol2)
             # an incomplete cycle restarts the shadow space from the boundary
             # iterate: r̃₀ ← r₀, u₀ ← 0, (ρ₀, α, ω) ← (1, 0, 1)
             u = torch.where(completed, u_mr, torch.zeros_like(u_mr))

@@ -25,7 +25,7 @@ import torch
 from ..errors import Status
 from ..ops.operator import IdentityOperator
 from ..vecalg import axpy, conj_dot, group_sum, norm2, real_dtype
-from .common import _guard3, check_shapes, make_info
+from .common import _guard3, check_shapes, make_info, read_flags
 
 
 def cg(
@@ -71,7 +71,7 @@ def cg(
         z = M.matvec(r)
         x, p, rz = x0, z, conj_dot(r, z, group)
         its, status, res = 0, Status.RUNNING, None
-        above, below = torch.stack([r_norm > tol2, r_norm <= tol2]).tolist()
+        above, below = read_flags(r_norm > tol2, r_norm <= tol2)
         while its < max_iter and above:
             if hist_len:
                 hist[its] = r_norm / rhs_norm
@@ -87,7 +87,7 @@ def cg(
             p = axpy(rz_next / rz, p, z)  # p = z + β·p
             rz = rz_next
             r_norm_next = norm2(r, group)
-            flags = torch.stack([ok, r_norm_next > tol2, r_norm_next <= tol2]).tolist()
+            flags = read_flags(ok, r_norm_next > tol2, r_norm_next <= tol2)
             if not flags[0]:
                 # BREAKDOWN keeps the previous x, count and residual
                 status, res = Status.BREAKDOWN, r_norm / rhs_norm
@@ -162,7 +162,7 @@ def cg_single_sync(
         x, p, s = x0, torch.zeros_like(b), torch.zeros_like(b)
         gamma_prev, alpha_prev = one, one
         its, status, res = 0, Status.RUNNING, None
-        above, below = torch.stack([r_norm > tol2, r_norm <= tol2]).tolist()
+        above, below = read_flags(r_norm > tol2, r_norm <= tol2)
         while its < max_iter and above:
             if hist_len:
                 hist[its] = r_norm / rhs_norm
@@ -179,7 +179,7 @@ def cg_single_sync(
             w = A.matvec(u)
             gamma_prev, alpha_prev = gamma, alpha
             gamma, delta, r_norm_next = fused_dots(r, u, w)
-            flags = torch.stack([ok, r_norm_next > tol2, r_norm_next <= tol2]).tolist()
+            flags = read_flags(ok, r_norm_next > tol2, r_norm_next <= tol2)
             if not flags[0]:
                 # BREAKDOWN keeps the previous x, count and residual
                 status, res = Status.BREAKDOWN, r_norm / rhs_norm

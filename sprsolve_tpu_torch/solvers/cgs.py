@@ -28,7 +28,7 @@ import torch
 from ..errors import Status
 from ..ops.operator import IdentityOperator
 from ..vecalg import axpy, conj_dot, eps_for, norm2, real_dtype
-from .common import _guard3, check_shapes, make_info
+from .common import _guard3, check_shapes, make_info, read_flags
 
 
 def cgs(
@@ -70,7 +70,7 @@ def cgs(
         r = axpy(-one, A.matvec(x0), b)  # r = b − A·x
         r_norm = norm2(r, group)
         rt = r                           # shadow residual r̃ = r₀
-        above, below = torch.stack([r_norm > tol2, r_norm <= tol2]).tolist()
+        above, below = read_flags(r_norm > tol2, r_norm <= tol2)
         if below:
             if hist_len:
                 hist[0] = r_norm / rhs_norm
@@ -96,7 +96,7 @@ def cgs(
             x_new = axpy(alpha, uh, x)
             r_new = axpy(-alpha, A.matvec(uh), r)
             r_norm_new = norm2(r_new, group)
-            flags = torch.stack([ok, r_norm_new > tol2, r_norm_new <= tol2]).tolist()
+            flags = read_flags(ok, r_norm_new > tol2, r_norm_new <= tol2)
             if not flags[0]:
                 # BREAKDOWN keeps the previous x, count and residual
                 status, res = Status.BREAKDOWN, r_norm / rhs_norm

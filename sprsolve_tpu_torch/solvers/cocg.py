@@ -33,7 +33,7 @@ import torch
 from ..errors import Status
 from ..ops.operator import IdentityOperator
 from ..vecalg import axpy, dot, eps_for, norm2, real_dtype
-from .common import _guard3, check_shapes, make_info
+from .common import _guard3, check_shapes, make_info, read_flags
 
 
 def cocg(
@@ -78,7 +78,7 @@ def cocg(
 
         r = axpy(-one, A.matvec(x0), b)  # r = b − A·x
         r_norm = norm2(r, group)
-        above, below = torch.stack([r_norm > tol2, r_norm <= tol2]).tolist()
+        above, below = read_flags(r_norm > tol2, r_norm <= tol2)
         if below:
             if hist_len:
                 hist[0] = r_norm / rhs_norm
@@ -103,7 +103,7 @@ def cocg(
             r_norm_next = norm2(r, group)
             p = axpy(rho_next / torch.where(ok, rho, one), p, z)  # p = z + β·p
             rho = rho_next
-            flags = torch.stack([ok, r_norm_next > tol2, r_norm_next <= tol2]).tolist()
+            flags = read_flags(ok, r_norm_next > tol2, r_norm_next <= tol2)
             if not flags[0]:
                 # BREAKDOWN keeps the previous x, count and residual
                 status, res = Status.BREAKDOWN, r_norm / rhs_norm

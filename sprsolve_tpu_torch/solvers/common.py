@@ -8,7 +8,20 @@ from typing import Callable, Optional
 import torch
 
 from ..errors import IncompatibleMatrixFormat, SolveInfo, Status
+from ..utils.timing import span
 from ..vecalg import eps_for, group_sum, norm2
+
+
+def read_flags(*preds: torch.Tensor) -> list:
+    """The 0-d predicates ``preds`` on the host, as a list of bools, in one
+    read (a ``host_read`` span); ``read_flags.calls`` counts the reads
+    (zeroed by ``ops.padded_dia.reset_launch_counts``)."""
+    read_flags.calls += 1
+    with span("host_read"):
+        return (torch.stack(preds) if len(preds) > 1 else preds[0].reshape(1)).tolist()
+
+
+read_flags.calls = 0
 
 
 def make_info(iterations, residual, status) -> SolveInfo:
@@ -23,7 +36,7 @@ def with_zero_rhs_guard(b: torch.Tensor, x0: torch.Tensor,
     ``(x, SolveInfo)``. One host read of ‖b‖, taken over ``group``'s ranks
     when one is given."""
     rhs_norm = norm2(b, group)
-    if bool(rhs_norm <= eps_for(b.dtype, b.device)):
+    if read_flags(rhs_norm <= eps_for(b.dtype, b.device))[0]:
         return torch.zeros_like(x0), make_info(0, rhs_norm, Status.CONVERGED)
     return main(rhs_norm)
 
@@ -35,7 +48,7 @@ def _guard3(b: torch.Tensor, x0: torch.Tensor,
     (``sprsolve_tpu/solvers/bicgstab.py:42-56``): if ‖b‖ ≤ ε, x = 0 with
     Ok((0, ‖b‖)) and an all-NaN history of ``hist_len``. One host read."""
     rhs_norm = norm2(b, group)
-    if bool(rhs_norm <= eps_for(b.dtype, b.device)):
+    if read_flags(rhs_norm <= eps_for(b.dtype, b.device))[0]:
         return (torch.zeros_like(x0), make_info(0, rhs_norm, Status.CONVERGED),
                 torch.full((hist_len,), float("nan"), dtype=rdt, device=b.device))
     return main(rhs_norm)

@@ -37,7 +37,7 @@ import torch
 from ..errors import Status
 from ..ops.operator import mv_conj_dot
 from ..vecalg import abs2, axpy, conj, conj_dot, eps_for, norm2, real_dtype, rscale
-from .common import _guard3, check_shapes, make_info
+from .common import _guard3, check_shapes, make_info, read_flags
 
 
 def cs_minres(
@@ -119,7 +119,7 @@ def cs_minres(
         beta_one = beta_new
         threshold = tol_t * denom
 
-        done, bad = torch.stack([res_norm <= threshold, bad0]).tolist()
+        done, bad = read_flags(res_norm <= threshold, bad0)
         if done and not bad:
             # already converged at entry (e.g. a warm start at the solution)
             if hist_len:
@@ -170,7 +170,7 @@ def cs_minres(
             converged = res_next < threshold
 
             preds = [converged, bad] if has_precond else [converged]
-            flags = torch.stack(preds).tolist()   # the iteration's one host read
+            flags = read_flags(*preds)   # the iteration's one host read
             if has_precond and flags[1]:
                 # the β² gate exits before the update (cs_minres.py:274-282)
                 status = Status.INVALID_PRECONDITIONER

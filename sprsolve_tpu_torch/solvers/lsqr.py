@@ -26,7 +26,7 @@ import torch
 
 from ..errors import IncompatibleMatrixFormat, Status
 from ..vecalg import eps_for, norm2, real_dtype
-from .common import make_info
+from .common import make_info, read_flags
 
 
 def lsqr(
@@ -103,7 +103,7 @@ def lsqr(
     def stop_flags():
         small_r = rnorm <= tol_t * rhs_norm
         small_ar = arnorm <= tol_t * torch.sqrt(anorm2) * rnorm
-        return torch.stack([small_r, small_ar]).tolist()
+        return read_flags(small_r, small_ar)
 
     flags = stop_flags()
     while its < max_iter and not any(flags):

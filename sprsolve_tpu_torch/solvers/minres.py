@@ -28,7 +28,7 @@ import torch
 
 from ..errors import Status
 from ..vecalg import abs2, axpy, conj_dot, eps_for, group_sum, norm2, real_dtype, rscale
-from .common import _guard3, check_shapes, make_info
+from .common import _guard3, check_shapes, make_info, read_flags
 
 
 def minres(
@@ -154,7 +154,7 @@ def minres(
             converged = res_next < threshold
 
             preds = [converged, bad] if has_precond else [converged]
-            flags = torch.stack(preds).tolist()   # the iteration's one host read
+            flags = read_flags(*preds)   # the iteration's one host read
             if has_precond and flags[1]:
                 # the reference returns Err before touching x (:266-274)
                 status = Status.INVALID_PRECONDITIONER

@@ -28,6 +28,7 @@ import torch
 from ..errors import Status
 from ..ops.spmv import row_sum
 from ..sparse.containers import CSR, ELL, _host
+from ..utils.timing import span
 from ..vecalg import abs2, axpy, conj_dot, eps_for, norm2, real_dtype
 from .common import make_info
 
@@ -167,27 +168,28 @@ class MaskedGSPrecond:
         return self.A.shape
 
     def matvec(self, r: torch.Tensor) -> torch.Tensor:
-        # the halo's and pad rows' diagonal is 0: its reciprocal never
-        # reaches z (the masks are False there), but keep 1/0 out of it
-        one = torch.ones((), dtype=self.diag.dtype, device=self.diag.device)
-        safe_diag = torch.where(self.diag == 0, one, self.diag)
-        # a Python scalar is rounded to the vectors' dtype, as the JAX
-        # package's jnp.asarray(omega, dtype), and needs no copy to the card
-        om = float(self.omega)
-        order = tuple(self.masks)
-        if self.symmetric:
-            # palindrome without the middle class twice: rows of one class
-            # do not couple, so a repeat would cost a SpMV and change nothing
-            order = order + order[::-1][1:]
-        z, first = torch.zeros_like(r), True
-        for _ in range(self.sweeps):
-            for mask in order:
-                if first:
-                    zi, first = om * r / safe_diag, False
-                else:
-                    zi = z + om * (r - self.A.matvec(z)) / safe_diag
-                z = torch.where(mask, zi, z)
-        return z
+        with span("precond"):
+            # the halo's and pad rows' diagonal is 0: its reciprocal never
+            # reaches z (the masks are False there), but keep 1/0 out of it
+            one = torch.ones((), dtype=self.diag.dtype, device=self.diag.device)
+            safe_diag = torch.where(self.diag == 0, one, self.diag)
+            # a Python scalar is rounded to the vectors' dtype, as the JAX
+            # package's jnp.asarray(omega, dtype), and needs no copy to the card
+            om = float(self.omega)
+            order = tuple(self.masks)
+            if self.symmetric:
+                # palindrome without the middle class twice: rows of one class
+                # do not couple, so a repeat would cost a SpMV and change nothing
+                order = order + order[::-1][1:]
+            z, first = torch.zeros_like(r), True
+            for _ in range(self.sweeps):
+                for mask in order:
+                    if first:
+                        zi, first = om * r / safe_diag, False
+                    else:
+                        zi = z + om * (r - self.A.matvec(z)) / safe_diag
+                    z = torch.where(mask, zi, z)
+            return z
 
     def matvec_dot(self, r: torch.Tensor):
         z = self.matvec(r)
@@ -224,10 +226,11 @@ class MulticolorGSPrecond:
         return self.A.shape
 
     def matvec(self, r: torch.Tensor) -> torch.Tensor:
-        z = torch.zeros_like(r)
-        for _ in range(self.sweeps):
-            z = self.A.sweep(r, z)
-        return z
+        with span("precond"):
+            z = torch.zeros_like(r)
+            for _ in range(self.sweeps):
+                z = self.A.sweep(r, z)
+            return z
 
     def matvec_dot(self, r: torch.Tensor):
         z = self.matvec(r)

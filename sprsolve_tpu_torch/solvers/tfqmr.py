@@ -31,7 +31,7 @@ import torch
 from ..errors import Status
 from ..ops.operator import IdentityOperator
 from ..vecalg import axpy, conj_dot, eps_for, norm2, real_dtype
-from .common import _guard3, check_shapes, make_info
+from .common import _guard3, check_shapes, make_info, read_flags
 
 
 def tfqmr(
@@ -132,7 +132,7 @@ def tfqmr(
             yM2 = M.matvec(y_odd)
             Ay2 = A.matvec(yM2)
             v_new = axpy(beta, axpy(beta, v, Ay1), Ay2)
-            flags = torch.stack([ok, bound2 > tol2]).tolist()
+            flags = read_flags(ok, bound2 > tol2)
             if not flags[0]:
                 status = Status.BREAKDOWN
                 break

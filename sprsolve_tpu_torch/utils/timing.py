@@ -8,23 +8,28 @@ Counterpart of ``sprsolve_tpu/utils/timing.py``:
   calls inside one ``jax.jit``); on the CPU a synchronised wall clock.
 - :func:`spmv_report` — nnz/s, achieved bandwidth and the share of the
   card's memory rate for one SpMV.
-- :func:`trace` — a ``torch.profiler`` context that writes a Chrome trace.
+- :func:`span` — the program's own spans, kept in memory when
+  :func:`spans_on` turns them on (off by default): ``solve`` around each
+  prepared solve, ``host_read`` around each read of a solver's predicates
+  (:func:`~sprsolve_tpu_torch.solvers.common.read_flags`), ``precond``
+  around each preconditioner apply.
+- :func:`trace` — a ``torch.profiler`` context that writes a Chrome trace,
+  the program's spans in it.
 
 The memory rate of a card comes from :data:`HBM_BYTES_PER_S`, keyed by the
-device name (``torch.cuda.get_device_name``); a card not in the table is
-measured with a device-to-device copy (:func:`copy_bytes_per_s`).  A CPU
-run reports no roofline share.
+device name (``torch.cuda.get_device_name``); a card not in the table, as
+the CPU, reports no roofline share.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import statistics
-import tempfile
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
@@ -100,24 +105,11 @@ def time_fn(fn: Callable, *args, iters: int = 20, warmup: int = 3, reps: int = 5
     return statistics.median(times)
 
 
-def copy_bytes_per_s(device, nbytes: int = 1 << 30) -> float:
-    """Bytes per second of a device-to-device copy of ``nbytes`` (read and
-    written once each) on the CUDA ``device``, by :func:`time_fn`."""
-    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=device)
-    dst = torch.empty_like(src)
-    return 2 * src.numel() / time_fn(dst.copy_, src, iters=5)
-
-
-def hbm_bytes_per_s(chip: str, device=None) -> Optional[float]:
+def hbm_bytes_per_s(chip: str) -> Optional[float]:
     """The memory rate a roofline share divides by: the published rate of
-    ``chip`` where :data:`HBM_BYTES_PER_S` has it, else a copy's measured
-    rate on ``device`` (default: the current CUDA device); None for the
-    CPU."""
-    if chip == "cpu":
-        return None
-    if chip in HBM_BYTES_PER_S:
-        return HBM_BYTES_PER_S[chip]
-    return copy_bytes_per_s(device if device is not None else torch.device("cuda"))
+    ``chip`` where :data:`HBM_BYTES_PER_S` has it, else None (the CPU, a
+    card not in the table)."""
+    return HBM_BYTES_PER_S.get(chip)
 
 
 @dataclass
@@ -173,26 +165,144 @@ def spmv_report(seconds: float, nnz: int, bytes_algorithmic: int, device=None
     CUDA device, or the CPU without CUDA)."""
     chip = detect_chip(device)
     return SpmvReport(seconds=seconds, nnz=nnz, bytes_algorithmic=bytes_algorithmic,
-                      chip=chip, peak_bytes_per_s=hbm_bytes_per_s(chip, device))
+                      chip=chip, peak_bytes_per_s=hbm_bytes_per_s(chip))
+
+
+# --- spans -------------------------------------------------------------------
+# One host thread's spans, kept in memory.  Off, span() returns a shared
+# object that does nothing, after one check of _on: no clock read, no record.
+SPAN_CAP = 1 << 20   # records kept until reset_spans(); later ones are dropped
+
+
+class Span(NamedTuple):
+    """A recorded span: ``time.time_ns()`` at its start and end, the index
+    of the enclosing span in :func:`spans` (−1 for none) and the sequence
+    number of the enclosing ``solve`` span (−1 outside any)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: int
+    solve_id: int
+
+
+_on = False
+_records: list = []   # [name, start_ns, end_ns, parent, solve_id]
+_open: list = []      # (index, solve_id) of each open span, innermost last
+_solves = 0           # solve spans begun since the last reset
+_dropped = 0          # spans past SPAN_CAP since the last reset
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        global _solves, _dropped
+        parent, solve_id = _open[-1] if _open else (-1, -1)
+        if self.name == "solve":
+            solve_id, _solves = _solves, _solves + 1
+        if len(_records) < SPAN_CAP:
+            index = len(_records)
+            _records.append([self.name, time.time_ns(), 0, parent, solve_id])
+        else:
+            index = -1
+            _dropped += 1
+        _open.append((index, solve_id))
+        return None
+
+    def __exit__(self, *exc):
+        index, _ = _open.pop()
+        if index >= 0:
+            _records[index][2] = time.time_ns()
+        return False
+
+
+def span(name: str):
+    """``with span("precond"): ...`` records the block as a span while
+    :func:`spans_on` is active; otherwise it does nothing."""
+    if not _on:
+        return _NO_SPAN
+    return _Span(name)
 
 
 @contextlib.contextmanager
-def trace(logdir: Optional[str] = None):
-    """``with trace() as path: run_solve()`` profiles the CPU and, where
-    CUDA is present, the card, and writes a Chrome trace (for
-    chrome://tracing or Perfetto) to ``path``: ``trace.json`` in
-    ``logdir``, by default a ``sprsolve_tpu_torch_trace`` directory in the
-    system's temporary directory."""
+def spans_on():
+    """Record spans inside the block (:func:`spans` reads them)."""
+    global _on
+    was, _on = _on, True
+    try:
+        yield
+    finally:
+        _on = was
+
+
+def spans() -> List[Span]:
+    """The spans recorded since the last :func:`reset_spans`, in the order
+    they began (a span still open has ``end_ns`` 0)."""
+    return [Span(*r) for r in _records]
+
+
+def dropped_spans() -> int:
+    """Spans not recorded since the last :func:`reset_spans`: the list was
+    full (:data:`SPAN_CAP`)."""
+    return _dropped
+
+
+def reset_spans() -> None:
+    """Forget the recorded spans and restart the solve numbering."""
+    global _solves, _dropped
+    if _open:
+        raise RuntimeError("reset_spans() inside an open span")
+    _records.clear()
+    _solves = _dropped = 0
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """``with trace(logdir) as path: run_solve()`` profiles the CPU and,
+    where CUDA is present, the card, with the program's spans on, and
+    writes a Chrome trace (for chrome://tracing or Perfetto) to ``path``,
+    ``trace.json`` in ``logdir``: the profiler's events and each span
+    recorded in the block as a complete event (``cat`` "span") on the
+    profiler's timeline."""
     from torch.profiler import ProfilerActivity, profile
 
-    logdir = logdir or os.path.join(tempfile.gettempdir(), "sprsolve_tpu_torch_trace")
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, "trace.json")
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
+    first = len(_records)
     with profile(activities=activities) as prof:
-        yield path
+        with spans_on():
+            yield path
         if torch.cuda.is_available():
             torch.cuda.synchronize()
     prof.export_chrome_trace(path)
+    with open(path) as f:
+        data = json.load(f)
+    base = data.get("baseTimeNanoseconds", 0)   # the trace's ts: µs after it
+    pid = os.getpid()
+    for i, s in enumerate(spans()[first:], first):
+        data["traceEvents"].append({
+            "ph": "X", "cat": "span", "name": s.name, "pid": pid, "tid": "spans",
+            "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+            "args": {"index": i, "parent": s.parent, "solve_id": s.solve_id}})
+    with open(path, "w") as f:
+        json.dump(data, f)

@@ -58,6 +58,12 @@ Phases, each printing lines of its own:
    cold times at the shift-invert shape (64³) and the LOBPCG shape
    (100³), m = 12, beside twelve K1 calls, its plain version, its bytes
    bound and ``torch.sparse.mm`` on the same CSR.
+3b. U/P    — CG's fused updates (``fused.cg_update``, ``fused.cg_direction``)
+   on flat vectors of the 100³ and 256³ Poisson's padded length, f32 and
+   f64, with and without d⁻¹: within Y_RTOL and DOT_RTOL of their plain
+   versions on the card, one count a call, and with d⁻¹ their
+   graph-replayed warm and cold times beside their bound and the plain
+   versions' (``phase_cg_fused``).
 4. slice   — ``solve(A, b, method="bicgstab", M="jacobi")`` on the 100³
    Poisson in f32, with the launch counters reset just before: it must
    converge, reach a true relative residual (f64, scipy) below 1e-3, launch
@@ -67,8 +73,8 @@ Phases, each printing lines of its own:
    100×100 Dirichlet grid, tol 1e-16.
 6. symmetric — the symmetric slice on the same f32 Poisson and rhs, each
    solve with the launch counters reset just before: MINRES (K1 once, K3
-   and K4 iterations + 1 times each, K2 never), CG with Jacobi (K3
-   iterations times, K4 never) and ``method="auto"`` (routes to MINRES: K4
+   and K4 iterations + 1 times each, K2 never), CG with Jacobi (K3, U and
+   P iterations times each, K4 never) and ``method="auto"`` (routes to MINRES: K4
    launches); all converge to a true residual below 1e-3.  Then MINRES and
    CG through ``prepare`` (median of 3 timed solves, then one profiled:
    device µs per iteration and idle share), and the same solves through an
@@ -848,6 +854,99 @@ def check_k4_edges(dev, errs) -> None:
     log("kernels", kernel="K4 edges", seconds=f"{time.perf_counter() - t0:.2f}")
 
 
+# --- phase 3b, CG's fused updates U and P ----------------------------------
+def cg_update_bytes(n: int, itemsize: int, has_d: bool = True) -> int:
+    """Bytes U moves on n rows: x, p, r, q (and d⁻¹) read once, x' and r'
+    written once (28 a row in f32 with d⁻¹)."""
+    return (6 + has_d) * n * itemsize
+
+
+def cg_direction_bytes(n: int, itemsize: int, has_d: bool = True) -> int:
+    """Bytes P moves on n rows: r, p (and d⁻¹) read once, p' written once
+    (16 a row in f32 with d⁻¹)."""
+    return (3 + has_d) * n * itemsize
+
+
+def phase_cg_fused(dev) -> dict:
+    """Phase 3b: U (``fused.cg_update``) and P (``fused.cg_direction``) on
+    flat vectors of the 100³ and the 256³ Poisson's padded length, f32 and
+    f64, with d⁻¹ (Jacobi) and without: x', r', p' within Y_RTOL of their
+    plain versions on the card and rz', rr', ‖r'‖ within DOT_RTOL, the
+    predicates equal, one count a call; then, with d⁻¹, graph-replayed warm
+    (``ms``) and cold (``cold_ms``) times beside their bound (bytes over
+    3.35 TB/s) and the plain versions' time. Returns the times by
+    (kernel, grid, dtype)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 20)
+    out = {}
+    for grid in (GRID, 256):
+        offsets = (-grid * grid, -grid, -1, 0, 1, grid, grid * grid)
+        for dt in (torch.float32, torch.float64):
+            isz = torch.empty((), dtype=dt).element_size()
+            h, n_pad = pd.layout(grid ** 3, offsets, isz)
+            n = n_pad + 2 * h
+            vec = lambda: torch.as_tensor(rng.standard_normal(n), dtype=dt).to(dev)
+            x, p, r, q = vec(), vec(), vec(), vec()
+            d = torch.as_tensor(rng.uniform(0.1, 1.0, n), dtype=dt).to(dev)
+            rz = torch.tensor(0.75, dtype=dt, device=dev)
+            pq = torch.tensor(2.5, dtype=dt, device=dev)
+            xo, ro, po = torch.empty_like(x), torch.empty_like(r), torch.empty_like(p)
+            for dinv in (d, None):
+                _, _, st_r = fused.cg_update_plain(x, p, r, q, dinv, rz, pq, rz, xo, ro)
+                tol = 0.5 * st_r[2]
+                x_r, r_r, st_r = (t.clone() for t in fused.cg_update_plain(
+                    x, p, r, q, dinv, rz, pq, tol, xo, ro))
+                counts = fused.cg_update.launches, fused.cg_direction.launches
+                xn, rn, st = fused.cg_update(x, p, r, q, dinv, rz, pq, tol, xo, ro)
+                pn = fused.cg_direction(p, rn, dinv, st[0], rz, po)
+                if (fused.cg_update.launches, fused.cg_direction.launches) != (
+                        counts[0] + 1, counts[1] + 1):
+                    raise AssertionError(f"U/P at {grid}³: not one count a call")
+                tag = f"poisson{grid} {str(dt).replace('torch.', '')} " + (
+                    "d" if dinv is not None else "no d")
+                check_close(f"{tag} U x'", xn, x_r, (x.abs() + 0.3 * p.abs()).max(), Y_RTOL[dt])
+                check_close(f"{tag} U r'", rn, r_r, (r.abs() + 0.3 * q.abs()).max(), Y_RTOL[dt])
+                for k, what in enumerate(("rz'", "rr'", "|r'|")):
+                    check_close(f"{tag} U {what}", st[k], st_r[k], st_r[k].abs(), DOT_RTOL[dt])
+                if st[3:].tolist() != [1.0, 1.0, 0.0]:
+                    raise AssertionError(f"{tag} U: predicates {st[3:].tolist()}")
+                z = rn if dinv is None else rn * dinv
+                beta = st[0] / rz
+                pn_r = fused.cg_direction_plain(p, rn, dinv, st[0], rz, torch.empty_like(p))
+                check_close(f"{tag} P p'", pn, pn_r, (z.abs() + beta.abs() * p.abs()).max(),
+                            Y_RTOL[dt])
+                log("kernels", set=tag, kernels="U/P", n=n,
+                    result="within Y_RTOL/DOT_RTOL of plain; predicates equal; one count a "
+                    "call")
+                if dinv is None:
+                    continue
+                u = lambda x, p, r, q, d, xo, ro: fused.cg_update(x, p, r, q, d, rz, pq, tol,
+                                                                 xo, ro)
+                pp = lambda p, r, d, po: fused.cg_direction(p, r, d, st[0], rz, po)
+                calls = {   # name → (kernel, plain version, operands, bytes moved)
+                    "cg_update": (u, lambda *t: fused.cg_update_plain(*t[:5], rz, pq, tol,
+                                                                      *t[5:]),
+                                  (x, p, r, q, d, xo, ro), cg_update_bytes(n, isz)),
+                    "cg_direction": (pp, lambda p, r, d, po: fused.cg_direction_plain(
+                        p, r, d, st[0], rz, po), (p, rn, d, po), cg_direction_bytes(n, isz)),
+                }
+                for name, (kern, plain, ops, moved) in calls.items():
+                    bms = moved / HBM_BYTES_PER_S * 1e3
+                    st_k = {"ms": device_ms(lambda: kern(*ops)),
+                            "cold_ms": cold_device_ms(kern, ops),
+                            "plain_ms": device_ms(lambda: plain(*ops)),
+                            "wrapper_ms": median_ms(lambda: kern(*ops)), "bound_ms": bms}
+                    out[(name, grid, dt)] = st_k
+                    log("kernels", set=tag, kernel=name, timing="graph-replayed", n=n,
+                        **{k: f"{v:.5f}" for k, v in st_k.items()},
+                        share_of_bound=f"{bms / st_k['ms']:.3f}",
+                        cold_share_of_bound=f"{bms / st_k['cold_ms']:.3f}")
+            del x, p, r, q, d, xo, ro, po, xn, rn, pn, x_r, r_r, pn_r, z
+            torch.cuda.empty_cache()
+    log("kernels", kernel="U/P", seconds=f"{time.perf_counter() - t0:.2f}")
+    return out
+
+
 def check_dot_kernels(name, op, x, w, dinv, profile: bool) -> None:
     """K3 and the four K2 variants: y bitwise K1's on the SpMV input (x, or
     x ⊙ dinv under the fold); the dots of 10 eager calls and of a CUDA-graph
@@ -1423,13 +1522,17 @@ def phase_symmetric(dev):
                 "dia_complex_spmv": 0, "dia_complex_dot": 0, "dia_complex_wdot": 0}
         if c != want:
             raise AssertionError(f"{name}: launch counts {c}, expected {want}")
+        up = (fused.cg_update.launches, fused.cg_direction.launches)
+        if up != ((n, n) if name == "cg" else (0, 0)):
+            raise AssertionError(f"{name}: U/P launched {up} times in {n} iterations")
         its[name] = n
         if name == "minres":
             launches = c
         log("symmetric", entry=f"solve(method={kw['method']!r}"
             + (", M='jacobi')" if "M" in kw else ")"), iterations=n,
             recurrence_residual=float(info.residual), true_residual=res,
-            **{f"{k}_launches": v for k, v in c.items()})
+            **{f"{k}_launches": v for k, v in c.items()}, cg_update_launches=up[0],
+            cg_direction_launches=up[1])
     RUN_COUNTS.update(minres=its["minres"], cg_jacobi=its["cg"])
 
     bd = torch.as_tensor(b, device=dev)
@@ -4704,6 +4807,7 @@ def main() -> int:
     assert lib.sprsolve_dia_spmm_threads() == pd.SPMM_TILE
     assert lib.sprsolve_dia_dots_scratch_head() == pd.DOT_SCRATCH_HEAD
     assert lib.sprsolve_orth_norm_tile() == pd.DOT_TILE
+    assert lib.sprsolve_cg_tile() == pd.DOT_TILE
     assert all(lib.sprsolve_orth_norm_blocks_per_sm(pd._VCODE[dt]) == pd.DOT_BLOCKS_PER_SM[dt]
                for dt in pd.REAL_DTYPES)
     assert lib.sprsolve_dia_complex_dots_tile() == pd.COMPLEX_DOT_TILE
@@ -4712,6 +4816,7 @@ def main() -> int:
                for dt, b in pd.DOT_BLOCKS_PER_SM.items())
 
     errs, _, stats = phase_kernels(dev)
+    phase_cg_fused(dev)
     phase_spmm(dev, errs, stats)
     phase_complex_kernels(dev, errs, stats)
     launches = phase_slice(dev)

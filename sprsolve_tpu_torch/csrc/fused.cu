@@ -1,4 +1,6 @@
-// Fused Lanczos step for Hopper (sm_90a): K4 of the port.
+// Fused vector steps for Hopper (sm_90a): K4 of the port (MINRES's Lanczos
+// step), and CG's two update kernels U and P (cg_update_kernel,
+// cg_direction_kernel, described before them below).
 //
 // Layout as in dia_spmv.cu: vectors are flat, h zeros | n_pad body entries |
 // h zeros, with n_pad a multiple of ROW_TILE and every body 16-byte aligned.
@@ -236,5 +238,292 @@ extern "C" int sprsolve_orth_norm(int vcode, const void* a, const void* vold,
   else
     launch_orth_norm<double>(a, vold, v, beta, alpha, out, sumsq, (char*)scratch, grid,
                              n_pad, h, s);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// U and P: CG's vector recurrence in two passes.  They replace no TPU
+// kernel: the JAX package's CG (sprsolve_tpu/solvers/cg.py) leaves these
+// updates to XLA's fusion, and in eager PyTorch they were 17 launches and
+// 19 vector passes an iteration.  Vectors are flat, of any length n (a
+// padded layout's halos are entries like any other); d is the Jacobi
+// diagonal's reciprocal, or absent (M = I, no d stream).
+//
+// U  cg_update_kernel: alpha = rz / (pq > 0 ? pq : 1), read from device
+//    pointers; x' = x + alpha*p (the solver passes a buffer other than x, so
+//    a breakdown keeps x); r' = r - alpha*q; and in the same pass
+//    rz' = sum r'*(d*r') and rr' = sum r'^2 (rz' = rr' without d), z = d*r'
+//    never stored.  The last block writes
+//    stats = [rz', rr', sqrt(rr'), ok, sqrt(rr') > tol, sqrt(rr') <= tol],
+//    the predicates as 1 or 0: the one tensor the solver reads on the host.
+// P  cg_direction_kernel: p' = d*r' + beta*p, beta = rz' / rz read from
+//    device pointers.  beta needs U's global sum, so P cannot join U's pass.
+//
+// What bounds them on an H100: HBM bytes.  In f32 with d, U reads 5 and
+// writes 2 values a row (28 bytes), P reads 3 and writes 1 (16 bytes), at a
+// few flops a row: at 256^3 rows 0.47 and 0.27 GB, 140 and 80 us at
+// 3.35 TB/s, where the eager ops moved 1.27 GB.  The design is K4's:
+//  * One wave of blocks, each walking tiles of CG_TILE rows blockIdx.x,
+//    + gridDim.x, ...: 4 U blocks an SM in f32 and f64, 8 P blocks in f32
+//    and 4 in f64.  U at 8 blocks an SM (32 registers a thread) spilled and
+//    ran at 0.70 of its bound at 256^3 in f32; at 4, 5, 6 and 8 blocks it
+//    took 173, 173, 176 and 203 us (H100 80GB HBM3, 700 W; PERF.md,
+//    section 6).
+//  * 16-byte loads, 4 rows a thread, when every vector starts 16-byte
+//    aligned (VEC); otherwise, and in a ragged last quad, one row at a time
+//    with the same arithmetic, so no bit depends on alignment.
+//  * U's sums as K4's sum: each tile's two sums in a fixed tree (one
+//    barrier for both), one partial each per tile in the per-stream scratch,
+//    then __threadfence and the ticket; the last block sums the partials in
+//    tile order and resets the ticket.  rz' and rr' depend on n alone, not
+//    on the grid, and accumulate in the vectors' dtype.
+// r and x (U) and p (P) may be their own outputs: they are read through the
+// coherent path, each entry by the thread that writes it, before it does.
+
+#define CG_THREADS 256                // threads of a block
+#define CG_TILE (4 * CG_THREADS)      // rows of a tile, 4 per thread (DOT_TILE)
+
+// blocks that share an SM: U's 55-64 registers a thread allow 1024 threads;
+// P's 28-40 allow all 2048 in f32
+template <typename V>
+__host__ __device__ constexpr int cg_update_blocks_per_sm() { return 4; }
+template <typename V>
+__host__ __device__ constexpr int cg_direction_blocks_per_sm() { return sizeof(V) == 4 ? 8 : 4; }
+
+namespace {
+
+// p[0..3] through the coherent path: a vector the kernel may also write
+__device__ __forceinline__ Quad<float> ld_quad_rw(const float* p) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  return {{t.x, t.y, t.z, t.w}};
+}
+
+__device__ __forceinline__ Quad<double> ld_quad_rw(const double* p) {
+  const double2* q = reinterpret_cast<const double2*>(p);
+  const double2 a = q[0], b = q[1];
+  return {{a.x, a.y, b.x, b.y}};
+}
+
+__device__ __forceinline__ float sqrt_rn(float v) { return __fsqrt_rn(v); }
+__device__ __forceinline__ double sqrt_rn(double v) { return __dsqrt_rn(v); }
+
+// block_sum of a and of b, both in thread 0, behind one barrier
+template <typename V>
+__device__ __forceinline__ void block_sum2(V& a, V& b, V (*smem)[CG_THREADS / 32]) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    smem[0][warp] = a;
+    smem[1][warp] = b;
+  }
+  __syncthreads();
+  a = b = V(0);
+  if (warp == 0) {
+    a = warp_sum(lane < CG_THREADS / 32 ? smem[0][lane] : V(0));
+    b = warp_sum(lane < CG_THREADS / 32 ? smem[1][lane] : V(0));
+  }
+}
+
+// one row of U: x', r', and its terms of rz' and rr'
+template <typename V, bool HAS_D>
+__device__ __forceinline__ void cg_row(V x, V p, V r, V q, V d, V alpha, V& xn, V& rn,
+                                       V& rz, V& rr) {
+  xn = fmadd(alpha, p, x);
+  rn = fmadd(-alpha, q, r);
+  rr = fmadd(rn, rn, rr);
+  if (HAS_D) rz = fmadd(rn, d * rn, rz);
+}
+
+// scratch: the ticket (unsigned, 0 between launches) at ticket, then the
+// tiles' partials of rr' and, with d, of rz'
+template <typename V, bool HAS_D, bool VEC>
+__global__ void __launch_bounds__(CG_THREADS, cg_update_blocks_per_sm<V>())
+cg_update_kernel(const V* x, const V* __restrict__ p, const V* r, const V* __restrict__ q,
+                 const V* __restrict__ d, const V* __restrict__ rz,
+                 const V* __restrict__ pq, const V* __restrict__ tol, V* xo, V* ro,
+                 V* __restrict__ stats, V* __restrict__ partials,
+                 unsigned* __restrict__ ticket, long long n) {
+  __shared__ V s_p[2][2][CG_THREADS / 32];
+  __shared__ bool s_last;
+  const int t = threadIdx.x;
+  const V pqv = __ldg(pq);
+  const bool ok = pqv > V(0);
+  const V alpha = __ldg(rz) / (ok ? pqv : V(1));
+  const long long n_tiles = (n + CG_TILE - 1) / CG_TILE;
+  int buf = 0;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    const long long i = tile * CG_TILE + 4 * t;  // this thread's rows: i .. i + 3
+    V srz = V(0), srr = V(0);
+    if (VEC && i + 4 <= n) {
+      const Quad<V> xq = ld_quad_rw(x + i), rq = ld_quad_rw(r + i);
+      const Quad<V> pv = ld_quad(p + i), qv = ld_quad(q + i);
+      Quad<V> dq = {};
+      if (HAS_D) dq = ld_quad(d + i);
+      Quad<V> xn, rn;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        cg_row<V, HAS_D>(xq.v[k], pv.v[k], rq.v[k], qv.v[k], dq.v[k], alpha, xn.v[k],
+                         rn.v[k], srz, srr);
+      st_quad(xo + i, xn);
+      st_quad(ro + i, rn);
+    } else {
+      for (long long k = i; k < i + 4 && k < n; ++k) {
+        V xn, rn;
+        cg_row<V, HAS_D>(x[k], __ldg(p + k), r[k], __ldg(q + k),
+                         HAS_D ? __ldg(d + k) : V(0), alpha, xn, rn, srz, srr);
+        xo[k] = xn;
+        ro[k] = rn;
+      }
+    }
+    block_sum2(srr, srz, s_p[buf]);
+    if (t == 0) {
+      partials[tile] = srr;
+      if (HAS_D) partials[n_tiles + tile] = srz;
+    }
+  }
+  if (t == 0) {
+    __threadfence();
+    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  // the last block: every partial is in L2 (read past L1 with __ldcg); sum
+  // them in tile order
+  V a = V(0), b = V(0);
+  for (long long k0 = t; k0 < n_tiles; k0 += TAIL_LOADS * CG_THREADS) {
+    V pa[TAIL_LOADS], pb[TAIL_LOADS];
+#pragma unroll
+    for (int u = 0; u < TAIL_LOADS; ++u) {
+      const long long k = k0 + (long long)u * CG_THREADS;
+      pa[u] = k < n_tiles ? __ldcg(partials + k) : V(0);
+      pb[u] = HAS_D && k < n_tiles ? __ldcg(partials + n_tiles + k) : V(0);
+    }
+#pragma unroll
+    for (int u = 0; u < TAIL_LOADS; ++u) {
+      a = a + pa[u];
+      b = b + pb[u];
+    }
+  }
+  block_sum2(a, b, s_p[0]);
+  if (t == 0) {
+    const V nrm = sqrt_rn(a), tl = __ldg(tol);
+    stats[0] = HAS_D ? b : a;
+    stats[1] = a;
+    stats[2] = nrm;
+    stats[3] = ok ? V(1) : V(0);
+    stats[4] = nrm > tl ? V(1) : V(0);
+    stats[5] = nrm <= tl ? V(1) : V(0);
+    *ticket = 0u;
+  }
+}
+
+template <typename V, bool HAS_D, bool VEC>
+__global__ void __launch_bounds__(CG_THREADS, cg_direction_blocks_per_sm<V>())
+cg_direction_kernel(const V* __restrict__ r, const V* __restrict__ d, const V* p,
+                    const V* __restrict__ rzn, const V* __restrict__ rz, V* po,
+                    long long n) {
+  const V beta = __ldg(rzn) / __ldg(rz);
+  const long long n_tiles = (n + CG_TILE - 1) / CG_TILE;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long i = tile * CG_TILE + 4 * threadIdx.x;
+    if (VEC && i + 4 <= n) {
+      const Quad<V> rq = ld_quad(r + i), pv = ld_quad_rw(p + i);
+      Quad<V> dq = {};
+      if (HAS_D) dq = ld_quad(d + i);
+      Quad<V> o;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        o.v[k] = fmadd(beta, pv.v[k], HAS_D ? dq.v[k] * rq.v[k] : rq.v[k]);
+      st_quad(po + i, o);
+    } else {
+      for (long long k = i; k < i + 4 && k < n; ++k)
+        po[k] = fmadd(beta, p[k], HAS_D ? __ldg(d + k) * __ldg(r + k) : __ldg(r + k));
+    }
+  }
+}
+
+template <typename V>
+void launch_cg_update(bool has_d, bool vec, int grid, cudaStream_t s, const void* x,
+                      const void* p, const void* r, const void* q, const void* d,
+                      const void* rz, const void* pq, const void* tol, void* xo, void* ro,
+                      void* stats, char* scratch, long long n) {
+  auto kernel = has_d ? (vec ? cg_update_kernel<V, true, true> : cg_update_kernel<V, true, false>)
+                      : (vec ? cg_update_kernel<V, false, true> : cg_update_kernel<V, false, false>);
+  kernel<<<grid, CG_THREADS, 0, s>>>(
+      (const V*)x, (const V*)p, (const V*)r, (const V*)q, (const V*)d, (const V*)rz,
+      (const V*)pq, (const V*)tol, (V*)xo, (V*)ro, (V*)stats,
+      (V*)(scratch + SCRATCH_HEAD), (unsigned*)scratch, n);
+}
+
+template <typename V>
+void launch_cg_direction(bool has_d, bool vec, int grid, cudaStream_t s, const void* r,
+                         const void* d, const void* p, const void* rzn, const void* rz,
+                         void* po, long long n) {
+  auto kernel = has_d ? (vec ? cg_direction_kernel<V, true, true>
+                             : cg_direction_kernel<V, true, false>)
+                      : (vec ? cg_direction_kernel<V, false, true>
+                             : cg_direction_kernel<V, false, false>);
+  kernel<<<grid, CG_THREADS, 0, s>>>((const V*)r, (const V*)d, (const V*)p, (const V*)rzn,
+                                     (const V*)rz, (V*)po, n);
+}
+
+}  // namespace
+
+extern "C" int sprsolve_cg_tile() { return CG_TILE; }
+
+// U blocks and P blocks that share an SM, by vector type code
+extern "C" int sprsolve_cg_update_blocks_per_sm(int vcode) {
+  return vcode == 1 ? cg_update_blocks_per_sm<double>() : cg_update_blocks_per_sm<float>();
+}
+
+extern "C" int sprsolve_cg_direction_blocks_per_sm(int vcode) {
+  return vcode == 1 ? cg_direction_blocks_per_sm<double>()
+                    : cg_direction_blocks_per_sm<float>();
+}
+
+// U.  vcode 0 = f32, 1 = f64 (vectors, rz, pq, tol and stats alike); d null
+// for M = I; stats: 6 values.  xo may be x and ro may be r; no other
+// vector may overlap another.  scratch: the caller's per-stream area of
+// scratch_bytes >= SCRATCH_HEAD + 2 * tiles * sizeof(V) bytes, 16-byte
+// aligned, its ticket zero before the first launch (each launch leaves it
+// so).  grid: at least 1 block; no output depends on it.  Vectors of any
+// alignment: 16-byte loads where all are 16-byte aligned.
+extern "C" int sprsolve_cg_update(int vcode, const void* x, const void* p, const void* r,
+                                  const void* q, const void* d, const void* rz,
+                                  const void* pq, const void* tol, void* xo, void* ro,
+                                  void* stats, void* scratch, long long scratch_bytes,
+                                  int grid, long long n, void* stream) {
+  const long long vbytes = vcode == 1 ? 8 : 4;
+  const long long n_tiles = (n + CG_TILE - 1) / CG_TILE;
+  if ((vcode != 0 && vcode != 1) || n <= 0 || grid < 1 ||
+      scratch_bytes < SCRATCH_HEAD + 2 * n_tiles * vbytes)
+    return (int)cudaErrorInvalidValue;
+  if (misaligned(scratch)) return (int)cudaErrorMisalignedAddress;
+  const bool vec = !(misaligned(x) || misaligned(p) || misaligned(r) || misaligned(q) ||
+                     (d && misaligned(d)) || misaligned(xo) || misaligned(ro));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vcode == 0)
+    launch_cg_update<float>(d != nullptr, vec, grid, s, x, p, r, q, d, rz, pq, tol, xo, ro,
+                            stats, (char*)scratch, n);
+  else
+    launch_cg_update<double>(d != nullptr, vec, grid, s, x, p, r, q, d, rz, pq, tol, xo, ro,
+                             stats, (char*)scratch, n);
+  return (int)cudaGetLastError();
+}
+
+// P.  vcode as for U (vectors, rzn and rz alike); d null for M = I; po may be
+// p.  grid: at least 1 block.
+extern "C" int sprsolve_cg_direction(int vcode, const void* r, const void* d,
+                                     const void* p, const void* rzn, const void* rz,
+                                     void* po, int grid, long long n, void* stream) {
+  if ((vcode != 0 && vcode != 1) || n <= 0 || grid < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = !(misaligned(r) || (d && misaligned(d)) || misaligned(p) || misaligned(po));
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vcode == 0)
+    launch_cg_direction<float>(d != nullptr, vec, grid, s, r, d, p, rzn, rz, po, n);
+  else
+    launch_cg_direction<double>(d != nullptr, vec, grid, s, r, d, p, rzn, rz, po, n);
   return (int)cudaGetLastError();
 }

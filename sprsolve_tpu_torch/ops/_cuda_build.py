@@ -74,6 +74,16 @@ _SIGNATURES = {
     "sprsolve_orth_norm": (
         [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _I64, _P], _I32
     ),
+    "sprsolve_cg_tile": ([], _I32),
+    "sprsolve_cg_update_blocks_per_sm": ([_I32], _I32),      # vcode
+    "sprsolve_cg_direction_blocks_per_sm": ([_I32], _I32),   # vcode
+    # vcode, x, p, r, q, dinv, rz, pq, tol, x_out, r_out, stats, scratch,
+    # scratch_bytes, grid, n, stream
+    "sprsolve_cg_update": (
+        [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _P], _I32
+    ),
+    # vcode, r, dinv, p, rz_next, rz, p_out, grid, n, stream
+    "sprsolve_cg_direction": ([_I32, _P, _P, _P, _P, _P, _P, _I32, _I64, _P], _I32),
     # vcode, re_code, im_code, bre, bim, x, y, n_pad, h, offsets, nd, stream
     "sprsolve_dia_complex_spmv": (
         [_I32, _I32, _I32, _P, _P, _P, _P, _I64, _I64, _P, _I32, _P], _I32

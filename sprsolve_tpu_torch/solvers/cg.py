@@ -14,6 +14,16 @@ its SPD solver is MINRES): :func:`cg` and the Chronopoulos–Gear
 The loop is a Python ``while``.  Scalars stay 0-d tensors on the solve's
 device, and each iteration brings one small tensor of predicates (the gate
 and the next residual test) to the host.
+
+Where the input allows it (:func:`_fused_dinv`: a real b, no ``group``, and
+M none, the identity or a diagonal of b's length and dtype), the iteration's
+vector work after K3 runs as two kernels, :func:`~sprsolve_tpu_torch.ops.fused.cg_update`
+(x, r and the two dots: α's and the next ‖r‖) and
+:func:`~sprsolve_tpu_torch.ops.fused.cg_direction` (the next p), in place of
+17 eager launches; r and p are then updated in place and x alternates
+between two buffers of the solve's own. On the CPU their plain versions
+repeat the unfused ops one for one, so both loops give the same bits there.
+Every other input (complex, distributed, any other M) runs the unfused loop.
 """
 
 from __future__ import annotations
@@ -23,9 +33,30 @@ from typing import Optional
 import torch
 
 from ..errors import Status
+from ..ops import fused
 from ..ops.operator import IdentityOperator
+from ..precond import DiagPrecond
 from ..vecalg import axpy, conj_dot, group_sum, norm2, real_dtype
 from .common import _guard3, check_shapes, make_info, read_flags
+
+
+def _fused_dinv(b: torch.Tensor, x0: torch.Tensor, M, group):
+    """``(True, d⁻¹ or None)`` when :func:`cg` may run its updates as the
+    fused U/P pair: b flat and real, x0 of its dtype and device, no
+    ``group``, and M None, an
+    :class:`IdentityOperator` (no d⁻¹) or a :class:`DiagPrecond` whose
+    ``diag_inv`` is real and of b's length, dtype and device. Else
+    ``(False, None)``."""
+    if (group is not None or b.dtype not in (torch.float32, torch.float64) or b.dim() != 1
+            or x0.dtype != b.dtype or x0.device != b.device):
+        return False, None
+    if M is None or isinstance(M, IdentityOperator):
+        return True, None
+    if type(M) is DiagPrecond:
+        d = M.diag_inv
+        if d.shape == b.shape and d.dtype == b.dtype and d.device == b.device:
+            return True, d.contiguous()
+    return False, None
 
 
 def cg(
@@ -51,6 +82,9 @@ def cg(
     if x0 is None:
         x0 = torch.zeros_like(b)
     check_shapes(A, b, x0, group)
+    routed, dinv = _fused_dinv(b, x0, M, group)
+    if routed:
+        x0 = x0.contiguous()
     if M is None:
         M = IdentityOperator(b.shape[0])
 
@@ -70,6 +104,11 @@ def cg(
         r_norm = norm2(r, group)
         z = M.matvec(r)
         x, p, rz = x0, z, conj_dot(r, z, group)
+        if routed:
+            # U rewrites r and P rewrites p in place; x' goes to the buffer
+            # x is not in, so a breakdown keeps x, and x0 is never written
+            p = z.clone() if z is r else z
+            xbufs = (torch.empty_like(b), torch.empty_like(b))
         its, status, res = 0, Status.RUNNING, None
         above, below = read_flags(r_norm > tol2, r_norm <= tol2)
         while its < max_iter and above:
@@ -77,17 +116,24 @@ def cg(
                 hist[its] = r_norm / rhs_norm
             q, pq = A.matvec_dot(p)
             pq = group_sum(pq, group)
-            # positive-definiteness gate (cg.py:118-133)
-            ok = pq.real > 0
-            alpha = rz / torch.where(ok, pq, one)
-            x_next = axpy(alpha, p, x)
-            r = axpy(-alpha, q, r)
-            z = M.matvec(r)
-            rz_next = conj_dot(r, z, group)
-            p = axpy(rz_next / rz, p, z)  # p = z + β·p
-            rz = rz_next
-            r_norm_next = norm2(r, group)
-            flags = read_flags(ok, r_norm_next > tol2, r_norm_next <= tol2)
+            if routed:
+                x_next, r, st = fused.cg_update(x, p, r, q.contiguous(), dinv, rz, pq, tol2,
+                                                xbufs[its % 2], r)
+                p = fused.cg_direction(p, r, dinv, st[0], rz, p)
+                rz, r_norm_next = st[0], st[2]
+                flags = read_flags(st[3:])
+            else:
+                # positive-definiteness gate (cg.py:118-133)
+                ok = pq.real > 0
+                alpha = rz / torch.where(ok, pq, one)
+                x_next = axpy(alpha, p, x)
+                r = axpy(-alpha, q, r)
+                z = M.matvec(r)
+                rz_next = conj_dot(r, z, group)
+                p = axpy(rz_next / rz, p, z)  # p = z + β·p
+                rz = rz_next
+                r_norm_next = norm2(r, group)
+                flags = read_flags(ok, r_norm_next > tol2, r_norm_next <= tol2)
             if not flags[0]:
                 # BREAKDOWN keeps the previous x, count and residual
                 status, res = Status.BREAKDOWN, r_norm / rhs_norm

@@ -14,11 +14,13 @@ from ..vecalg import eps_for, group_sum, norm2
 
 def read_flags(*preds: torch.Tensor) -> list:
     """The 0-d predicates ``preds`` on the host, as a list of bools, in one
-    read (a ``host_read`` span); ``read_flags.calls`` counts the reads
-    (zeroed by ``ops.padded_dia.reset_launch_counts``)."""
+    read (a ``host_read`` span); one 1-d tensor of predicates is read as it
+    is, with nothing launched (a float tensor's as 1.0 and 0.0).
+    ``read_flags.calls`` counts the reads (zeroed by
+    ``ops.padded_dia.reset_launch_counts``)."""
     read_flags.calls += 1
     with span("host_read"):
-        return (torch.stack(preds) if len(preds) > 1 else preds[0].reshape(1)).tolist()
+        return (torch.stack(preds) if len(preds) > 1 else preds[0].reshape(-1)).tolist()
 
 
 read_flags.calls = 0

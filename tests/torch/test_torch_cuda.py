@@ -20,7 +20,11 @@ Tolerances, by vector dtype (eps = 2⁻²³ for f32, 2⁻⁵² for f64):
 - narrow (int8/bf16) band storage: bitwise equal to the same values
   stored f32 (widening is exact);
 - K5-K7 (complex): y within 8·eps·((|A_re| + |A_im|)·(|u_re| + |u_im|)) per
-  row, the partials within 1e-5 (c64) or 1e-12 (c128) · Σ|w||y|."""
+  row, the partials within 1e-5 (c64) or 1e-12 (c128) · Σ|w||y|;
+- CG's U and P: x', r', p' within 8·eps of the sum of their terms' sizes
+  per entry, rz', rr' and ‖r'‖ within DOT_RTOL of the plain version (both
+  sides may fuse a multiply-add; block partials against one sum), and
+  bitwise the same over grids, eager calls, graph replays and alignments."""
 
 import importlib
 import os
@@ -1342,3 +1346,169 @@ def test_cuda_compiled_mm_parser_on_a_million_entries(cuda, tmp_path):
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
     B = mmread(path)
     assert all(torch.equal(getattr(B, k), getattr(A, k)) for k in ("data", "indices", "indptr"))
+
+
+# --- CG's fused updates U (cg_update) and P (cg_direction) ----------------
+# 1M rows, and a length that is no multiple of the 4-row quad or the tile
+CG_SIZES = {"1m": 1 << 20, "ragged": 1_000_003}
+
+
+def _cg_operands(n, dt, cuda, seed=43):
+    """(x, p, r, q, d⁻¹, rz, pq): random vectors of n rows, d⁻¹ in (0.1, 1),
+    and rz, pq 0-d CUDA tensors as K3 and the previous U leave them."""
+    rng = np.random.default_rng(seed)
+    vec = lambda: torch.as_tensor(rng.standard_normal(n), dtype=dt, device=cuda)
+    x, p, r, q = vec(), vec(), vec(), vec()
+    d = torch.as_tensor(rng.uniform(0.1, 1.0, n), dtype=dt, device=cuda)
+    rz = torch.tensor(0.75, dtype=dt, device=cuda)
+    pq = torch.tensor(2.5, dtype=dt, device=cuda)
+    return x, p, r, q, d, rz, pq
+
+
+def _u_out_of_place(x, p, r, q, d, rz, pq, tol):
+    return fused.cg_update(x, p, r, q, d, rz, pq, tol, torch.empty_like(x),
+                           torch.empty_like(r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_d", [True, False])
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+@pytest.mark.parametrize("size", sorted(CG_SIZES))
+def test_cuda_cg_update_and_direction_match_plain(size, dt, has_d, cuda):
+    """U's x' and r' within 8·eps·(|x| + |α||p|) and 8·eps·(|r| + |α||q|) of
+    the plain version, rz', rr' and ‖r'‖ within DOT_RTOL, its predicates
+    equal (for a tol above and below ‖r'‖); P's p' within
+    8·eps·(|d⁻¹r'| + |β||p|); one count a call each, and the same bits
+    from vectors that start off a 16-byte boundary (one row at a time)."""
+    x, p, r, q, d, rz, pq = _cg_operands(CG_SIZES[size], dt, cuda)
+    d = d if has_d else None
+    alpha, eps = 0.75 / 2.5, EPS[dt]
+    x_r, r_r, st_r = fused.cg_update_plain(x, p, r, q, d, rz, pq, torch.tensor(
+        1.0, dtype=dt, device=cuda), torch.empty_like(x), torch.empty_like(r))
+    norm = float(st_r[2])
+    for tol, above in ((0.5 * norm, 1.0), (2.0 * norm, 0.0)):
+        tol_t = torch.tensor(tol, dtype=dt, device=cuda)
+        before = fused.cg_update.launches
+        xn, rn, st = _u_out_of_place(x, p, r, q, d, rz, pq, tol_t)
+        assert fused.cg_update.launches == before + 1
+        assert st.shape == (6,) and st.dtype == dt
+        assert bool(((xn - x_r).abs() <= 8 * eps * (x.abs() + alpha * p.abs())).all())
+        assert bool(((rn - r_r).abs() <= 8 * eps * (r.abs() + alpha * q.abs())).all())
+        for k in range(3):
+            assert abs(float(st[k]) - float(st_r[k])) <= DOT_RTOL[dt] * abs(float(st_r[k]))
+        assert st[3:].tolist() == [1.0, above, 1.0 - above]
+    if not has_d:
+        assert torch.equal(st[0], st[1])
+    beta = st[0] / rz
+    before = fused.cg_direction.launches
+    pn = fused.cg_direction(p, rn, d, st[0], rz, torch.empty_like(p))
+    assert fused.cg_direction.launches == before + 1
+    z = rn if d is None else rn * d
+    pn_r = fused.cg_direction_plain(p, rn, d, st[0], rz, torch.empty_like(p))
+    assert bool(((pn - pn_r).abs() <= 8 * eps * (z.abs() + beta.abs() * p.abs())).all())
+
+    def off16(t):   # t's values in a buffer one element past a 16-byte boundary
+        if t is None:
+            return None
+        buf = torch.empty(t.numel() + 1, dtype=dt, device=cuda)
+        buf[1:] = t
+        return buf[1:]
+
+    xm, rm = off16(torch.empty_like(x)), off16(torch.empty_like(r))
+    got = fused.cg_update(off16(x), off16(p), off16(r), off16(q), off16(d), rz, pq, tol_t,
+                          xm, rm)
+    assert torch.equal(got[0], xn) and torch.equal(got[1], rn) and torch.equal(got[2], st)
+    pm = fused.cg_direction(off16(p), off16(rn), off16(d), st[0], rz, off16(torch.empty_like(p)))
+    assert torch.equal(pm, pn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [torch.float32, torch.float64])
+def test_cuda_cg_update_sums_are_deterministic_and_replay_in_a_graph(dt, cuda, monkeypatch):
+    """rz' and rr' (and every output of U and P) bitwise the same over 10
+    eager calls, 3 replays of a CUDA graph of U then P, and grids of 1 and
+    7 SMs; U and P in place give the out-of-place bits; the ticket is back
+    at 0; one kernel a call (``chip_smoke.kernel_events``: torch.profiler,
+    or the call's CUDA graph where traces come back empty), named for none
+    of K1-K7."""
+    x, p, r, q, d, rz, pq = _cg_operands(CG_SIZES["ragged"], dt, cuda, seed=44)
+    tol = torch.tensor(1e-3, dtype=dt, device=cuda)
+
+    def step():
+        xn, rn, st = _u_out_of_place(x, p, r, q, d, rz, pq, tol)
+        return xn, rn, st, fused.cg_direction(p, rn, d, st[0], rz, torch.empty_like(p))
+
+    first = step()
+    same = lambda got: all(torch.equal(a, b) for a, b in zip(got, first))
+    for _ in range(10):
+        assert same(step())
+    for sms in (1, 7):
+        monkeypatch.setattr(pd, "_sm_count", lambda index, sms=sms: sms)
+        assert same(step()), sms
+    monkeypatch.undo()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, first))
+    for buf in pd._dot_scratch.values():
+        assert int(buf[:4].view(torch.int32).item()) == 0
+    r_in, p_in = r.clone(), p.clone()
+    xo = torch.empty_like(x)
+    xn, rn, st = fused.cg_update(x, p_in, r_in, q, d, rz, pq, tol, xo, r_in)
+    pn = fused.cg_direction(p_in, r_in, d, st[0], rz, p_in)
+    assert rn is r_in and pn is p_in and same((xn, rn, st, pn))
+    for call, kernel in ((lambda: _u_out_of_place(x, p, r, q, d, rz, pq, tol),
+                          "cg_update_kernel"),
+                         (lambda: fused.cg_direction(p, r, d, rz, rz, torch.empty_like(p)),
+                          "cg_direction_kernel")):
+        names = [name for name, _ in smoke.kernel_events(call)]
+        assert len(names) == 1 and kernel in names[0], names
+        assert not any(f in names[0] for f in ("dia_spmv_kernel", "dia_dots_kernel",
+                                               "orth_norm_kernel", "dia_complex_",
+                                               "dia_spmm_kernel"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pq_value", [-2.5, 0.0, float("nan")])
+def test_cuda_cg_update_breakdown_alpha(pq_value, cuda):
+    """pq ≤ 0 (or NaN): the gate reads 0 and α = rz / 1, as the unfused
+    loop's ``rz / where(pq > 0, pq, 1)``."""
+    x, p, r, q, d, rz, _ = _cg_operands(4096, torch.float32, cuda, seed=45)
+    pq = torch.tensor(pq_value, device=cuda)
+    tol = torch.tensor(1e-3, device=cuda)
+    xn, rn, st = _u_out_of_place(x, p, r, q, d, rz, pq, tol)
+    assert float(st[3]) == 0.0
+    eps = EPS[torch.float32]
+    assert bool(((xn - (x + 0.75 * p)).abs() <= 8 * eps * (x.abs() + 0.75 * p.abs())).all())
+    assert bool(((rn - (r - 0.75 * q)).abs() <= 8 * eps * (r.abs() + 0.75 * q.abs())).all())
+
+
+@pytest.mark.cuda
+def test_cuda_jacobi_cg_runs_k3_u_and_p_once_an_iteration(cuda):
+    """prepare(method="cg", M="jacobi") on the 100³ Poisson: K1 once, and K3,
+    U and P each once per iteration, no other kernel and no other M apply;
+    converged to its true residual; a second solve gives bitwise the same
+    x in as many iterations."""
+    A = problems.poisson3d(100, 100, 100)
+    b = np.random.default_rng(0).standard_normal(A.shape[0]).astype(np.float32)
+    handle = tsp.prepare(A, method="cg", M="jacobi", tol=1e-5, max_iter=1000, device=cuda)
+    pd.reset_launch_counts()
+    x, info = handle(b)
+    torch.cuda.synchronize()
+    n = int(info.iterations)
+    assert info.converged and n > 100
+    assert (pd.dia_spmv.launches, pd.dia_dot.launches) == (1, n)
+    assert fused.cg_update.launches == fused.cg_direction.launches == n
+    assert pd.dia_wdot.launches == fused.orth_norm.launches == 0
+    r = A.matvec(x.cpu()).double().numpy() - b
+    assert np.linalg.norm(r) / np.linalg.norm(b) < 1e-4
+    x2, info2 = handle(b)
+    assert info2.iterations == n and torch.equal(x2, x)

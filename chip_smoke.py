@@ -64,6 +64,16 @@ Phases, each printing lines of its own:
    versions on the card, one count a call, and with d⁻¹ their
    graph-replayed warm and cold times beside their bound and the plain
    versions' (``phase_cg_fused``).
+3c. GS     — the multigrid colour step (``gs_color.color_step``) at the
+   benchmark's HPCG shapes, 256³/128³/64³/32³ in f64 with 27 f64 bands and
+   64³ in f32 with int8 bands: every colour, from a random z and from
+   z = 0, within 32·eps of its plain version on the card, other rows
+   untouched, one count a launch, launches bitwise equal; graph-replayed
+   warm and cold times beside the bound (37·n bytes in f64) and the plain
+   version's; HPCG's cycle at 256³ within 1e-12 of the plain reference
+   (``tests/torch/hpcg_reference.py``); a prepared CG solve with the cycle
+   launching ``steps_per_apply()`` × (its + 1) colour steps
+   (``phase_gs_color``).
 4. slice   — ``solve(A, b, method="bicgstab", M="jacobi")`` on the 100³
    Poisson in f32, with the launch counters reset just before: it must
    converge, reach a true relative residual (f64, scipy) below 1e-3, launch
@@ -289,6 +299,8 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import importlib
+import importlib.util
+import itertools
 import json
 import os
 import statistics
@@ -944,6 +956,195 @@ def phase_cg_fused(dev) -> dict:
             del x, p, r, q, d, xo, ro, po, xn, rn, pn, x_r, r_r, pn_r, z
             torch.cuda.empty_cache()
     log("kernels", kernel="U/P", seconds=f"{time.perf_counter() - t0:.2f}")
+    return out
+
+
+# --- phase 3c, the multigrid colour step (GS) and HPCG's cycle ---------------
+HPCG_SIDES = (256, 128, 64, 32)   # the levels of the benchmark's HPCG cell
+
+
+def hpcg_level(side: int, dt, dev) -> "pd.PaddedDIA":
+    """HPCG's 27-point operator on side³ (26 on the diagonal, −1 to each
+    neighbour inside the grid) as ``optimize()`` lays it out (offsets
+    ascending, f64 bands for f64, int8 for f32), built on the card from the
+    stencil without the CSR's host passes."""
+    n = side ** 3
+    shifts = sorted(itertools.product((-1, 0, 1), repeat=3),
+                    key=lambda s: (s[0] * side + s[1]) * side + s[2])
+    offsets = tuple((a * side + b) * side + c for a, b, c in shifts)
+    band_dt = torch.float64 if dt == torch.float64 else torch.int8
+    h, n_pad = pd.layout(n, offsets, torch.empty((), dtype=dt).element_size())
+    bands = torch.zeros((len(offsets), n_pad), dtype=band_dt, device=dev)
+    for d, shift in enumerate(shifts):
+        if shift == (0, 0, 0):
+            bands[d, :n] = 26
+            continue
+        inside = torch.ones((side,) * 3, dtype=torch.bool, device=dev)
+        for axis, s in enumerate(shift):
+            if s:
+                inside.select(axis, side - 1 if s > 0 else 0).fill_(False)
+        bands[d, :n] = torch.where(inside.reshape(-1), -1, 0).to(band_dt)
+    return pd.PaddedDIA(bands=bands, offsets=offsets, n=n, h=h, shape=(n, n), vdtype=dt)
+
+
+def color_step_bytes(op, grid, color: int, first: bool = False) -> int:
+    """Least bytes of one colour step: the colour's m band rows, all of z
+    and its m rows of r read, its m rows of z written (37·n in f64 with 27
+    bands); from z = 0 its diagonal and r read and z written, m rows each."""
+    from sprsolve_tpu_torch.ops import gs_color
+
+    m = int(np.prod(gs_color.color_extent(grid, color)))
+    b, v = op.bands.element_size(), torch.empty((), dtype=op.vdtype).element_size()
+    n = int(np.prod(grid))
+    return (b + 2 * v) * m if first else len(op.offsets) * b * m + v * (n + 2 * m)
+
+
+def check_color_steps(tag, op, grid, dev) -> None:
+    """Every colour, from a random z and from z = 0, against the plain
+    version on the card: the colour's rows within 32·eps of |z| + (|r| +
+    |A|·|z|)/a_ii (27 fused products against the plain sum: 7e-15 in f64),
+    every other row, the halo and the tail bitwise unchanged, one count a
+    launch, a second launch bitwise the first."""
+    from sprsolve_tpu_torch.ops import gs_color
+
+    dt, diag = op.vdtype, op.offsets.index(0)
+    eps = torch.finfo(dt).eps
+    g = torch.Generator(device=dev).manual_seed(int(np.prod(grid)))
+    absA = pd.PaddedDIA(bands=op.bands.to(dt).abs(), offsets=op.offsets, n=op.n, h=op.h,
+                        shape=op.shape, vdtype=dt)
+    worst = 0.0
+    for first in (False, True):
+        for color in range(gs_color.COLORS):
+            z = op.pad_vec(torch.randn(op.n, generator=g, device=dev, dtype=dt))
+            if first:
+                z.zero_()
+            r = op.pad_vec(torch.randn(op.n, generator=g, device=dev, dtype=dt))
+            want = gs_color.color_step_plain(op.bands, z.clone(), r, op.offsets, op.h, grid,
+                                             color, diag, first)
+            n0 = gs_color.color_step.launches
+            got = gs_color.color_step(op.bands, z.clone(), r, op.offsets, op.h, grid, color,
+                                      diag, first)
+            again = gs_color.color_step(op.bands, z.clone(), r, op.offsets, op.h, grid,
+                                        color, diag, first)
+            torch.cuda.synchronize()
+            if gs_color.color_step.launches != n0 + 2:
+                raise AssertionError(f"{tag}: not one count a colour step")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{tag} colour {color}: two launches differ")
+            scale = z.abs() + (r.abs() + absA.matvec(z.abs())) / 26.0
+            err = float(((got - want).abs() / scale.clamp_min(torch.finfo(dt).tiny)).max())
+            worst = max(worst, err / eps)
+            if err > 32 * eps:
+                raise AssertionError(f"{tag} colour {color} first={first}: {err / eps:.1f} eps")
+            moved = torch.zeros(grid, dtype=torch.bool, device=dev)
+            moved[(color >> 2) & 1::2, (color >> 1) & 1::2, color & 1::2] = True
+            moved = op.pad_vec(moved.reshape(-1).to(dt)) > 0
+            if not torch.equal(got[~moved], z[~moved]):
+                raise AssertionError(f"{tag} colour {color}: a row outside the colour moved")
+            del z, r, want, got, again, scale, moved
+    log("gs", set=tag, n=op.n, result="every colour within 32 eps of plain; other rows, "
+        "halo and tail bitwise; one count a launch; two launches bitwise equal",
+        worst_eps=f"{worst:.2f}")
+
+
+def phase_gs_color(dev) -> dict:
+    """Phase 3c: the Gauss-Seidel colour step (``gs_color.color_step``,
+    ``gs_color_step_kernel``) at the HPCG cell's shapes, the 256³, 128³,
+    64³ and 32³ levels in f64 with 27 f64 bands and 64³ in f32 with int8
+    bands, against its plain version on the card (``check_color_steps``);
+    its graph-replayed warm (``ms``) and cold (``cold_ms``) times on each
+    f64 level beside its bound (``color_step_bytes`` over 3.35 TB/s) and
+    the plain version's; then HPCG's cycle on the four f64 levels: one
+    apply at 256³ within 1e-12 of the plain reference
+    (``tests/torch/hpcg_reference.py``), and one prepared CG solve to 1e-7,
+    the counters zeroed just before it, launching ``steps_per_apply()`` ×
+    (iterations + 1) colour steps, K1 3 × (iterations + 1) + 1 times and K3
+    once an iteration.  Returns the times by level."""
+    from sprsolve_tpu_torch.ops import gs_color
+
+    t0 = time.perf_counter()
+    out = {}
+    ops = [hpcg_level(side, torch.float64, dev) for side in HPCG_SIDES]
+    for side, op in zip(HPCG_SIDES, ops):
+        grid = (side,) * 3
+        check_color_steps(f"hpcg{side} f64", op, grid, dev)
+        g = torch.Generator(device=dev).manual_seed(side)
+        z = op.pad_vec(torch.randn(op.n, generator=g, device=dev, dtype=torch.float64))
+        r = op.pad_vec(torch.randn(op.n, generator=g, device=dev, dtype=torch.float64))
+        args = (op.offsets, op.h, grid, 0, op.offsets.index(0))
+        step = lambda bands, z, r: gs_color.color_step(bands, z, r, *args)
+        first = lambda bands, z, r: gs_color.color_step(bands, z, r, *args, first=True)
+        plain = lambda bands, z, r: gs_color.color_step_plain(bands, z, r, *args)
+        bms = color_step_bytes(op, grid, 0) / HBM_BYTES_PER_S * 1e3
+        st = {"ms": device_ms(lambda: step(op.bands, z, r)),
+              "cold_ms": cold_device_ms(step, (op.bands, z, r)),
+              "plain_ms": device_ms(lambda: plain(op.bands, z, r), inner=5),
+              "first_ms": device_ms(lambda: first(op.bands, z, r)),
+              "bound_ms": bms,
+              "first_bound_ms": color_step_bytes(op, grid, 0, True) / HBM_BYTES_PER_S * 1e3}
+        out[side] = st
+        log("gs", set=f"hpcg{side} f64", kernel="gs_color_step", timing="graph-replayed",
+            n=op.n, **{k: f"{v:.5f}" for k, v in st.items()},
+            share_of_bound=f"{bms / st['ms']:.3f}",
+            cold_share_of_bound=f"{bms / st['cold_ms']:.3f}")
+        del z, r
+        torch.cuda.empty_cache()
+    check_color_steps("hpcg64 f32 int8", hpcg_level(64, torch.float32, dev), (64,) * 3, dev)
+
+    grids = [(side,) * 3 for side in HPCG_SIDES]
+    mg = spt.InjectionMGPrecond.from_levels(ops, grids, device=dev)
+    spec = importlib.util.spec_from_file_location(
+        "hpcg_reference", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                       "tests", "torch", "hpcg_reference.py"))
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    n = ops[0].n
+    r = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(SEED + 21),
+                    device=dev, dtype=torch.float64)
+    pd.reset_launch_counts()
+    z = mg.matvec(r)
+    torch.cuda.synchronize()
+    per_level = mg.steps_per_apply()
+    if per_level != (30, 30, 30, 15) or gs_color.color_step.launches != sum(per_level) or \
+            pd.dia_spmv.launches != len(ops) - 1:
+        raise AssertionError(f"one apply: {gs_color.color_step.launches} colour steps, "
+                             f"{pd.dia_spmv.launches} K1, per level {per_level}")
+    want = ref.mg_apply({"grid": list(grids[0])}, r, len(ops))
+    rel = float((z - want).norm() / want.norm())
+    rel_max = float((z - want).abs().max() / want.abs().max())
+    if rel > 1e-12:
+        raise AssertionError(f"the cycle at 256³: {rel:.3e} from the plain reference")
+    del z, want
+    apply_ms = median_ms(lambda: mg.matvec(r), reps=3, inner=3)
+    log("gs", check="hpcg256 M·r against the plain reference cycle", rel_norm=f"{rel:.3e}",
+        rel_max=f"{rel_max:.3e}", steps_per_apply=",".join(map(str, per_level)),
+        apply_ms=f"{apply_ms:.4f}")
+
+    handle = spt.prepare(ops[0], method="cg", M=mg, tol=1e-7, max_iter=1000, device=dev)
+    b = torch.randn(n, generator=torch.Generator(device=dev).manual_seed(SEED + 22),
+                    device=dev, dtype=torch.float64)
+    handle(b)
+    torch.cuda.synchronize()
+    pd.reset_launch_counts()
+    t = time.perf_counter()
+    x, info = handle(b)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t
+    its, counts, steps = int(info.iterations), launch_counts(), gs_color.color_step.launches
+    # K1: the restriction's residual on each level but the coarsest an
+    # apply, and CG's r₀ = b − A·x₀ once; K3: A·p with its dot an iteration
+    if not info.converged or steps != sum(per_level) * (its + 1) or \
+            counts["dia_spmv"] != (len(ops) - 1) * (its + 1) + 1 or counts["dia_dot"] != its:
+        raise AssertionError(f"the HPCG solve: converged {info.converged}, {its} its, "
+                             f"{steps} colour steps, counts {counts}")
+    res = float((ops[0].unpad_vec(ops[0].matvec(ops[0].pad_vec(x))) - b).norm() / b.norm())
+    log("gs", check="hpcg256 prepared CG with the cycle, counters zeroed before",
+        iterations=its, colour_steps=steps, per_apply=sum(per_level),
+        k1=counts["dia_spmv"], k3=counts["dia_dot"], true_rel_residual=f"{res:.3e}",
+        solve_s=f"{solve_s:.4f}")
+    del ops, mg, handle, x, b, r
+    torch.cuda.empty_cache()
+    log("gs", kernel="gs_color_step", seconds=f"{time.perf_counter() - t0:.2f}")
     return out
 
 
@@ -4817,6 +5018,7 @@ def main() -> int:
 
     errs, _, stats = phase_kernels(dev)
     phase_cg_fused(dev)
+    phase_gs_color(dev)
     phase_spmm(dev, errs, stats)
     phase_complex_kernels(dev, errs, stats)
     launches = phase_slice(dev)

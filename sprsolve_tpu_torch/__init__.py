@@ -15,7 +15,8 @@ CS-MINRES, complex BiCGStab, MINRES and GMRES) — plus block CG and
 the exact Gauss-Seidel sweep (on the host by design) and the multicolor
 one; the preconditioners: Jacobi, multicolor GS/SOR/SSOR, Chebyshev,
 block-Jacobi, ILU(0) and IC(0), the multigrid V-cycle (``GridMGPrecond``,
-``M="amg"``) and the inner-solve ``InnerSolvePrecond``, a flat one relayed
+``M="amg"``), HPCG's V-cycle with its colour Gauss-Seidel hand kernel
+(``InjectionMGPrecond``) and the inner-solve ``InnerSolvePrecond``, a flat one relayed
 onto a padded operator; and every layout of ``optimize()``: padded DIA,
 RCM-reordered DIA (``Reordered``), BSR and ComplexBSR, the band+outlier
 ``HybridDIA`` and the warned ELL, on a compiled host toolkit (``native``,
@@ -40,7 +41,7 @@ from .errors import SolveInfo, SolverError, Status
 from .ops.operator import DiagonalOperator, IdentityOperator, LinearOperator, ShiftedOperator
 from .ops.hybrid import HybridDIA
 from .ops.optimize import optimize
-from .multigrid import GridMGPrecond
+from .multigrid import GridMGPrecond, InjectionMGPrecond
 from .ops.padded_dia import ComplexPaddedDIA, PaddedDIA
 from .precond import (
     BlockJacobiPrecond,
@@ -169,6 +170,7 @@ __all__ = [
     "RelayedPrecond",
     "InnerSolvePrecond",
     "GridMGPrecond",
+    "InjectionMGPrecond",
     "gershgorin_bounds",
     "optimize",
     "HybridDIA",

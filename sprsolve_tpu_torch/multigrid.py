@@ -1,4 +1,5 @@
-"""Geometric (aggregation) multigrid V-cycle preconditioner.
+"""Multigrid V-cycle preconditioners: the geometric (aggregation) one of the
+JAX package, and HPCG's (:class:`InjectionMGPrecond`, at the end).
 
 Counterpart of ``sprsolve_tpu/multigrid.py``:
 
@@ -226,3 +227,187 @@ class FlatViewOperator:
         if hasattr(self.op, "matmat") and hasattr(self.op, "pad_block"):
             return self.op.unpad_block(self.op.matmat(self.op.pad_block(X)))
         return torch.stack([self.matvec(X[:, j]) for j in range(X.shape[1])], dim=1)
+
+
+# --- HPCG's V-cycle: generated levels, injection, colour Gauss-Seidel -------
+def halved(grid) -> Tuple[int, ...]:
+    """HPCG's coarse grid (``GenerateCoarseProblem``): each side halved, the
+    coarse point i on the fine point 2i. An odd side keeps its last point,
+    ⌈n/2⌉ (HPCG itself takes even sides only)."""
+    return tuple((int(g) + 1) // 2 for g in grid)
+
+
+def _check_couplings(op, grid) -> None:
+    """Raise unless every nonzero of the padded operator ``op`` couples
+    points of ``grid`` at most 1 apart in each coordinate (the 27-point
+    pattern, or inside it), so that the parity colours never couple; and
+    unless the diagonal is nonzero on every row. Runs where the bands are."""
+    from .errors import IncompatibleMatrixFormat, ZeroDiagonalElem
+
+    nx, ny, nz = grid
+    n = nx * ny * nz
+    if 0 not in op.offsets or bool((op.bands[op.offsets.index(0), :n] == 0).any()):
+        raise ZeroDiagonalElem("a multigrid level has a zero on its diagonal")
+    i = torch.arange(n, device=op.device)
+    coords = lambda k: (k // (ny * nz), (k // nz) % ny, k % nz)
+    ci = coords(i)
+    for d, off in enumerate(op.offsets):
+        j = i + off
+        cj = coords(j.clamp(0, n - 1))
+        far = (j < 0) | (j >= n)
+        for a, b in zip(ci, cj):
+            far |= (a - b).abs() > 1
+        if bool((far & (op.bands[d, :n] != 0)).any()):
+            raise IncompatibleMatrixFormat(
+                f"offset {off} couples points of the grid {tuple(grid)} more than 1 "
+                "apart: the parity colours of a Gauss-Seidel step would couple")
+
+
+def _grid_view(v: torch.Tensor, h: int, grid) -> torch.Tensor:
+    """The body of the padded vector ``v`` as a (nx, ny, nz) view."""
+    return v[h: h + grid[0] * grid[1] * grid[2]].view(*grid)
+
+
+def _injected(v: torch.Tensor, h: int, grid) -> torch.Tensor:
+    """The entries of ``v`` at the fine points (2i, 2j, 2k), a strided view."""
+    return _grid_view(v, h, grid)[::2, ::2, ::2]
+
+
+@dataclasses.dataclass(frozen=True)
+class InjectionMGPrecond:
+    """HPCG's multigrid V-cycle (HPCG 3.1 ``ComputeMG``) on the kernels'
+    padded layout. Build with :meth:`from_levels`.
+
+    - the levels are the caller's operators on grids whose sides halve
+      (:func:`halved`), each generated, not a Galerkin product, each a
+      :class:`~sprsolve_tpu_torch.ops.padded_dia.PaddedDIA`;
+    - restriction by injection: r_c = (r − A·z) at the fine points
+      (2i, 2j, 2k) (A·z one K1); prolongation z[2i, 2j, 2k] += z_c, its
+      transpose;
+    - the smoother is symmetric Gauss-Seidel in the 8 parity colours
+      (:mod:`~sprsolve_tpu_torch.ops.gs_color`, one hand-kernel launch a
+      colour step): the colours forward, then backward, the last colour
+      once (15 steps); one SymGS before the coarse correction and one after
+      it, as HPCG fixes them, one SymGS alone on the coarsest level, no
+      coarse solve and no correction scale. The first step from z = 0 skips its
+      SpMV. A colour with no point on a level's grid is left out.
+
+    With the colours in a palindrome and R = Pᵀ the cycle is a symmetric
+    linear map for a symmetric A, so CG takes it. ``A`` is the finest
+    level: :func:`~sprsolve_tpu_torch.prepare` on that operator uses the
+    cycle as it is (``M.A is op``); it takes vectors in that level's padded
+    layout, or flat ones (then padded and unpadded around the cycle)."""
+
+    ops: tuple            # per-level PaddedDIA, fine → coarse
+    grids: tuple          # per-level (nx, ny, nz)
+    diags: tuple          # per-level index of the band at offset 0
+    orders: tuple         # per-level colour order of one SymGS
+
+    @property
+    def A(self):
+        return self.ops[0]
+
+    @property
+    def shape(self):
+        return self.ops[0].shape
+
+    @property
+    def device(self) -> torch.device:
+        return self.ops[0].device
+
+    @staticmethod
+    def from_levels(levels, grids, *, device=None) -> "InjectionMGPrecond":
+        """The cycle on ``levels``, fine first: each a CSR, laid out by
+        :func:`~sprsolve_tpu_torch.optimize` on ``device`` (default: the
+        CUDA device), or an operator already laid out, used as it is. ``grids[l]`` is level l's (nx, ny, nz), its rows x-major with z
+        fastest, and ``grids[l + 1]`` must be ``halved(grids[l])``. Raises
+        ValueError for grids that do not halve or a count of grids that
+        differs from the levels',
+        :class:`~sprsolve_tpu_torch.errors.IncompatibleMatrixFormat` for a
+        level that is no ``PaddedDIA`` of its grid's size and the first
+        level's dtype or that couples points more than 1 apart, and
+        :class:`~sprsolve_tpu_torch.errors.ZeroDiagonalElem` for a zero on
+        a diagonal."""
+        from .errors import IncompatibleMatrixFormat
+        from .ops.gs_color import COLORS, color_extent
+        from .ops.optimize import default_device, optimize
+        from .ops.padded_dia import PaddedDIA
+        from .sparse.containers import CSR
+
+        levels, grids = list(levels), [tuple(int(g) for g in grid) for grid in grids]
+        if not levels or len(levels) != len(grids):
+            raise ValueError(f"{len(levels)} levels and {len(grids)} grids")
+        if any(len(g) != 3 or min(g) < 1 for g in grids):
+            raise ValueError(f"grids {grids}: each must be three positive sides")
+        for fine, coarse in zip(grids, grids[1:]):
+            if coarse != halved(fine):
+                raise ValueError(f"grid {coarse} is not {fine} halved ({halved(fine)})")
+        device = default_device(device)
+        ops = []
+        for lvl, grid in zip(levels, grids):
+            op = optimize(lvl, device=device) if isinstance(lvl, CSR) else lvl
+            if not isinstance(op, PaddedDIA):
+                raise IncompatibleMatrixFormat(
+                    f"a level laid out as {type(op).__name__}; the colour steps take a "
+                    "PaddedDIA (at most 32 diagonals, f32 or f64)")
+            if op.n != grid[0] * grid[1] * grid[2] or op.shape[0] != op.shape[1]:
+                raise IncompatibleMatrixFormat(
+                    f"a level of shape {op.shape} on the grid {grid}")
+            if ops and (op.vdtype != ops[0].vdtype or op.device != ops[0].device):
+                raise IncompatibleMatrixFormat("the levels differ in dtype or device")
+            _check_couplings(op, grid)
+            ops.append(op)
+        orders = []
+        for grid in grids:
+            fwd = tuple(c for c in range(COLORS) if min(color_extent(grid, c)) > 0)
+            orders.append(fwd + fwd[::-1][1:])   # a repeat of the last changes nothing
+        return InjectionMGPrecond(
+            ops=tuple(ops), grids=tuple(grids),
+            diags=tuple(op.offsets.index(0) for op in ops), orders=tuple(orders))
+
+    def steps_per_apply(self) -> Tuple[int, ...]:
+        """The colour steps (kernel launches) one apply runs on each level:
+        two SymGS on each level but the coarsest, one there."""
+        last = len(self.ops) - 1
+        return tuple(len(order) * (1 if lvl == last else 2)
+                     for lvl, order in enumerate(self.orders))
+
+    def _symgs(self, lvl: int, z: torch.Tensor, r: torch.Tensor, zero: bool) -> None:
+        from .ops.gs_color import color_step
+
+        op = self.ops[lvl]
+        for k, color in enumerate(self.orders[lvl]):
+            color_step(op.bands, z, r, op.offsets, op.h, self.grids[lvl], color,
+                       self.diags[lvl], first=zero and k == 0)
+
+    def _cycle(self, lvl: int, r: torch.Tensor) -> torch.Tensor:
+        op, grid = self.ops[lvl], self.grids[lvl]
+        z = torch.zeros_like(r)
+        if lvl == len(self.ops) - 1:
+            with span("mg_smooth"):
+                self._symgs(lvl, z, r, zero=True)
+            return z
+        with span("mg_smooth"):
+            self._symgs(lvl, z, r, zero=True)
+        cop, cgrid = self.ops[lvl + 1], self.grids[lvl + 1]
+        with span("mg_transfer"):
+            rc = torch.zeros(cop.padded_len, dtype=r.dtype, device=r.device)
+            torch.sub(_injected(r, op.h, grid), _injected(op.matvec(z), op.h, grid),
+                      out=_grid_view(rc, cop.h, cgrid))
+        zc = self._cycle(lvl + 1, rc)
+        with span("mg_transfer"):
+            _injected(z, op.h, grid).add_(_grid_view(zc, cop.h, cgrid))
+        with span("mg_smooth"):
+            self._symgs(lvl, z, r, zero=False)
+        return z
+
+    def matvec(self, r: torch.Tensor) -> torch.Tensor:
+        with span("precond"):
+            op = self.ops[0]
+            if r.shape[0] == op.padded_len:
+                return self._cycle(0, r)
+            return op.unpad_vec(self._cycle(0, op.pad_vec(r)))
+
+    def matvec_dot(self, r: torch.Tensor):
+        z = self.matvec(r)
+        return z, conj_dot(r, z)

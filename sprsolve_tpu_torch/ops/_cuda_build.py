@@ -84,6 +84,12 @@ _SIGNATURES = {
     ),
     # vcode, r, dinv, p, rz_next, rz, p_out, grid, n, stream
     "sprsolve_cg_direction": ([_I32, _P, _P, _P, _P, _P, _P, _I32, _I64, _P], _I32),
+    # vcode, bcode, bands, z, r, n_pad, h, nx, ny, nz, color, offsets, nd, diag,
+    # first, stream
+    "sprsolve_gs_color_step": (
+        [_I32, _I32, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I32, _P, _I32, _I32, _I32,
+         _P], _I32
+    ),
     # vcode, re_code, im_code, bre, bim, x, y, n_pad, h, offsets, nd, stream
     "sprsolve_dia_complex_spmv": (
         [_I32, _I32, _I32, _P, _P, _P, _P, _I64, _I64, _P, _I32, _P], _I32

@@ -13,11 +13,13 @@ same matrices entry for entry:
   with the manufactured solution x[vid] = row + col·i
   (``tests/test_complex_solve.rs:95-214``, ``tests/test_complex_solve2.rs:35-96``);
 - :func:`poisson3d` — the 7-point 3-D Poisson operator (interior unknowns);
-- :func:`convection_diffusion3d` — its nonsymmetric upwind variant.
+- :func:`convection_diffusion3d` — its nonsymmetric upwind variant;
+- :func:`hpcg27` — HPCG's 27-point operator (``GenerateProblem``).
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Tuple
 
 import numpy as np
@@ -188,6 +190,28 @@ def convection_diffusion3d(nx: int, ny: int, nz: int, peclet: float = 20.0,
     (flow in +x): :func:`poisson3d` with ``peclet`` added to the diagonal and
     subtracted from the −x coupling. Banded and nonsymmetric."""
     return _stencil7(nx, ny, nz, float(peclet), dtype, device)
+
+
+def hpcg27(nx: int, ny: int, nz: int, dtype=np.float64, device=None) -> CSR:
+    """HPCG's 27-point operator on interior unknowns (HPCG 3.1
+    ``GenerateProblem``): 26 on the diagonal, −1 to each of the 26
+    neighbours inside the grid; rows x-major, z fastest."""
+    n = nx * ny * nz
+    idx = np.arange(n, dtype=np.int64)
+    coords = (idx // (nz * ny), (idx // nz) % ny, idx % nz)
+    rows, cols, vals = [idx], [idx], [np.full(n, 26.0, dtype=dtype)]
+    for shift in itertools.product((-1, 0, 1), repeat=3):
+        if shift == (0, 0, 0):
+            continue
+        mask = np.ones(n, dtype=bool)
+        for c, s, side in zip(coords, shift, (nx, ny, nz)):
+            mask &= (c + s >= 0) & (c + s < side)
+        delta = (shift[0] * ny + shift[1]) * nz + shift[2]
+        rows.append(idx[mask])
+        cols.append(idx[mask] + delta)
+        vals.append(np.full(int(mask.sum()), -1.0, dtype=dtype))
+    return _coo_to_csr(np.concatenate(rows), np.concatenate(cols), np.concatenate(vals),
+                       n, dtype, device)
 
 
 def _stencil7(nx: int, ny: int, nz: int, c: float, dtype, device) -> CSR:

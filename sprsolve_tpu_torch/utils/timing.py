@@ -12,7 +12,10 @@ Counterpart of ``sprsolve_tpu/utils/timing.py``:
   :func:`spans_on` turns them on (off by default): ``solve`` around each
   prepared solve, ``host_read`` around each read of a solver's predicates
   (:func:`~sprsolve_tpu_torch.solvers.common.read_flags`), ``precond``
-  around each preconditioner apply.
+  around each preconditioner apply, and inside the multigrid V-cycle's
+  (:class:`~sprsolve_tpu_torch.multigrid.InjectionMGPrecond`) ``mg_smooth``
+  around a level's Gauss-Seidel sweeps and ``mg_transfer`` around each
+  restriction and prolongation.
 - :func:`trace` — a ``torch.profiler`` context that writes a Chrome trace,
   the program's spans in it.
 

@@ -74,6 +74,17 @@ Phases, each printing lines of its own:
    (``tests/torch/hpcg_reference.py``); a prepared CG solve with the cycle
    launching ``steps_per_apply()`` × (its + 1) colour steps
    (``phase_gs_color``).
+3d. A/B    — CS-MINRES's fused updates (``fused.csm_lanczos``,
+   ``fused.csm_update``) on flat complex vectors of the 100³ (c64, c128)
+   and 256³ (c64) damped Poisson's padded length, with and without d⁻¹:
+   v', w', p', x within Y_RTOL of their plain versions on the card, A's
+   Givens scalars within 10·DOT_RTOL, the predicates equal, one count a
+   call; at 256³ c64 with d⁻¹ their graph-replayed warm and cold times
+   beside their bound ((5·8 + 4)·n and 10·8·n bytes) and the plain
+   versions'; one prepared CS-MINRES solve with 1/|d| on the damped 100³
+   Poisson launching K5 once and K6, A and B its + 1 times each, timed
+   beside the unfused loop, whose count must lie within ``parity_band``
+   (``phase_csm_fused``).
 4. slice   — ``solve(A, b, method="bicgstab", M="jacobi")`` on the 100³
    Poisson in f32, with the launch counters reset just before: it must
    converge, reach a true relative residual (f64, scipy) below 1e-3, launch
@@ -309,6 +320,7 @@ import sys
 import tempfile
 import time
 import warnings
+from unittest import mock
 
 import numpy as np
 import torch
@@ -957,6 +969,180 @@ def phase_cg_fused(dev) -> dict:
             torch.cuda.empty_cache()
     log("kernels", kernel="U/P", seconds=f"{time.perf_counter() - t0:.2f}")
     return out
+
+
+# --- phase 3d, CS-MINRES's fused updates A and B ----------------------------
+def csm_lanczos_bytes(n: int, itemsize: int, has_d: bool = True) -> int:
+    """Bytes A moves on n complex rows of real ``itemsize``: y, v_old, v (and
+    d⁻¹) read once, v' (and w') written once ((5·8 + 4)·n in c64 with d⁻¹)."""
+    return (8 + 3 * has_d) * n * itemsize
+
+
+def csm_update_bytes(n: int, itemsize: int, has_d: bool = True) -> int:
+    """Bytes B moves on n complex rows: w, p, p_old, x, v' (and w') read
+    once, p', x, v' (and w') written once (10·8·n in c64 with d⁻¹)."""
+    return (16 + 4 * has_d) * n * itemsize
+
+
+def csm_start_state(dt, dev):
+    """A state of generic scalars for A (β, c_old, c, s_old, s, η, the
+    residual, β₁) whose repeated application stays bounded on vectors of
+    norm 0.1, and B's coefficients with ts = 1 (v' and w' unchanged)."""
+    st = fused.csm_state(*(torch.tensor(v, dtype=dt.to_real(), device=dev)
+                           for v in (0.05, 1.0, 0.5, 1.0)))
+    for k, v in ((fused.CSM_C_OLD, (0.8, -0.1)), (fused.CSM_C, (0.6, 0.2)),
+                 (fused.CSM_S_OLD, (0.5,)), (fused.CSM_S, (0.3,)), (fused.CSM_ETA, (0.7, 0.3)),
+                 (fused.CSM_R2, (0.3, 0.1)), (fused.CSM_R3, (0.5,)), (fused.CSM_R1_INV, (0.5,)),
+                 (fused.CSM_TS, (1.0,)), (fused.CSM_XC, (0.01, 0.02))):
+        st[k:k + len(v)] = torch.tensor(v, dtype=st.dtype)
+    return st
+
+
+def check_csm_state(tag, got, want, rtol) -> None:
+    """A's scalars within 10·rtol of the plain version's, each relative to
+    its own size (β_next, r1_inv and the rest come from the sums, whose
+    rtol is DOT_RTOL); the predicates equal."""
+    for k in range(fused.CSM_FLAGS):
+        g, w = float(got[k]), float(want[k])
+        if not abs(g - w) <= 10 * rtol * max(abs(w), 1e-30):
+            raise AssertionError(f"{tag}: state slot {k} {g!r} against {w!r}")
+    if got[fused.CSM_FLAGS:].tolist() != want[fused.CSM_FLAGS:].tolist():
+        raise AssertionError(f"{tag}: predicates {got[fused.CSM_FLAGS:].tolist()} against "
+                             f"{want[fused.CSM_FLAGS:].tolist()}")
+
+
+def phase_csm_fused(dev) -> dict:
+    """Phase 3d: A (``fused.csm_lanczos``) and B (``fused.csm_update``) on
+    flat complex vectors of the 100³ (c64, c128) and the 256³ (c64) damped
+    Poisson's padded length, with d⁻¹ and without: v', w', p', x within
+    Y_RTOL of their plain versions on the card, A's scalars within
+    10·DOT_RTOL, the predicates equal, one count a call; then at 256³ c64
+    with d⁻¹ their graph-replayed warm and cold times beside their bound
+    and the plain versions' time; and one prepared CS-MINRES solve with
+    1/|d| on the damped 100³ Poisson: K5 once, K6, A and B its + 1 times
+    each, nothing else, beside the same solve on the unfused loop. Returns
+    the times by (kernel, grid, dtype)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    out = {}
+    for grid, dt in ((GRID, torch.complex64), (GRID, torch.complex128),
+                     (256, torch.complex64)):
+        rdt, isz = dt.to_real(), torch.empty((), dtype=dt.to_real()).element_size()
+        offsets = (-grid * grid, -grid, -1, 0, 1, grid, grid * grid)
+        h, n_pad = pd.layout(grid ** 3, offsets, 2 * isz)
+        n = n_pad + 2 * h
+        scale = 0.1 / n ** 0.5   # vectors of norm 0.1: repeated calls stay bounded
+        vec = lambda: torch.randn(n, generator=gen, device=dev, dtype=dt) * scale
+        y, vold, v, w, p, pold, x = (vec() for _ in range(7))
+        d = torch.rand(n, generator=gen, device=dev, dtype=rdt) * 0.9 + 0.1
+        alpha = torch.tensor(0.3 + 0.15j, dtype=dt, device=dev)
+        eps = float(torch.finfo(rdt).eps)
+        tag0 = f"damped{grid} {str(dt).replace('torch.', '')}"
+        for dinv in (d, None):
+            tag = tag0 + (" d" if dinv is not None else " no d")
+            st0 = csm_start_state(dt, dev)
+            st_r, st_k = st0.clone(), st0.clone()
+            vn_r, wn_r = fused.csm_lanczos_plain(y, vold.clone(), v, dinv, alpha, st_r,
+                                                 torch.empty_like(y),
+                                                 torch.finfo(rdt).eps)
+            counts = fused.csm_lanczos.launches, fused.csm_update.launches
+            vn, wn = fused.csm_lanczos(y, vold.clone(), v, dinv, alpha, st_k,
+                                       torch.empty_like(y))
+            vscale = (y.abs() + 0.05 * vold.abs() + alpha.abs() * v.abs()).max()
+            check_close(f"{tag} A v'", vn, vn_r, vscale, Y_RTOL[rdt])
+            if dinv is not None:
+                check_close(f"{tag} A w'", wn, wn_r, vscale, Y_RTOL[rdt])
+            check_csm_state(f"{tag} A", st_k, st_r, DOT_RTOL[rdt])
+            # B from the plain A's state and vectors, on both sides
+            ins = (w if dinv is not None else v, p, pold, x, vn_r,
+                   wn_r if dinv is not None else None)
+            got = [None if t is None else t.clone() for t in ins]
+            want = [None if t is None else t.clone() for t in ins]
+            fused.csm_update_plain(*want, st_r)
+            fused.csm_update(*got, st_r)
+            if (fused.csm_lanczos.launches, fused.csm_update.launches) != (
+                    counts[0] + 1, counts[1] + 1):
+                raise AssertionError(f"{tag}: A/B not one count a call")
+            pscale = (ins[0].abs() + ins[1].abs() + ins[2].abs()).max()
+            for k, what in ((2, "p'"), (3, "x"), (4, "v'"), (5, "w'")):
+                if got[k] is not None:
+                    check_close(f"{tag} B {what}", got[k], want[k],
+                                pscale + ins[k].abs().max(), 4 * Y_RTOL[rdt])
+            log("kernels", set=tag, kernels="A/B", n=n, result="within Y_RTOL/DOT_RTOL of "
+                "plain; predicates equal; one count a call")
+            if dinv is None or grid != 256:
+                continue
+            sa, sb = csm_start_state(dt, dev), csm_start_state(dt, dev)
+            wa, wb = torch.empty_like(y), wn_r.clone()
+            a_call = lambda y, vold, v, d, wo: fused.csm_lanczos(y, vold, v, d, alpha, sa, wo)
+            eps_t = torch.tensor(eps, dtype=rdt, device=dev)
+            a_plain = lambda y, vold, v, d, wo: fused.csm_lanczos_plain(y, vold, v, d, alpha,
+                                                                        sa, wo, eps_t)
+            b_call = lambda *t: fused.csm_update(*t, sb)
+            b_plain = lambda *t: fused.csm_update_plain(*t, sb)
+            calls = {   # name → (kernel, plain version, operands, bytes moved)
+                "csm_lanczos": (a_call, a_plain, (y, vold.clone(), v, d, wa),
+                                csm_lanczos_bytes(n, isz)),
+                "csm_update": (b_call, b_plain, (w, p, pold.clone(), x.clone(), vn_r.clone(),
+                                                 wb), csm_update_bytes(n, isz)),
+            }
+            for name, (kern, plain, ops, moved) in calls.items():
+                bms = moved / HBM_BYTES_PER_S * 1e3
+                st_k = {"ms": device_ms(lambda: kern(*ops)), "cold_ms": cold_device_ms(kern, ops),
+                        "plain_ms": device_ms(lambda: plain(*ops)),
+                        "wrapper_ms": median_ms(lambda: kern(*ops)), "bound_ms": bms}
+                out[(name, grid, dt)] = st_k
+                log("kernels", set=tag, kernel=name, timing="graph-replayed", n=n,
+                    **{k: f"{v:.5f}" for k, v in st_k.items()},
+                    share_of_bound=f"{bms / st_k['ms']:.3f}",
+                    cold_share_of_bound=f"{bms / st_k['cold_ms']:.3f}")
+            if not (bool(torch.isfinite(sa).all()) and bool(torch.isfinite(wa).all())):
+                raise AssertionError(f"{tag}: the timed calls left non-finite values")
+        del y, vold, v, w, p, pold, x, d, vn, wn, vn_r, wn_r, got, want, ins
+        torch.cuda.empty_cache()
+    log("kernels", kernel="A/B", seconds=f"{time.perf_counter() - t0:.2f}")
+    check_csm_prepared(dev)
+    return out
+
+
+def check_csm_prepared(dev) -> None:
+    """One prepared CS-MINRES solve with 1/|d| on the damped 100³ Poisson
+    (tol 1e-4): converged below a true residual of 1e-3, K5 once, K6, A and
+    B its + 1 times each, no other kernel; then the median of 3 solves on
+    the fused route and on the unfused loop (the route refused), whose count
+    sums in another order on the card and must lie within
+    :func:`parity_band` of it (64 against 66 its at tol 1e-4)."""
+    csm = importlib.import_module("sprsolve_tpu_torch.solvers.cs_minres")
+    arrays = damped_csr_arrays()
+    A = CSR.from_arrays(*arrays, shape=(GRID ** 3,) * 2)
+    r = np.random.default_rng(SEED + 22).standard_normal(A.shape[0]).astype(np.float32)
+    b = torch.as_tensor((r + 0.25j * r).astype(np.complex64), device=dev)
+    handle = spt.prepare(A, method="cs_minres", M="jacobi", tol=1e-4, max_iter=1000,
+                         device=dev)
+    handle(b)
+    pd.reset_launch_counts()
+    x, info = handle(b)
+    torch.cuda.synchronize()
+    n, c = int(info.iterations), launch_counts()
+    res = complex_true_residual(arrays, A.shape, x, b.cpu().numpy())
+    got = (c["dia_complex_spmv"], c["dia_complex_dot"], fused.csm_lanczos.launches,
+           fused.csm_update.launches)
+    others = {k: v for k, v in c.items() if k not in ("dia_complex_spmv", "dia_complex_dot")}
+    if not (info.converged and res < 1e-3) or got != (1, n + 1, n + 1, n + 1) or any(
+            others.values()) or fused.cg_update.launches or fused.cg_direction.launches:
+        raise AssertionError(f"prepared CS-MINRES: {info}, true residual {res:.3e}, "
+                             f"(K5, K6, A, B) = {got}, others {others}")
+    wall, _, _, _ = timed_solves(handle, b, n, "CS-MINRES on A/B")
+    with mock.patch.object(csm, "_fused_dinv", lambda *args: (False, None)):
+        x_u, info_u = handle(b)
+        wall_u, _, _, _ = timed_solves(handle, b, int(info_u.iterations), "CS-MINRES unfused")
+    n_u = int(info_u.iterations)
+    if abs(n_u - n) > parity_band(n):
+        raise AssertionError(f"CS-MINRES: {n} iterations on A/B, {n_u} unfused")
+    log("kernels", entry="prepare(cs_minres, M='jacobi') on A/B", iterations=n,
+        true_residual=res, K5=got[0], K6=got[1], A=got[2], B=got[3],
+        per_iteration_ms=f"{wall / n * 1e3:.4f}", unfused_iterations=n_u,
+        unfused_per_iteration_ms=f"{wall_u / n_u * 1e3:.4f}")
 
 
 # --- phase 3c, the multigrid colour step (GS) and HPCG's cycle ---------------
@@ -5009,6 +5195,8 @@ def main() -> int:
     assert lib.sprsolve_dia_dots_scratch_head() == pd.DOT_SCRATCH_HEAD
     assert lib.sprsolve_orth_norm_tile() == pd.DOT_TILE
     assert lib.sprsolve_cg_tile() == pd.DOT_TILE
+    assert lib.sprsolve_csm_tile() == pd.COMPLEX_DOT_TILE
+    assert lib.sprsolve_csm_slots() == fused.CSM_SLOTS
     assert all(lib.sprsolve_orth_norm_blocks_per_sm(pd._VCODE[dt]) == pd.DOT_BLOCKS_PER_SM[dt]
                for dt in pd.REAL_DTYPES)
     assert lib.sprsolve_dia_complex_dots_tile() == pd.COMPLEX_DOT_TILE
@@ -5019,6 +5207,7 @@ def main() -> int:
     errs, _, stats = phase_kernels(dev)
     phase_cg_fused(dev)
     phase_gs_color(dev)
+    phase_csm_fused(dev)
     phase_spmm(dev, errs, stats)
     phase_complex_kernels(dev, errs, stats)
     launches = phase_slice(dev)

@@ -84,6 +84,17 @@ _SIGNATURES = {
     ),
     # vcode, r, dinv, p, rz_next, rz, p_out, grid, n, stream
     "sprsolve_cg_direction": ([_I32, _P, _P, _P, _P, _P, _P, _I32, _I64, _P], _I32),
+    "sprsolve_csm_tile": ([], _I32),
+    "sprsolve_csm_slots": ([], _I32),
+    "sprsolve_csm_lanczos_blocks_per_sm": ([_I32], _I32),   # vcode
+    "sprsolve_csm_update_blocks_per_sm": ([_I32], _I32),    # vcode
+    # vcode, y, v_old, v, dinv, alpha, state, w_out, scratch, scratch_bytes,
+    # grid, n, stream
+    "sprsolve_csm_lanczos": (
+        [_I32, _P, _P, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64, _P], _I32
+    ),
+    # vcode, w, p, p_old, x, v_next, w_next, state, grid, n, stream
+    "sprsolve_csm_update": ([_I32, _P, _P, _P, _P, _P, _P, _P, _I32, _I64, _P], _I32),
     # vcode, bcode, bands, z, r, n_pad, h, nx, ny, nz, color, offsets, nd, diag,
     # first, stream
     "sprsolve_gs_color_step": (

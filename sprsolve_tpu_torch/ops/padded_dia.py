@@ -580,14 +580,15 @@ dia_complex_wdot.launches = 0
 
 def reset_launch_counts() -> None:
     """Set the launch count of every kernel wrapper (K1-K7, K1b, CG's U and
-    P, the Gauss-Seidel colour step) to 0, and the solvers' count of host
-    reads (``solvers.common.read_flags.calls``)."""
+    P, CS-MINRES's A and B, the Gauss-Seidel colour step) to 0, and the
+    solvers' count of host reads (``solvers.common.read_flags.calls``)."""
     from ..solvers.common import read_flags
-    from .fused import cg_direction, cg_update, orth_norm
+    from .fused import cg_direction, cg_update, csm_lanczos, csm_update, orth_norm
     from .gs_color import color_step
 
     for wrapper in (dia_spmv, dia_spmm, dia_wdot, dia_dot, orth_norm, dia_complex_spmv,
-                    dia_complex_dot, dia_complex_wdot, cg_update, cg_direction, color_step):
+                    dia_complex_dot, dia_complex_wdot, cg_update, cg_direction, csm_lanczos,
+                    csm_update, color_step):
         wrapper.launches = 0
     read_flags.calls = 0
 

@@ -26,6 +26,19 @@ The loop is a Python ``while``.  Scalars stay 0-d tensors on the solve's
 device, and each iteration brings one small tensor of predicates (the
 convergence test, and with M the β² gate) to the host; the ``lax.cond``
 branches of the JAX package are Python branches on that read.
+
+Where the input allows it (:func:`_fused_dinv`: a flat complex b, no
+``group``, no residual history, and M None or a :class:`DiagPrecond` whose
+d⁻¹ is real, of b's real dtype and length), the iteration's vector work
+after the operator's ``matvec_conj_dot`` runs as two kernels,
+:func:`~sprsolve_tpu_torch.ops.fused.csm_lanczos` (A: the next Lanczos
+vector, its M⁻¹-image and dot, and the Givens step on the device) and
+:func:`~sprsolve_tpu_torch.ops.fused.csm_update` (B: p, x, v and w, after the
+read), in place of about 60 eager launches; the scalars then live in one
+small device tensor and the vectors in buffers of the solve's own. On the
+CPU their plain versions repeat the unfused ops one for one, so both loops
+give the same bits there. Every other input (real, distributed, any other
+M, ``record_residuals``) runs the unfused loop.
 """
 
 from __future__ import annotations
@@ -35,9 +48,31 @@ from typing import Optional
 import torch
 
 from ..errors import Status
+from ..ops import fused
+from ..ops.fused import csm_beta_gate, csm_givens, csm_guarded_inv
 from ..ops.operator import mv_conj_dot
-from ..vecalg import abs2, axpy, conj, conj_dot, eps_for, norm2, real_dtype, rscale
+from ..precond import DiagPrecond
+from ..vecalg import axpy, conj, conj_dot, eps_for, norm2, real_dtype, rscale
 from .common import _guard3, check_shapes, make_info, read_flags
+
+
+def _fused_dinv(b: torch.Tensor, x0: torch.Tensor, M, group, record_residuals: bool):
+    """``(True, d⁻¹ or None)`` when :func:`cs_minres` may run its updates as
+    the fused A/B pair: b flat and complex, x0 of its dtype and device, no
+    ``group``, no residual history, and M None (no d⁻¹) or a
+    :class:`DiagPrecond` whose ``diag_inv`` is real and of b's length, real
+    dtype and device. Else ``(False, None)``."""
+    if (group is not None or record_residuals or b.dtype not in (torch.complex64,
+                                                                  torch.complex128)
+            or b.dim() != 1 or x0.dtype != b.dtype or x0.device != b.device):
+        return False, None
+    if M is None:
+        return True, None
+    if type(M) is DiagPrecond:
+        d = M.diag_inv
+        if d.shape == b.shape and d.dtype == real_dtype(b.dtype) and d.device == b.device:
+            return True, d.contiguous()
+    return False, None
 
 
 def cs_minres(
@@ -62,6 +97,7 @@ def cs_minres(
         x0 = torch.zeros_like(b)
     check_shapes(A, b, x0, group)
     has_precond = M is not None
+    routed, dinv = _fused_dinv(b, x0, M, group, record_residuals)
 
     T, dev = b.dtype, b.device
     rdt = real_dtype(T)
@@ -69,23 +105,45 @@ def cs_minres(
     hist_len = max_iter if record_residuals else 0
     eps = eps_for(T, dev)
     one_t = torch.ones((), dtype=T, device=dev)
-    one_r = torch.ones((), dtype=rdt, device=dev)
     zero_r = torch.zeros((), dtype=rdt, device=dev)
 
     def imag(z):
         return z.imag if z.is_complex() else torch.zeros_like(z)
 
-    def beta_gate(beta_new2, noise_scale):
-        # β² = v̂ᴴM⁻¹v̂ must be real positive: a negative real part, or an
-        # imaginary part, counts only above the dot's noise floor
-        # ε·noise_scale (cs_minres.py:101-116)
-        re2 = beta_new2.real
-        return (re2 < -eps * noise_scale) | (
-            imag(beta_new2).abs() > eps * torch.maximum(re2.abs(), noise_scale))
-
-    def guarded_inv(beta):
-        # β = 0 is a warm start at the solution or lucky breakdown: scale by 0
-        return torch.where(beta > 0, one_r / beta, zero_r)
+    def fused_loop(v, w, beta, res_norm, threshold, beta_one, denom, status):
+        # the unfused loop below as A and B: the scalars in one device
+        # tensor, A writing v_next over v_old and w_next over the spare w
+        # buffer, B p_next over p_old and x in place, so x0 is never written
+        st = fused.csm_state(beta, res_norm, threshold, beta_one)
+        x = x0.clone(memory_format=torch.contiguous_format) if status == Status.RUNNING else x0
+        v_old, p, p_old = (torch.zeros_like(v) for _ in range(3))
+        w_spare = torch.empty_like(v) if has_precond else None
+        if not has_precond:
+            w = v
+        its, res = 0, zero_r
+        while status == Status.RUNNING and its < max_iter:
+            y, alpha = mv_conj_dot(A, w)
+            v_next, w_next = fused.csm_lanczos(y, v_old, v, dinv, alpha, st, w_spare)
+            del y
+            converged, bad = read_flags(st[fused.CSM_FLAGS:fused.CSM_FLAGS + 2])
+            if bad:
+                # the β² gate exits before the update (cs_minres.py:274-282)
+                status = Status.INVALID_PRECONDITIONER
+                break
+            fused.csm_update(w, p, p_old, x, v_next, w_next, st)
+            v_old, v = v, v_next
+            p_old, p = p, p_old
+            if has_precond:
+                w_spare, w = w, w_next
+            else:
+                w = v
+            if converged:
+                status, res = Status.CONVERGED, st[fused.CSM_RES] / denom
+            else:
+                its += 1
+        if status == Status.RUNNING:
+            status, res = Status.INSUFFICIENT_ITER, st[fused.CSM_RES] / denom
+        return x, make_info(its, res, status)
 
     def main(rhs_norm):
         tol_t = torch.tensor(tol, dtype=rdt, device=dev)
@@ -101,20 +159,20 @@ def cs_minres(
             w_new = M.matvec(v_new)
             beta_new2 = conj_dot(v_new, w_new, group)
             re_b = beta_b2.real
-            bad0 = (beta_gate(beta_new2, re_b) | (re_b <= 0)
+            bad0 = (csm_beta_gate(beta_new2, re_b, eps) | (re_b <= 0)
                     | (imag(beta_b2).abs() > eps * re_b))
             denom = torch.sqrt(torch.clamp(re_b, min=0))
             beta_new = torch.sqrt(torch.clamp(beta_new2.real, min=0))
             # |β²|^½: a clamped negative β² reports its magnitude, never 0
             res_norm = torch.sqrt(beta_new2.abs())
-            ts = guarded_inv(beta_new)
+            ts = csm_guarded_inv(beta_new)
             v_new, w_new = rscale(ts, v_new), rscale(ts, w_new)
         else:
             bad0 = torch.zeros((), dtype=torch.bool, device=dev)
             res_norm = norm2(v_new, group)
             denom = rhs_norm
             beta_new = res_norm
-            v_new = rscale(guarded_inv(beta_new), v_new)
+            v_new = rscale(csm_guarded_inv(beta_new), v_new)
             w_new = zeros
         beta_one = beta_new
         threshold = tol_t * denom
@@ -127,6 +185,9 @@ def cs_minres(
             return x0, make_info(0, res_norm / denom, Status.CONVERGED), hist
 
         status = Status.INVALID_PRECONDITIONER if bad else Status.RUNNING
+        if routed:
+            return (*fused_loop(v_new, w_new, beta_new, res_norm, threshold, beta_one, denom,
+                                status), hist)
         x, v, p, p_old = x0, zeros, zeros, zeros
         c = c_old = eta = one_t
         s = s_old = zero_r
@@ -146,20 +207,14 @@ def cs_minres(
                 w_next = M.matvec(v_next)
                 beta_next2 = conj_dot(v_next, w_next, group)
                 # the gate's noise scale is the previous β², free
-                bad = beta_gate(beta_next2, beta * beta)
+                bad = csm_beta_gate(beta_next2, beta * beta, eps)
                 beta_next = torch.sqrt(torch.clamp(beta_next2.real, min=0))
             else:
                 beta_next = norm2(v_next, group)
 
             # modified Givens with c / c̄ entries (src/cs_minres.rs:109-134)
-            ts = guarded_inv(beta_next)
-            r3 = s_old * beta
-            tr = torch.conj(c_old) * beta
-            r2 = alpha * s + c * tr
-            r1_hat = torch.conj(c) * alpha - tr * s
-            r1_inv = one_r / torch.sqrt(abs2(r1_hat) + beta_next * beta_next)
-            c_next = torch.conj(r1_hat) * r1_inv
-            s_next = beta_next * r1_inv
+            ts, r2, r3, r1_inv, c_next, s_next = csm_givens(alpha, beta, beta_next, c_old, c,
+                                                            s_old, s)
 
             # p seeded from conj(q_k) (src/cs_minres.rs:141-146); with M from
             # conj(w_k)

@@ -24,7 +24,13 @@ Tolerances, by vector dtype (eps = 2⁻²³ for f32, 2⁻⁵² for f64):
 - CG's U and P: x', r', p' within 8·eps of the sum of their terms' sizes
   per entry, rz', rr' and ‖r'‖ within DOT_RTOL of the plain version (both
   sides may fuse a multiply-add; block partials against one sum), and
-  bitwise the same over grids, eager calls, graph replays and alignments."""
+  bitwise the same over grids, eager calls, graph replays and alignments;
+- CS-MINRES's A and B: v', w' within 8·eps·(|y| + |β||v_old| + |α||v|) per
+  entry, p' and x within 8·eps of the sum of their terms' sizes, A's
+  Givens scalars within 10·DOT_RTOL of the plain version's, each relative
+  to its own size (they come from the sums; at most a few roundings past
+  them), the predicates equal; bitwise the same over grids, eager calls,
+  graph replays and alignments."""
 
 import importlib
 import os
@@ -1590,3 +1596,192 @@ def test_cuda_hpcg_cycle_matches_plain_and_counts_its_steps(cuda):
     assert gs_color.color_step.launches == 105 and pd.dia_spmv.launches == 3
     want = mg_cpu.matvec(r)
     assert float((z.cpu() - want).norm() / want.norm()) < 1e-12
+
+
+# --- CS-MINRES's fused updates A (csm_lanczos) and B (csm_update) -----------
+CSM_DTYPES = {"c64": torch.complex64, "c128": torch.complex128}
+
+
+def _csm_operands(n, dt, cuda, seed=46):
+    """(y, v_old, v, w, p, p_old, x, d⁻¹, α, state): complex vectors of n
+    rows and norm about 1, d⁻¹ in (0.1, 1), α a 0-d CUDA tensor as K6
+    leaves it, and a state of generic scalars (``chip_smoke``'s)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    vec = lambda: torch.randn(n, generator=g, device=cuda, dtype=dt) / n ** 0.5
+    y, vold, v, w, p, pold, x = (vec() for _ in range(7))
+    d = torch.rand(n, generator=g, device=cuda, dtype=dt.to_real()) * 0.9 + 0.1
+    alpha = torch.tensor(0.3 + 0.15j, dtype=dt, device=cuda)
+    return y, vold, v, w, p, pold, x, d, alpha, smoke.csm_start_state(dt, cuda)
+
+
+def _csm_a(ops, d, st, vold=None):
+    """A on clones of the in-place operands: ``(v', w', state)``."""
+    y, v_old, v = ops[0], ops[1] if vold is None else vold, ops[2]
+    st = st.clone()
+    vn, wn = fused.csm_lanczos(y, v_old.clone(), v, d, ops[8], st, torch.empty_like(y))
+    return vn, wn, st
+
+
+def _csm_b(ins, st):
+    """B on clones of its operands: ``[p', x, v', w']``."""
+    outs = [None if t is None else t.clone() for t in ins[2:]]
+    fused.csm_update(ins[0], ins[1], *outs, st)
+    return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_d", [True, False])
+@pytest.mark.parametrize("dt", sorted(CSM_DTYPES))
+@pytest.mark.parametrize("size", sorted(CG_SIZES))
+def test_cuda_csm_lanczos_and_update_match_plain(size, dt, has_d, cuda):
+    """A's v' and w' within 8·eps·(|y| + β|v_old| + |α||v|) of the plain
+    version, its Givens scalars within 10·DOT_RTOL each, the predicates
+    equal (for a threshold above and below the next residual); B's p' and
+    x within 8·eps of their terms' sizes, v' and w' within 2·eps; one count
+    a call each, and the same bits from vectors that start off a 16-byte
+    boundary (one row at a time)."""
+    dt = CSM_DTYPES[dt]
+    rdt = dt.to_real()
+    ops = _csm_operands(CG_SIZES[size], dt, cuda)
+    y, vold, v, w, p, pold, x, d, alpha, st0 = ops
+    d = d if has_d else None
+    eps = EPS[rdt]
+    for threshold in (1e-30, 1e30):
+        st0[fused.CSM_THRESHOLD] = threshold
+        st_r = st0.clone()
+        vn_r, wn_r = fused.csm_lanczos_plain(y, vold.clone(), v, d, alpha, st_r,
+                                             torch.empty_like(y), eps)
+        before = fused.csm_lanczos.launches
+        vn, wn, st = _csm_a(ops, d, st0)
+        assert fused.csm_lanczos.launches == before + 1
+        bound = 8 * eps * (y.abs() + 0.05 * vold.abs() + alpha.abs() * v.abs())
+        assert bool(((vn - vn_r).abs() <= bound).all())
+        assert (wn is None) == (d is None)
+        if d is not None:
+            assert bool(((wn - wn_r).abs() <= bound * d + eps * wn_r.abs()).all())
+        k = fused.CSM_FLAGS
+        tol = 10 * DOT_RTOL[rdt] * st_r[:k].abs().clamp(min=1e-30)
+        assert bool(((st[:k] - st_r[:k]).abs() <= tol).all()), (st[:k], st_r[:k])
+        assert st[k:].tolist() == st_r[k:].tolist() == [float(threshold > 1), 0.0]
+    ins = (w if d is not None else v, p, pold, x, vn_r, wn_r if d is not None else None)
+    before = fused.csm_update.launches
+    got = _csm_b(ins, st_r)
+    assert fused.csm_update.launches == before + 1
+    want = [None if t is None else t.clone() for t in ins[2:]]
+    fused.csm_update_plain(ins[0], ins[1], *want, st_r)
+    r2, r3, r1_inv, ts, xc = (float(abs(fused._cplx(st_r, fused.CSM_R2))),
+                              float(st_r[fused.CSM_R3]), float(st_r[fused.CSM_R1_INV]),
+                              float(st_r[fused.CSM_TS]),
+                              float(abs(fused._cplx(st_r, fused.CSM_XC))))
+    p_terms = r1_inv * (ins[0].abs() + r2 * p.abs() + r3 * pold.abs())
+    assert bool(((got[0] - want[0]).abs() <= 8 * eps * p_terms).all())
+    assert bool(((got[1] - want[1]).abs() <= 8 * eps * (x.abs() + xc * p_terms)).all())
+    for k in (2, 3):
+        if want[k] is not None:
+            assert bool(((got[k] - want[k]).abs() <= 2 * eps * ts * ins[k + 2].abs()).all())
+
+    def off16(t):   # t's values in a buffer one element past a 16-byte boundary
+        if t is None:
+            return None
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        buf[1:] = t
+        return buf[1:]
+
+    off = tuple(off16(t) for t in ops[:7]) + (off16(ops[7]),) + ops[8:]
+    vn_m, wn_m, st_m = _csm_a(off, off16(d), st0)
+    assert torch.equal(vn_m, vn) and torch.equal(st_m, st)
+    assert (wn_m is None and wn is None) or torch.equal(wn_m, wn)
+    got_m = _csm_b(tuple(off16(t) for t in ins), st_r)
+    assert all((a is None and b is None) or torch.equal(a, b) for a, b in zip(got_m, got))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", sorted(CSM_DTYPES))
+def test_cuda_csm_sums_are_deterministic_and_replay_in_a_graph(dt, cuda, monkeypatch):
+    """A's state and every output of A and B bitwise the same over 10 eager
+    calls, grids of 1 and 7 SMs and 3 replays of a CUDA graph of A then B;
+    the ticket is back at 0; one kernel a call (``chip_smoke.kernel_events``),
+    named for none of K1-K7."""
+    dt = CSM_DTYPES[dt]
+    ops = _csm_operands(CG_SIZES["ragged"], dt, cuda, seed=47)
+    d = ops[7]
+
+    def step():
+        vn, wn, st = _csm_a(ops, d, ops[9])
+        return (vn, wn, st, *_csm_b((ops[3], ops[4], ops[5], ops[6], vn, wn), st))
+
+    first = step()
+    same = lambda got: all(torch.equal(a, b) for a, b in zip(got, first))
+    for _ in range(10):
+        assert same(step())
+    for sms in (1, 7):
+        monkeypatch.setattr(pd, "_sm_count", lambda index, sms=sms: sms)
+        assert same(step()), sms
+    monkeypatch.undo()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, first))
+    for buf in pd._dot_scratch.values():
+        assert int(buf[:4].view(torch.int32).item()) == 0
+    for call, kernel in ((lambda: _csm_a(ops, d, ops[9]), "csm_lanczos_kernel"),
+                         (lambda: _csm_b((ops[3], ops[4], ops[5], ops[6], ops[2], ops[1]),
+                                         ops[9]), "csm_update_kernel")):
+        names = [name for name, _ in smoke.kernel_events(call) if "emcpy" not in name
+                 and "elementwise" not in name]
+        assert len(names) == 1 and kernel in names[0], names
+        assert not any(f in names[0] for f in ("dia_spmv_kernel", "dia_dots_kernel",
+                                               "orth_norm_kernel", "dia_complex_",
+                                               "dia_spmm_kernel", "gs_color_step_kernel"))
+
+
+def _damped_helmholtz(side: int):
+    """The damped complex-symmetric Poisson A + 0.5i·I on side³ (c64) and a
+    complex normal b."""
+    P = problems.poisson3d(side, side, side, dtype=np.float64)
+    data = P.data.numpy().astype(np.complex64)
+    data[P.indices.numpy() == P.row_ids.numpy()] += 0.5j
+    A = tsp.CSR.from_arrays(data, P.indices, P.indptr, P.shape)
+    rng = np.random.default_rng(11)
+    b = (rng.standard_normal(P.shape[0]) + 1j * rng.standard_normal(P.shape[0]))
+    return A, b.astype(np.complex64)
+
+
+@pytest.mark.cuda
+def test_cuda_prepared_cs_minres_runs_k6_a_and_b_once_an_iteration(cuda):
+    """prepare(method="cs_minres", M="jacobi") on the 64³ damped Helmholtz
+    operator: K5 once, K6, A and B its + 1 times each, nothing else; the
+    true residual (f64) meets the tolerance's band, the count lies within 1
+    of the CPU's loop (the plain versions, bitwise the unfused loop), and a
+    second solve gives bitwise the same x in as many iterations."""
+    import scipy.sparse as sps
+
+    A, b = _damped_helmholtz(64)
+    handle = tsp.prepare(A, method="cs_minres", M="jacobi", tol=1e-5, max_iter=1000,
+                         device=cuda)
+    pd.reset_launch_counts()
+    x, info = handle(b)
+    torch.cuda.synchronize()
+    n = int(info.iterations)
+    assert info.converged and n > 20
+    assert (pd.dia_complex_spmv.launches, pd.dia_complex_dot.launches) == (1, n + 1)
+    assert fused.csm_lanczos.launches == fused.csm_update.launches == n + 1
+    assert pd.dia_complex_wdot.launches == pd.dia_spmv.launches == pd.dia_dot.launches == 0
+    assert fused.cg_update.launches == fused.orth_norm.launches == 0
+    S = sps.csr_matrix((A.data.numpy().astype(np.complex128), A.indices.numpy(),
+                        A.indptr.numpy()), shape=A.shape)
+    res = np.linalg.norm(S @ x.cpu().numpy().astype(np.complex128) - b) / np.linalg.norm(b)
+    assert res < 1e-4
+    _, info_cpu = tsp.prepare(A, method="cs_minres", M="jacobi", tol=1e-5, max_iter=1000,
+                              device="cpu")(b)
+    assert info_cpu.converged and abs(int(info_cpu.iterations) - n) <= 1
+    x2, info2 = handle(b)
+    assert info2.iterations == n and torch.equal(x2, x)
